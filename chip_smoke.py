@@ -7,24 +7,34 @@ card and check it end to end.
 Phases, each printing one JSON line (any failure exits non-zero):
 
 1. card and build: the card's name and power limit (``nvidia-smi``),
-   then the merge-search kernel built from ``csrc/merge_search.cu`` with
+   then the merge-path kernel built from ``csrc/merge_path.cu`` with
    nvcc for sm_90a (seconds, ptxas report);
-2. kernel against its plain torch version: L in {1, 3, 4, 8} with
-   random ``a_count`` (0 and m included), heavy duplicates, n > m and
-   n < m, lanes on both sides of 2^63, and the main path's shapes at
-   L = 4 and L = 1; exact equality; per shape the kernel's, the plain
-   version's and (L = 1) ``torch.searchsorted``'s time (CUDA events,
-   median of 25) beside the memory bound;
+2. kernel against its plain torch versions, exactly: insertion points
+   (``pos``) against ``search_right_torch`` for L in {1, 2, 3, 4, 5, 8,
+   13}, random ``a_count`` (0 and m included), heavy duplicates, lanes on
+   both sides of 2^63; the merged run (``src``, merged lanes, ``pos``)
+   against ``merge_source_map_torch`` with ``b_count < n`` and unsorted
+   padding, overflow, ``cap_a = 0``, empty sides and tie runs longer
+   than a tile; then each of the main path's merge shapes (cap_a, cap_b,
+   out) at L = 4 and L = 1, timed as one CUDA-event pair around R
+   back-to-back launches / R (and the same launches replayed from a CUDA
+   graph, which leaves out the host): the fused kernel, the kernel with
+   only ``pos``, the unfused chain (the kernel's ``pos``, then the
+   mark/cumsum inversion and the lanes gather in eager torch), the plain
+   chain (plain search + inversion + lanes gather), ``torch.searchsorted``
+   at L = 1, beside the memory bound;
 3. the maintained TPC-H lineitem index at SF 1 (the reference bench's
    ``config_index`` layout with ``state_cap = 2^23``): hydrate the
    snapshot in spans, churn 32 ticks as spans of 16, one flags readback
-   per span, kernel launches counted over the whole run, the maintained
-   multiset against a numpy oracle, and a full scan, 64
-   ``l_orderkey = k`` lookups and 64 full-row point lookups against it;
-4. the same configuration at SF 0.01 with the merge search forced to
-   the kernel and then to the plain version: the spines must be equal.
+   per span, kernel launches counted over the whole run in all and by
+   merge shape, the maintained multiset against a numpy oracle, and a
+   full scan, 64 ``l_orderkey = k`` lookups and 64 full-row point
+   lookups against it;
+4. the same configuration at SF 0.01 with the merge forced to the
+   kernel and then to the plain chain: the spines must be equal.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+``{"phase": "kernel_table", ...}`` gives one row per main-path merge
+shape. The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
 and prints no result.
 """
@@ -41,7 +51,18 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
-REPS = 25
+TARGET_MS = 25.0  # device time per timed run of launches
+
+# The index's merge shapes (cap_a, cap_b, out_capacity) with ce = 4,
+# ratio = 4, 4 slots of 2^14 and the run ladder 2^19/2^21/2^23/2^23: the
+# slot tree, the slot flush into run 0, the three level folds.
+MAIN_SHAPES = (
+    (1 << 14, 1 << 14, 1 << 15), (1 << 15, 1 << 15, 1 << 16),
+    (1 << 19, 1 << 16, 1 << 19),
+    (1 << 21, 1 << 19, 1 << 21), (1 << 23, 1 << 21, 1 << 23),
+    (1 << 23, 1 << 23, 1 << 23),
+)
+KERNEL_SHAPE = (1 << 23, 1 << 21, 1 << 23)  # the level-2 fold
 
 
 def emit(obj) -> None:
@@ -53,28 +74,61 @@ def check(cond, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
-def cuda_ms(torch, fn, reps: int = REPS, warmup: int = 3) -> float:
-    """Median device time of ``fn`` over ``reps`` launches (CUDA events)."""
-    for _ in range(warmup):
-        fn()
+def cuda_ms(torch, fn, graph: bool = False):
+    """Device ms per call of ``fn``: one CUDA-event pair around R
+    back-to-back calls, / R, after a warm-up; R sized so the run takes
+    about ``TARGET_MS``. With ``graph`` the R calls are captured once in a
+    CUDA graph and the replay is timed (no host work between launches).
+    Returns (ms, R)."""
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    fn()
     torch.cuda.synchronize()
-    evs = []
-    for _ in range(reps):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    fn()
+    e.record()
+    torch.cuda.synchronize()
+    reps = max(3, min(500, int(TARGET_MS / max(s.elapsed_time(e), 1e-3))))
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
         s.record()
-        fn()
+        g.replay()
         e.record()
-        evs.append((s, e))
+    else:
+        s.record()
+        for _ in range(reps):
+            fn()
+        e.record()
     torch.cuda.synchronize()
-    return float(np.median([s.elapsed_time(e) for s, e in evs]))
+    return s.elapsed_time(e) / reps, reps
 
 
 def search_bound_ms(m_count: int, n: int, L: int) -> float:
-    """Least time for the search: read b once, write out once, and probe
-    at most a's valid prefix once (or n full searches, if fewer bytes)."""
+    """Least time for the insertion points alone: read b once, write pos
+    once, and probe at most a's valid prefix once (or n full searches,
+    if fewer bytes)."""
     probe = min(m_count * L * 8, n * math.ceil(math.log2(m_count + 1)) * L * 8)
     return (n * L * 8 + n * 4 + probe) / HBM_BYTES_PER_S * 1e3
+
+
+def merge_bound_ms(a_count: int, b_count: int, cap_a: int, out: int, L: int) -> float:
+    """Least time for the merged run: read the T = min(a_count + b_count,
+    out) rows the merge consumes and the distinct padding source rows
+    once, write src and the merged lanes once."""
+    total = min(a_count + b_count, out)
+    pad_rows = 0
+    if out > total:
+        if cap_a:
+            pad_rows = max(0, min(out - 1 - b_count, cap_a - 1) - a_count + 1)
+        else:
+            pad_rows = 0 if b_count else 1
+    moved = (total + pad_rows) * L * 8 + out * 8 + out * L * 8
+    return moved / HBM_BYTES_PER_S * 1e3
 
 
 # -- consolidation oracle (numpy, independent of the port) ---------------------
@@ -118,88 +172,180 @@ def phase_card_and_build(torch, merge_kernel) -> str:
         "card": card,
         "device_name": torch.cuda.get_device_name(0),
         "build_s": time.perf_counter() - t0,
-        "ptxas": [l for l in merge_kernel.BUILD_INFO["log"].splitlines() if "ptxas" in l],
+        "ptxas": [l.strip() for l in merge_kernel.BUILD_INFO["log"].splitlines()
+                  if "ptxas" in l or "spill" in l],
     })
     return card
 
 
-def _pool_lanes(rng, m, L):
-    pool = np.array(
-        [0, 1, 2, (1 << 63) - 1, 1 << 63, (1 << 63) + 1, (1 << 64) - 1], dtype=np.uint64
-    )
-    a = pool[rng.integers(0, len(pool), (m, L))]
-    return a[np.lexsort(a.T[::-1])]
+_POOL = np.array(
+    [0, 1, 2, (1 << 63) - 1, 1 << 63, (1 << 63) + 1, (1 << 64) - 1], dtype=np.uint64
+)
+_TIES = np.array([3, 1 << 63], dtype=np.uint64)
 
 
-def _hash_lanes(rng, m, L, share_from=None):
-    """Sorted hash-order lanes like the index's ([kh1, kh2, kh1, kh2] at
-    L = 4): random 64-bit values; ``share_from`` copies a quarter of
-    another run's rows (a retraction meeting its insert)."""
-    h = rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max, (m, 2),
+def _pool_lanes(rng, cap, L, count=None, pool=_POOL):
+    """[cap, L] u64 lanes: a sorted prefix of ``count`` rows (all by
+    default) drawn from ``pool`` (heavy duplicates, both sides of 2^63),
+    then unsorted padding."""
+    count = cap if count is None else count
+    valid = pool[rng.integers(0, len(pool), (count, L))]
+    valid = valid[np.lexsort(valid.T[::-1])]
+    pad = rng.integers(0, 1 << 63, (cap - count, L), dtype=np.uint64) * np.uint64(2)
+    return np.concatenate([valid, pad]).reshape(cap, L)
+
+
+def _hash_run(torch, rng, cap, count, share_from=None):
+    """A run like the index's at L = 4 ([kh1, kh2, kh1, kh2], random
+    64-bit hashes, stored form) on the card: ``count`` valid rows sorted
+    (on the device), then unsorted padding. ``share_from`` (host [k, 2])
+    copies a quarter of its rows from another run (a retraction meeting
+    its insert). Returns (lanes, host hashes of the valid rows)."""
+    h = rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max, (cap, 2),
                      dtype=np.int64, endpoint=True)
     if share_from is not None and len(share_from):
-        k = m // 4
-        h[:k] = share_from[rng.integers(0, len(share_from), k)][:, :2]
-    lanes = np.tile(h, (1, 2))[:, :L] if L >= 2 else h[:, :1]
-    return lanes[np.lexsort(lanes.T[::-1])]
+        k = count // 4
+        h[:k] = share_from[rng.integers(0, len(share_from), k)]
+    t = torch.from_numpy(h).cuda()
+    v = t[:count]
+    v = v[torch.sort(v[:, 1], stable=True).indices]
+    v = v[torch.sort(v[:, 0], stable=True).indices]
+    t[:count] = v
+    return t[:, [0, 1, 0, 1]].contiguous(), h[:count]
 
 
-def phase_kernel(torch, merge_kernel, search_right_torch, card) -> dict:
+def _err(torch, got, want) -> float:
+    if torch.equal(got, want):
+        return 0.0
+    if got.shape != want.shape:
+        return float("inf")
+    return float((got.double() - want.double()).abs().max())
+
+
+def _merge_cases(rng):
+    """(cap_a, a_count, cap_b, b_count, out_capacity, L, pool)."""
+    for L in (1, 2, 3, 4, 5, 8, 13):
+        yield 5000, 4000, 2000, 1500, 8192, L, _POOL       # b_count < n, padding slots
+        yield 5000, 4000, 2000, 1500, 5000, L, _POOL       # overflow
+        yield 5000, 0, 2000, 1500, 4096, L, _POOL          # a_count 0
+        yield 5000, 4000, 2000, 0, 8192, L, _POOL          # b_count 0
+        yield 0, 0, 2000, 1500, 2048, L, _POOL             # cap_a 0
+        yield 12000, 10000, 9000, 8000, 32768, L, _TIES    # tie runs of ~9000 rows
+
+
+def phase_kernel(torch, merge_kernel, card) -> dict:
     from materialize_tpu_torch.ops.lanes import from_u64
+    from materialize_tpu_torch.ops.merge import (
+        merge_source_map_torch,
+        search_right_torch,
+        source_map_from_points,
+    )
 
     rng = np.random.default_rng(1234)
-    max_err = 0
-    n_cases = 0
+    max_err = 0.0
+    cases = {"pos": 0, "merge": 0}
 
-    def compare(a, count, b):
-        nonlocal max_err, n_cases
-        c = torch.tensor(count, dtype=torch.int32, device="cuda")
-        got = merge_kernel.search_right(a, c, b)
-        want = search_right_torch(a, c, b)
-        torch.cuda.synchronize()
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) if len(got) else 0
+    def on_card(u):
+        return torch.from_numpy(from_u64(u)).cuda()
+
+    def count(n):
+        return torch.tensor(n, dtype=torch.int32, device="cuda")
+
+    def compare_pos(a, ac, b):
+        nonlocal max_err
+        c = count(ac)
+        err = _err(torch, merge_kernel.search_right(a, c, b), search_right_torch(a, c, b))
         max_err = max(max_err, err)
-        n_cases += 1
-        check(err == 0, f"kernel != plain at m={a.shape[0]} n={b.shape[0]} L={a.shape[1]} count={count}")
+        cases["pos"] += 1
+        check(err == 0, f"pos != plain at m={a.shape[0]} n={b.shape[0]} L={a.shape[1]} count={ac}")
 
-    for L in (1, 3, 4, 8):
+    def compare_merge(a, ac, b, bc, out):
+        nonlocal max_err
+        cap_a, cap_b = a.shape[0], b.shape[0]
+        ca, cb = count(ac), count(bc)
+        src, lanes, pos = merge_kernel.merge_path(a, ca, cap_a, b, cb, out, want_pos=True)
+        w_src, w_lanes = merge_source_map_torch(a, ca, cap_a, b, cb, cap_b, out)
+        ins = search_right_torch(a, ca, b)
+        j = torch.arange(cap_b, device="cuda")
+        w_pos = torch.where((j < bc) & (j + ins < out), ins, -1)
+        err = max(_err(torch, src, w_src), _err(torch, lanes, w_lanes), _err(torch, pos, w_pos))
+        max_err = max(max_err, err)
+        cases["merge"] += 1
+        check(err == 0, f"merge != plain at {(cap_a, ac, cap_b, bc, out, a.shape[1])}")
+
+    for L in (1, 2, 3, 4, 5, 8, 13):
         for m, n in ((5000, 700), (700, 5000), (4096, 4096), (0, 300)):
-            a = torch.from_numpy(from_u64(_pool_lanes(rng, m, L))).cuda().contiguous()
-            b = torch.from_numpy(from_u64(_pool_lanes(rng, n, L))).cuda().contiguous()
-            for count in sorted({0, m, int(rng.integers(0, m + 1))}):
-                compare(a, count, b)
-    emit({"phase": "kernel_random", "cases": n_cases, "max_abs_err": max_err})
+            a = on_card(_pool_lanes(rng, m, L))
+            b = on_card(_pool_lanes(rng, n, L))
+            for ac in sorted({0, m, int(rng.integers(0, m + 1))}):
+                compare_pos(a, ac, b)
+    for cap_a, ac, cap_b, bc, out, L, pool in _merge_cases(rng):
+        compare_merge(on_card(_pool_lanes(rng, cap_a, L, ac, pool)), ac,
+                      on_card(_pool_lanes(rng, cap_b, L, bc, pool)), bc, out)
+    torch.cuda.synchronize()
+    emit({"phase": "kernel_random", "pos_cases": cases["pos"],
+          "merge_cases": cases["merge"], "max_abs_err": max_err})
 
     rows = []
-    for m, n in ((16384, 16384), (1 << 19, 65536), (1 << 23, 1 << 21)):
+    for cap_a, cap_b, out in MAIN_SHAPES:
+        ac = int(cap_a * 0.7) - int(rng.integers(0, cap_a // 16))
+        bc = min(int(cap_b * 0.7) - int(rng.integers(0, cap_b // 16)), out - ac - out // 16)
+        a4, ah = _hash_run(torch, rng, cap_a, ac)
+        b4, _ = _hash_run(torch, rng, cap_b, bc, share_from=ah)
         for L in (4, 1):
-            an = _hash_lanes(rng, m, L)
-            bn = _hash_lanes(rng, n, L, share_from=an)
-            a = torch.from_numpy(an).cuda()
-            b = torch.from_numpy(bn).cuda()
-            count = int(m - rng.integers(0, m // 4))
-            compare(a, count, b)
-            c = torch.tensor(count, dtype=torch.int32, device="cuda")
-            k_ms = cuda_ms(torch, lambda: merge_kernel.search_right(a, c, b))
-            p_ms = cuda_ms(torch, lambda: search_right_torch(a, c, b))
-            lib_ms = None
+            a = a4 if L == 4 else a4[:, :1].contiguous()
+            b = b4 if L == 4 else b4[:, :1].contiguous()
+            ca, cb = count(ac), count(bc)
+            compare_merge(a, ac, b, bc, out)
+            bv = b[:bc].contiguous()
+            compare_pos(a, ac, bv)
+            ms, reps = cuda_ms(torch, lambda: merge_kernel.merge_path(a, ca, cap_a, b, cb, out))
+            graph_ms, _ = cuda_ms(
+                torch, lambda: merge_kernel.merge_path(a, ca, cap_a, b, cb, out), graph=True
+            )
+            def unfused():
+                ins = merge_kernel.search_right(a, ca, b, cb)
+                return source_map_from_points(ins, a, cap_a, b, cb, cap_b, out)
+
+            fused = merge_kernel.merge_path(a, ca, cap_a, b, cb, out)
+            check(all(torch.equal(x, y) for x, y in zip(unfused(), fused)),
+                  "unfused chain != kernel")
+            chain_ms, _ = cuda_ms(torch, unfused)
+            plain_ms, plain_reps = cuda_ms(
+                torch, lambda: merge_source_map_torch(a, ca, cap_a, b, cb, cap_b, out)
+            )
+            pos_ms, _ = cuda_ms(torch, lambda: merge_kernel.search_right(a, ca, bv))
+            pos_graph_ms, _ = cuda_ms(
+                torch, lambda: merge_kernel.search_right(a, ca, bv), graph=True
+            )
+            lib_ms = lib_graph_ms = None
             if L == 1:
-                a1 = a[:count, 0].contiguous()
-                b1 = b[:, 0].contiguous()
+                a1 = a[:ac, 0].contiguous()
+                b1 = bv[:, 0].contiguous()
                 lib = torch.searchsorted(a1, b1, right=True)
-                check(torch.equal(lib.to(torch.int32), merge_kernel.search_right(a, c, b)),
+                check(torch.equal(lib.to(torch.int32), merge_kernel.search_right(a, ca, bv)),
                       "torch.searchsorted disagrees with the kernel")
-                lib_ms = cuda_ms(torch, lambda: torch.searchsorted(a1, b1, right=True))
-            bound = search_bound_ms(count, n, L)
+                lib_ms, _ = cuda_ms(torch, lambda: torch.searchsorted(a1, b1, right=True))
+                lib_graph_ms, _ = cuda_ms(
+                    torch, lambda: torch.searchsorted(a1, b1, right=True), graph=True
+                )
+            bound = merge_bound_ms(ac, bc, cap_a, out, L)
+            pos_bound = search_bound_ms(ac, bc, L)
             row = {
-                "phase": "kernel_shape", "m": m, "n": n, "L": L, "a_count": count,
-                "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
-                "bound_ms": bound, "bound_share": bound / k_ms, "card": card,
+                "phase": "kernel_shape", "cap_a": cap_a, "cap_b": cap_b, "out": out,
+                "L": L, "a_count": ac, "b_count": bc, "reps": reps,
+                "ms": ms, "graph_ms": graph_ms, "bound_ms": bound,
+                "bound_share": bound / ms, "chain_ms": chain_ms,
+                "plain_ms": plain_ms, "plain_reps": plain_reps,
+                "pos_ms": pos_ms, "pos_graph_ms": pos_graph_ms, "pos_bound_ms": pos_bound,
+                "pos_bound_share": pos_bound / pos_ms,
+                "library_ms": lib_ms, "library_graph_ms": lib_graph_ms, "card": card,
             }
             emit(row)
             rows.append(row)
-            del a, b
-    torch.cuda.empty_cache()
+            del a, b, bv, fused
+        del a4, b4
+        torch.cuda.empty_cache()
     return {"max_abs_err": max_err, "rows": rows}
 
 
@@ -227,6 +373,7 @@ def phase_index(torch, merge_kernel, card, sf: float = 1.0) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     merge_kernel.LAUNCHES = 0
+    merge_kernel.LAUNCHES_BY_SHAPE.clear()
     folds_before = df._folds
     # -- main path: hydrate -----------------------------------------------------
     t_h = time.perf_counter()
@@ -314,6 +461,7 @@ def phase_index(torch, merge_kernel, card, sf: float = 1.0) -> dict:
     base = df.output_batch()
     torch.cuda.synchronize()
     launches = merge_kernel.LAUNCHES
+    by_shape = dict(merge_kernel.LAUNCHES_BY_SHAPE)
     b_cols = base.to_columns()
     b_rows, b_sums = consolidate_np(host_matrix(b_cols[:13]), b_cols[14])
     check(len(b_sums) == int(base.count), "compacted base holds duplicate rows")
@@ -322,6 +470,9 @@ def phase_index(torch, merge_kernel, card, sf: float = 1.0) -> dict:
 
     folds = df._folds - folds_before
     check(launches > 0 and launches >= folds, f"launches {launches} < folds {folds}")
+    check(sum(by_shape.values()) == launches, "launches by shape do not add up")
+    missing = [s for s in MAIN_SHAPES if not any(k[:3] == s for k in by_shape)]
+    check(not missing, f"main-path merge shapes never launched: {missing}")
     out = {
         "phase": "index", "sf": sf, "card": card,
         "lineitem_rows": int(len(o_sums)), "hydrate_ticks": len(h_inputs),
@@ -336,8 +487,10 @@ def phase_index(torch, merge_kernel, card, sf: float = 1.0) -> dict:
         "max_memory_allocated": int(torch.cuda.max_memory_allocated()),
         "ladder": ladder, "slots": slots, "ladder_after": [b.capacity for b in df.output.runs_b],
         "launches": launches, "folds": folds, "oracle_s": oracle_s,
+        "launches_by_shape": {",".join(map(str, k)): v for k, v in sorted(by_shape.items())},
     }
     emit(out)
+    out["by_shape"] = by_shape
     del df, h_inputs, c_inputs, fed, base
     torch.cuda.empty_cache()
     return out
@@ -390,18 +543,27 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from materialize_tpu_torch.ops import merge_kernel
-    from materialize_tpu_torch.ops.merge import search_right_torch
 
     t0 = time.perf_counter()
     card = phase_card_and_build(torch, merge_kernel)
-    kern = phase_kernel(torch, merge_kernel, search_right_torch, card)
+    kern = phase_kernel(torch, merge_kernel, card)
     index = phase_index(torch, merge_kernel, card)
     phase_modes(torch, merge_kernel, card)
-    big = next(r for r in kern["rows"] if r["m"] == 1 << 23 and r["L"] == 4)
+    by_shape = index.pop("by_shape")
+    table = [
+        {k: r[k] for k in ("cap_a", "cap_b", "out", "L", "ms", "graph_ms", "bound_ms",
+                           "bound_share", "chain_ms", "plain_ms", "pos_ms", "pos_graph_ms",
+                           "pos_bound_share", "library_ms", "library_graph_ms")}
+        | {"launches": by_shape.get((r["cap_a"], r["cap_b"], r["out"], r["L"]), 0)}
+        for r in kern["rows"]
+    ]
+    emit({"phase": "kernel_table", "card": card, "rows": table})
+    big = next(r for r in kern["rows"]
+               if (r["cap_a"], r["cap_b"], r["out"]) == KERNEL_SHAPE and r["L"] == 4)
     emit({"kernels": [{
-        "name": "merge_search_right",
+        "name": "merge_path",
         "route": "cuda",
-        "source": "materialize_tpu_torch/csrc/merge_search.cu",
+        "source": "materialize_tpu_torch/csrc/merge_path.cu",
         "replaces": "materialize_tpu/ops/merge_pallas.py:157",
         "launches": index["launches"],
         "max_abs_err": kern["max_abs_err"],

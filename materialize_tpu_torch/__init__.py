@@ -2,8 +2,9 @@
 
 The JAX package (``materialize_tpu``) stays the reference; this package
 re-implements its maintained-index slice on torch tensors, with the one
-Pallas kernel of that path (the merge insertion-point search) written in
-CUDA C++ for Hopper (``csrc/merge_search.cu``).
+Pallas kernel of that path (the merge insertion-point search) redesigned
+in CUDA C++ for Hopper as a merge-path merge that also writes the merged
+run's source map and lanes (``csrc/merge_path.cu``).
 
 Rules the whole package keeps:
 

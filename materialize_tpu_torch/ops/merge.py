@@ -1,13 +1,12 @@
 """Merge of two sorted batches, carrying their stacked lanes (the port of
 ``materialize_tpu/ops/merge.py``).
 
-1. the right insertion point of every ``b`` row among ``a``'s valid
-   prefix (``merge_insertion_points``: the CUDA kernel on the card,
-   its plain torch version on the CPU);
-2. a mark/cumsum inversion of those positions into a source index per
-   output slot;
-3. one row gather per dtype family from ``concat(a, b)`` — the merged
-   run's lanes come out of the same gather.
+1. the merged run's source map ``src`` (an index into ``concat(a, b)``
+   per output slot) and its lanes: on the card one launch of the
+   merge-path kernel (``ops/merge_kernel.py:merge_path``); its plain
+   version ``merge_source_map_torch`` (right insertion point of every
+   ``b`` row, a mark/cumsum inversion, a lanes gather) on the CPU;
+2. one row gather per dtype family from ``concat(a, b)`` on ``src``.
 """
 
 from __future__ import annotations
@@ -28,10 +27,11 @@ _MODE: contextvars.ContextVar = contextvars.ContextVar("merge_mode", default=Non
 
 @contextlib.contextmanager
 def merge_mode(mode):
-    """Run the enclosed code with every ``merge_insertion_points`` call
-    that names no mode using ``mode`` ("kernel", "torch" or None for the
-    device rule) — how a whole dataflow is run once per implementation
-    to compare them."""
+    """Run the enclosed code with every ``merge_sorted_cached`` using
+    ``mode`` ("kernel", "torch" or None for the device rule: the kernel
+    for CUDA tensors, the plain version for CPU tensors) — how a whole
+    dataflow is run once per implementation to compare them. "kernel" on
+    CPU tensors raises."""
     if mode not in _MODES + (None,):
         raise ValueError(f"merge mode {mode!r} not in {_MODES}")
     token = _MODE.set(mode)
@@ -47,26 +47,56 @@ def search_right_torch(a_lanes_2d, a_count, b_lanes_2d) -> torch.Tensor:
     return lex_searchsorted_2d(a_lanes_2d, a_count, b_lanes_2d, side="right")
 
 
-def merge_insertion_points(
-    a_lanes_2d: torch.Tensor, a_count, b_lanes_2d: torch.Tensor, b_count=None,
-    mode: str | None = None,
-) -> torch.Tensor:
-    """Right insertion point of every ``b`` row among ``a``'s valid
-    prefix (ties place ``a`` first). Rows past ``b_count`` may hold any
-    value. ``mode`` None follows the device: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors. "kernel" on CPU tensors
-    raises; "torch" runs the plain version anywhere."""
+def _kernel_mode(lanes: torch.Tensor) -> bool:
+    mode = _MODE.get()
     if mode is None:
-        mode = _MODE.get()
-    if mode is None:
-        mode = "kernel" if a_lanes_2d.is_cuda else "torch"
-    if mode == "kernel":
-        from .merge_kernel import search_right
+        return lanes.is_cuda
+    return mode == "kernel"
 
-        return search_right(a_lanes_2d, a_count, b_lanes_2d)
-    if mode == "torch":
-        return search_right_torch(a_lanes_2d, a_count, b_lanes_2d)
-    raise ValueError(f"merge mode {mode!r} not in {_MODES}")
+
+def merge_source_map_torch(
+    a_lanes_2d: torch.Tensor, a_count, cap_a: int, b_lanes_2d: torch.Tensor,
+    b_count, cap_b: int, out_capacity: int,
+):
+    """The merge-path kernel's plain version: ``src`` (int64
+    [out_capacity], an index into ``concat(a, b)``) and the merged lanes
+    (``concat(a_lanes, b_lanes)[src]``) of the stable merge of
+    ``a[:a_count]`` and ``b[:b_count]`` (ties keep ``a`` first; past the
+    output the tail is dropped). Slots past the merge take clamped ``a``
+    padding rows. The reference's inversion
+    (``materialize_tpu/ops/merge.py:merge_sorted_cached``) is the spec."""
+    ins = search_right_torch(a_lanes_2d, a_count, b_lanes_2d)
+    return source_map_from_points(
+        ins, a_lanes_2d, cap_a, b_lanes_2d, b_count, cap_b, out_capacity
+    )
+
+
+def source_map_from_points(
+    ins: torch.Tensor, a_lanes_2d: torch.Tensor, cap_a: int,
+    b_lanes_2d: torch.Tensor, b_count, cap_b: int, out_capacity: int,
+):
+    """``merge_source_map_torch`` from the insertion points ``ins`` of
+    ``b``'s rows (only those below ``b_count`` are read): the mark/cumsum
+    inversion and the lanes gather."""
+    dev = a_lanes_2d.device
+    ib = torch.arange(cap_b, dtype=torch.int64, device=dev)
+    pos_b = ib + ins
+    # Padding rows and rows past the output are dropped: they write the
+    # spare slot at out_capacity (the reference's mode="drop").
+    pos_b = torch.where(ib < b_count, pos_b, out_capacity)
+    pos_b = torch.clamp(pos_b, max=out_capacity)
+    mark = torch.zeros(out_capacity + 1, dtype=torch.int32, device=dev)
+    mark[pos_b] = 1
+    mark = mark[:out_capacity]
+    cum_b = torch.cumsum(mark, 0, dtype=torch.int64)
+    take_b = mark == 1
+    j = torch.arange(out_capacity, dtype=torch.int64, device=dev)
+    src = torch.where(
+        take_b,
+        cap_a + torch.clamp(cum_b - 1, 0, cap_b - 1),
+        torch.clamp(j - cum_b, 0, max(cap_a - 1, 0)),
+    )
+    return src, torch.cat([a_lanes_2d, b_lanes_2d])[src]
 
 
 def _normalize_nulls(a: Batch, b: Batch):
@@ -102,25 +132,17 @@ def merge_sorted_cached(
     a, b = _normalize_nulls(a, b)
     cap_a, cap_b = a.capacity, b.capacity
     dev = a.device
-    ib = torch.arange(cap_b, dtype=torch.int64, device=dev)
-    pos_b = ib + merge_insertion_points(a_lanes_2d, a.count, b_lanes_2d, b.count)
-    # Padding rows and rows past the output are dropped: they write the
-    # spare slot at out_capacity (the reference's mode="drop").
-    pos_b = torch.where(ib < b.count, pos_b, out_capacity)
-    pos_b = torch.clamp(pos_b, max=out_capacity)
-    mark = torch.zeros(out_capacity + 1, dtype=torch.int32, device=dev)
-    mark[pos_b] = 1
-    mark = mark[:out_capacity]
-    cum_b = torch.cumsum(mark, 0, dtype=torch.int64)
-    take_b = mark == 1
-    j = torch.arange(out_capacity, dtype=torch.int64, device=dev)
-    src = torch.where(
-        take_b,
-        cap_a + torch.clamp(cum_b - 1, 0, cap_b - 1),
-        torch.clamp(j - cum_b, 0, max(cap_a - 1, 0)),
-    )
+    if _kernel_mode(a_lanes_2d):
+        from .merge_kernel import merge_path
+
+        src, merged_lanes = merge_path(
+            a_lanes_2d, a.count, cap_a, b_lanes_2d, b.count, out_capacity
+        )
+    else:
+        src, merged_lanes = merge_source_map_torch(
+            a_lanes_2d, a.count, cap_a, b_lanes_2d, b.count, cap_b, out_capacity
+        )
     merged_groups = gather_rows(concat_groups(to_groups(a), to_groups(b)), src)
-    merged_lanes = torch.cat([a_lanes_2d, b_lanes_2d])[src]
 
     total = a.count + b.count
     overflowed = total > out_capacity
@@ -128,7 +150,7 @@ def merge_sorted_cached(
     merged = from_groups(merged_groups, a, count)
     # Padding hygiene: slots >= count got clamped garbage rows; zero
     # their diff and time. Lane padding stays garbage by contract.
-    valid = j < count
+    valid = torch.arange(out_capacity, dtype=torch.int64, device=dev) < count
     merged = merged.replace(
         diff=torch.where(valid, merged.diff, torch.zeros_like(merged.diff)),
         time=torch.where(valid, merged.time, torch.zeros_like(merged.time)),

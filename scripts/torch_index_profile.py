@@ -9,7 +9,8 @@ TPC-H snapshot, warms one churn span, then traces one more churn span
 of ``--ticks`` ticks with ``torch.profiler`` (CPU + CUDA). Prints JSON
 lines: the span's wall time, the device's busy time (union of kernel
 intervals) and idle share, the kernel launches, and the device time by
-kernel name (top 15, with the merge-search kernel's share). With
+kernel name (top 15, with the merge-path kernel's launches and share;
+a span that shows no launch of it fails). With
 ``--trace PATH`` the Chrome trace of the span is written to PATH.
 """
 
@@ -91,18 +92,22 @@ def main() -> int:
         d[1] += e.time_range.end - e.time_range.start
     total_us = sum(v[1] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
-    merge_us = sum(v[1] for k, v in by_name.items() if "search_right_kernel" in k)
+    merge_us = sum(v[1] for k, v in by_name.items() if "merge_path_kernel" in k)
+    merge_launches = sum(v[0] for k, v in by_name.items() if "merge_path_kernel" in k)
     print(json.dumps({
         "phase": "profile", "card": card, "sf": args.sf, "ticks": args.ticks,
         "overflowed": over, "span_wall_ms": wall_ms,
         "device_busy_ms": busy_us / 1e3, "device_idle_share": 1 - busy_us / 1e3 / wall_ms,
         "kernel_launches": len(kernels), "kernel_time_ms": total_us / 1e3,
-        "merge_search_ms": merge_us / 1e3,
-        "merge_search_share_of_kernel_time": merge_us / total_us if total_us else 0.0,
+        "merge_path_ms": merge_us / 1e3, "merge_path_launches": merge_launches,
+        "merge_path_share_of_kernel_time": merge_us / total_us if total_us else 0.0,
     }))
     for name, (cnt, us) in top:
         print(json.dumps({"kernel": name[:120], "launches": cnt, "ms": us / 1e3,
                           "share": us / total_us}))
+    if not merge_launches:
+        print("no merge_path_kernel launch in the traced span", file=sys.stderr)
+        return 1
     if args.trace:
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
         prof.export_chrome_trace(args.trace)

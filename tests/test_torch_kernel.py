@@ -1,5 +1,5 @@
-"""The port's CUDA merge-search kernel (``csrc/merge_search.cu``) against
-its plain torch version.
+"""The port's CUDA merge-path kernel (``csrc/merge_path.cu``) against its
+plain torch versions (``search_right_torch``, ``merge_source_map_torch``).
 
 This file imports neither JAX nor the reference package, so it also runs
 on a machine with a card and no JAX; there, skip the suite's conftest
@@ -21,7 +21,11 @@ import torch
 
 from materialize_tpu_torch.ops import merge_kernel
 from materialize_tpu_torch.ops.lanes import from_u64
-from materialize_tpu_torch.ops.merge import merge_insertion_points, merge_mode
+from materialize_tpu_torch.ops.merge import (
+    merge_mode,
+    merge_source_map_torch,
+    search_right_torch,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 _POOL = np.array(
@@ -45,6 +49,12 @@ def test_wrapper_refuses_cpu_tensors():
     before = merge_kernel.LAUNCHES
     with pytest.raises(ValueError, match="CUDA"):
         merge_kernel.search_right(a, c, a)
+    with pytest.raises(ValueError, match="CUDA"):
+        merge_kernel.search_right(a, c, a, c)
+    with pytest.raises(ValueError, match="CUDA"):
+        merge_kernel.merge_path(a, c, 8, a, c, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        merge_kernel.merge_path(a, c, 8, a, c, 16, want_pos=True)
     assert merge_kernel.LAUNCHES == before
 
 
@@ -67,10 +77,103 @@ def test_kernel_matches_plain_on_card():
             for count in sorted({0, m, int(rng.integers(0, m + 1))}):
                 c = torch.tensor(count, dtype=torch.int32, device="cuda")
                 before = merge_kernel.LAUNCHES
-                got = merge_insertion_points(a, c, b)  # device rule: kernel
+                got = merge_kernel.search_right(a, c, b)
                 assert merge_kernel.LAUNCHES == before + 1
-                want = merge_insertion_points(a, c, b, mode="torch")
+                want = search_right_torch(a, c, b)
                 assert torch.equal(got, want), (L, m, n, count)
+
+
+def _padded(rng, cap, count, L, pool=_POOL):
+    """Sorted valid prefix of ``count`` rows, then unsorted padding."""
+    valid = pool[rng.integers(0, len(pool), (count, L))]
+    valid = valid[np.lexsort(valid.T[::-1])]
+    pad = rng.integers(0, 1 << 63, (cap - count, L), dtype=np.uint64) * np.uint64(2)
+    return torch.from_numpy(from_u64(np.concatenate([valid, pad]).reshape(cap, L)))
+
+
+def _merge_path_cases(rng):
+    """(cap_a, a_count, cap_b, b_count, out_capacity, L, pool): overflow,
+    empty sides, cap_a 0, unsorted b padding, tie runs longer than a tile."""
+    ties = np.array([3, 1 << 63], dtype=np.uint64)
+    for L in (1, 2, 3, 4, 5, 8, 13):
+        yield 3000, 2500, 1000, 700, 4096, L, _POOL        # padding slots
+        yield 3000, 2500, 1000, 900, 3000, L, _POOL        # overflow
+        yield 3000, 0, 1000, 700, 2048, L, _POOL           # a_count 0
+        yield 3000, 2500, 1000, 0, 4096, L, _POOL          # b_count 0
+        yield 0, 0, 1000, 700, 1024, L, _POOL              # cap_a 0
+        yield 9000, 8000, 6000, 5000, 16384, L, ties       # runs of ~7000 equal rows
+    for _ in range(8):
+        L = int(rng.integers(1, 9))
+        cap_a, cap_b = (int(x) for x in rng.integers(1, 5000, 2))
+        ac, bc = int(rng.integers(0, cap_a + 1)), int(rng.integers(0, cap_b + 1))
+        yield cap_a, ac, cap_b, bc, int(rng.integers(1, cap_a + cap_b + 64)), L, _POOL
+
+
+@pytest.mark.cuda
+def test_merge_path_matches_plain_on_card():
+    _need_card()
+    rng = np.random.default_rng(12)
+    for i, (cap_a, ac, cap_b, bc, out, L, pool) in enumerate(_merge_path_cases(rng)):
+        a = _padded(rng, cap_a, ac, L, pool).cuda()
+        b = _padded(rng, cap_b, bc, L, pool).cuda()
+        a_count = torch.tensor(ac, dtype=torch.int32, device="cuda")
+        b_count = torch.tensor(bc, dtype=torch.int32, device="cuda")
+        if i % 2:  # 0-dim and one-element counts both work
+            a_count, b_count = a_count.reshape(1), b_count.reshape(1)
+        before = merge_kernel.LAUNCHES
+        src, lanes, pos = merge_kernel.merge_path(
+            a, a_count, cap_a, b, b_count, out, want_pos=True
+        )
+        assert merge_kernel.LAUNCHES == before + 1
+        want_src, want_lanes = merge_source_map_torch(
+            a, a_count, cap_a, b, b_count, cap_b, out
+        )
+        ins = search_right_torch(a, a_count, b)
+        j = torch.arange(cap_b, device="cuda")
+        want_pos = torch.where((j < bc) & (j + ins < out), ins, -1)
+        case = (cap_a, ac, cap_b, bc, out, L)
+        assert torch.equal(src, want_src), case
+        assert torch.equal(lanes, want_lanes), case
+        assert torch.equal(pos, want_pos), case
+        got = merge_kernel.search_right(a, a_count, b, b_count)
+        assert torch.equal(got[:bc], ins[:bc]) and bool((got[bc:] == -1).all()), case
+
+
+def _id_batches(rng, device):
+    """Two sorted runs (a: 700 of 1024 rows, b: 300 of 512, 4 lanes)
+    whose one column holds each row's index into concat(a, b)."""
+    from materialize_tpu_torch.repr.batch import Batch
+    from materialize_tpu_torch.repr.schema import Column, ColumnType, Schema
+
+    schema = Schema([Column("id", ColumnType.INT64, nullable=False)])
+    runs = []
+    for offset, cap, n in ((0, 1024, 700), (1024, 512, 300)):
+        batch = Batch.from_numpy(schema, [np.arange(n) + offset], np.uint64(0),
+                                 np.ones(n, np.int64), capacity=cap, device=device)
+        runs.append((batch, _padded(rng, cap, n, 4).to(device)))
+    return runs
+
+
+@pytest.mark.cuda
+def test_merge_sorted_cached_launches_once_on_card():
+    """On CUDA tensors a merge is one kernel launch (no inversion chain)
+    and gives the plain chain's batch and lanes."""
+    _need_card()
+    from materialize_tpu_torch.ops.merge import merge_sorted_cached
+
+    (a, al), (b, bl) = _id_batches(np.random.default_rng(13), "cuda")
+    got = []
+    for mode in ("kernel", "torch"):
+        before = merge_kernel.LAUNCHES
+        with merge_mode(mode):
+            merged, lanes, overflowed = merge_sorted_cached(a, al, b, bl, 1536)
+        got.append((merged, lanes, overflowed, merge_kernel.LAUNCHES - before))
+    (km, kl, kovf, k_launch), (tm, tl, tovf, t_launch) = got
+    assert (k_launch, t_launch) == (1, 0)
+    assert bool(kovf) == bool(tovf) and int(km.count) == int(tm.count) == 1000
+    assert torch.equal(kl, tl)
+    for x, y in zip(km.cols + (km.time, km.diff), tm.cols + (tm.time, tm.diff)):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.cuda
@@ -95,6 +198,47 @@ def test_index_paths_agree_on_card():
             df.check_flags()
             bases.append(df.output_batch().to_rows())
     assert bases[0] == bases[1] and len(bases[0]) > 0
+
+
+@pytest.mark.cuda
+def test_index_rollback_grow_replay_agree_on_card():
+    """With a base one tier short (the layout of
+    ``tests/test_torch_dataflow.py``), the second churn span's level-1
+    fold overflows: the span rolls back, the base and its lanes grow
+    (zero-padded lane rows) and the span replays. The kernel and the
+    plain chain must leave equal runs, slots and lanes."""
+    _need_card()
+    from materialize_tpu_torch.workloads.index import index_config
+
+    spines = []
+    for mode in ("kernel", "torch"):
+        df, hydrate, churn = index_config(
+            sf=0.002, n_orders_per_tick=16, state_cap=1 << 12, out_levels=2,
+            ce=4, ratio=4, device="cuda",
+        )
+        df._grow_for(("out", 0), target=1 << 14)
+        df._grow_for(("out", 1), target=1 << 13)
+        before = merge_kernel.LAUNCHES
+        overs = []
+        with merge_mode(mode):
+            df.run_span(hydrate())
+            overs.append(df.check_flags())
+            for first in (0, 8):
+                df.run_span([churn(i, df.time + i - first)[0] for i in range(first, first + 8)])
+                overs.append(df.check_flags())
+        assert overs == [False, False, True], (mode, overs)
+        assert df.output.base.capacity == 1 << 14
+        launches = merge_kernel.LAUNCHES - before
+        assert (launches > 0) if mode == "kernel" else (launches == 0)
+        spines.append(df.output)
+    k, t = spines
+    for kb, tb, kl, tl in zip(k.runs_b + k.slots, t.runs_b + t.slots,
+                              k.lanes + k.slot_lanes, t.lanes + t.slot_lanes):
+        n = int(kb.count)
+        assert int(tb.count) == n and kb.capacity == tb.capacity
+        for x, y in zip(kb.cols + (kb.time, kb.diff), tb.cols + (tb.time, tb.diff)):
+            assert torch.equal(x[:n], y[:n])
+        assert torch.equal(kl[:n], tl[:n])
 
 
 def test_index_reads_decode_against_numpy_oracle():

@@ -1,6 +1,6 @@
 """Port parity: merge insertion points and the lane-carrying merge.
 
-The port's plain ``merge_insertion_points`` (what the CPU runs) is held
+The port's plain ``search_right_torch`` (what the CPU runs) is held
 exactly against the reference's ``lex_searchsorted_2d(..., "right")``,
 the reference's Pallas kernel ``pallas_search_right`` run in interpret
 mode (small sizes: the interpreter is slow), and the rows and carried
@@ -27,11 +27,7 @@ from materialize_tpu.repr.schema import ColumnType as JType
 from materialize_tpu.repr.schema import Schema as JSchema
 from materialize_tpu_torch import interop
 from materialize_tpu_torch.ops.lanes import from_u64, to_u64
-from materialize_tpu_torch.ops.merge import (
-    merge_insertion_points,
-    merge_sorted_cached,
-    search_right_torch,
-)
+from materialize_tpu_torch.ops.merge import merge_sorted_cached, search_right_torch
 from materialize_tpu_torch.repr.batch import Batch as TBatch
 from materialize_tpu_torch.repr.schema import Column, ColumnType, Schema
 
@@ -60,9 +56,7 @@ def test_insertion_points_match_reference(L, m, n):
         want = np.asarray(
             lex_searchsorted_2d(jnp.asarray(a), count, jnp.asarray(b), side="right")
         ) if m else np.zeros(n, np.int32)
-        got = merge_insertion_points(
-            _t(a), torch.tensor(count, dtype=torch.int32), _t(b)
-        )
+        got = search_right_torch(_t(a), torch.tensor(count, dtype=torch.int32), _t(b))
         assert got.dtype == torch.int32
         assert np.array_equal(got.numpy(), want), (L, m, n, count)
 

@@ -5,7 +5,8 @@
   (AST scan of every import statement).
 - Importing the slice's modules leaves ``jax`` out of ``sys.modules``.
 - Entry points default to ``device="cuda"`` and raise without a card.
-- ``merge_insertion_points(..., mode="kernel")`` raises on CPU tensors.
+- The kernel's wrappers (``search_right``, ``merge_path``) and a merge
+  forced to the kernel raise on CPU tensors.
 """
 
 from __future__ import annotations
@@ -98,13 +99,25 @@ def test_entry_points_default_to_cuda():
 
 
 def test_kernel_mode_refuses_cpu_tensors():
-    from materialize_tpu_torch.ops.merge import merge_insertion_points, merge_mode
+    import numpy as np
 
-    a = torch.zeros((4, 2), dtype=torch.int64)
+    from materialize_tpu_torch.ops import merge_kernel
+    from materialize_tpu_torch.ops.merge import merge_mode, merge_sorted_cached
+    from materialize_tpu_torch.repr.batch import Batch
+    from materialize_tpu_torch.repr.schema import Column, ColumnType, Schema
+
+    a = torch.stack([torch.arange(4), torch.zeros(4, dtype=torch.int64)], 1)
     c = torch.tensor(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        merge_insertion_points(a, c, a, mode="kernel")
+        merge_kernel.search_right(a, c, a)
+    with pytest.raises(ValueError, match="CUDA"):
+        merge_kernel.merge_path(a, c, 4, a, c, 8)
+    schema = Schema([Column("id", ColumnType.INT64, nullable=False)])
+    batch = Batch.from_numpy(schema, [np.arange(4)], np.uint64(0), np.ones(4, np.int64),
+                             capacity=4, device="cpu")
     with merge_mode("kernel"), pytest.raises(ValueError, match="CUDA"):
-        merge_insertion_points(a, c, a)
+        merge_sorted_cached(batch, a, batch, a, 8)
     with merge_mode("torch"):
-        assert merge_insertion_points(a, c, a).tolist() == [4, 4, 4, 4]
+        merged, lanes, _ = merge_sorted_cached(batch, a, batch, a, 8)
+    assert merged.cols[0].tolist() == [0, 0, 1, 1, 2, 2, 3, 3]
+    assert lanes.shape == (8, 2)
