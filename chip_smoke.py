@@ -30,11 +30,21 @@ Phases, each printing one JSON line (any failure exits non-zero):
    merge shape, the maintained multiset against a numpy oracle, and a
    full scan, 64 ``l_orderkey = k`` lookups and 64 full-row point
    lookups against it;
-4. the same configuration at SF 0.01 with the merge forced to the
-   kernel and then to the plain chain: the spines must be equal.
+4. TPC-H Q1 at SF 1 (``workloads/tpch.py``, the reference bench's Q1
+   layout): hydrate in spans, churn 32 ticks as spans of 16, one flags
+   readback per span, kernel launches over the Q1 run in all and by
+   merge shape, device operations per tick (one more span under
+   ``torch.profiler``), ``peek()`` against a numpy Q1 oracle over every
+   batch fed and ``peek_errors()`` empty;
+5. the index configuration at SF 0.01 with the merge forced to the
+   kernel and then to the plain chain: the spines must be equal;
+6. the kernel at each merge shape the Q1 path launched, against its
+   plain chain;
+7. Q1 at SF 0.01 in both merge modes: equal peeks, reduce states, output
+   runs and err arrangements.
 
-``{"phase": "kernel_table", ...}`` gives one row per main-path merge
-shape. The line before the last is ``{"kernels": [...]}``; the last is
+``{"phase": "kernel_table", ...}`` gives one row per merge shape of each
+main path (the index's, then Q1's). The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
 and prints no result.
 """
@@ -496,6 +506,24 @@ def phase_index(torch, merge_kernel, card, sf: float = 1.0) -> dict:
     return out
 
 
+def _same_rows(torch, kb, tb, what: str) -> None:
+    """Two batches hold the same valid rows (columns, time, diff) at the
+    same capacity."""
+    n = int(kb.count)
+    check(int(tb.count) == n and kb.capacity == tb.capacity, f"{what}: counts differ")
+    for x, y in zip(kb.cols + (kb.time, kb.diff), tb.cols + (tb.time, tb.diff)):
+        check(torch.equal(x[:n], y[:n]), f"{what}: rows differ")
+
+
+def _same_runs(torch, ks, ts) -> None:
+    """Two spines hold the same runs, slots and cached lanes."""
+    for kb, tb, kl, tl in zip(ks.runs_b + ks.slots, ts.runs_b + ts.slots,
+                              ks.lanes + ks.slot_lanes, ts.lanes + ts.slot_lanes):
+        _same_rows(torch, kb, tb, "run")
+        n = int(kb.count)
+        check(torch.equal(kl[:n], tl[:n]), "run lanes differ")
+
+
 def phase_modes(torch, merge_kernel, card) -> None:
     from materialize_tpu_torch.ops.merge import merge_mode
     from materialize_tpu_torch.workloads.index import index_config
@@ -520,16 +548,215 @@ def phase_modes(torch, merge_kernel, card) -> None:
     kdf, kbase, k_launch = run("kernel")
     tdf, tbase, t_launch = run("torch")
     check(k_launch > 0 and t_launch == 0, f"mode launches {k_launch}/{t_launch}")
-    for kb, tb, kl, tl in zip(
-        kdf.output.runs_b + kdf.output.slots, tdf.output.runs_b + tdf.output.slots,
-        kdf.output.lanes + kdf.output.slot_lanes, tdf.output.lanes + tdf.output.slot_lanes,
-    ):
-        n = int(kb.count)
-        check(int(tb.count) == n and kb.capacity == tb.capacity, "run counts differ")
-        for x, y in zip(kb.cols + (kb.time, kb.diff), tb.cols + (tb.time, tb.diff)):
-            check(torch.equal(x[:n], y[:n]), "run rows differ")
-        check(torch.equal(kl[:n], tl[:n]), "run lanes differ")
+    _same_runs(torch, kdf.output, tdf.output)
     emit({"phase": "kernel_vs_plain_path", "sf": 0.01, "rows": int(kbase.count),
+          "kernel_launches": k_launch, "plain_launches": t_launch, "equal": True,
+          "card": card})
+
+
+# -- TPC-H Q1 -------------------------------------------------------------------
+
+Q1_COLS = (4, 5, 6, 7, 8, 9, 10)  # quantity, extendedprice, discount, tax,
+# returnflag, linestatus, shipdate: what Q1 reads of lineitem
+
+
+def _q1_host(torch, batches) -> tuple:
+    """The Q1 columns and diffs of every fed batch, on the host (one
+    concatenation on the device and one copy per column)."""
+    def column(get):
+        return torch.cat([get(b)[:b._host_count] for b in batches]).cpu().numpy()
+
+    return tuple(column(lambda b, i=i: b.cols[i]).astype(np.int64) for i in Q1_COLS) + (
+        column(lambda b: b.diff),
+    )
+
+
+def q1_oracle(qty, ext, disc, tax, flag, status, ship, diff, cutoff: int) -> dict:
+    """TPC-H Q1 in numpy int64, independent of the port: {(returnflag,
+    linestatus): (sum_qty, sum_base_price, sum_disc_price, sum_charge,
+    count)} over the live rows (groups whose count nets to 0 vanish)."""
+    keep = ship <= cutoff
+    disc_price = ext * (100 - disc)  # scale 4
+    charge = disc_price * (100 + tax)  # scale 6
+    vals = np.stack([qty, ext, disc_price, charge, np.ones_like(qty)], 1)[keep]
+    vals = vals * diff[keep][:, None]
+    keys = np.stack([flag[keep], status[keep]], 1)
+    uniq, inv = np.unique(keys, axis=0, return_inverse=True)
+    sums = np.zeros((len(uniq), 5), dtype=np.int64)
+    np.add.at(sums, inv.reshape(-1), vals)
+    return {(int(k[0]), int(k[1])): tuple(int(x) for x in row)
+            for k, row in zip(uniq, sums) if row[4] != 0}
+
+
+def _device_ops(torch, fn) -> int:
+    """Device operations (kernels, copies, fills) ``fn`` issues, counted
+    by ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+
+
+def phase_q1(torch, merge_kernel, card, sf: float = 1.0) -> dict:
+    from materialize_tpu_torch.workloads.tpch import Q1_CUTOFF, q1_config
+
+    ticks_churn, span_churn, span_hydrate = 32, 16, 32
+    t0 = time.perf_counter()
+    df, hydrate, churn = q1_config(sf=sf, n_orders_per_tick=1024, seed=42, device="cuda")
+    h_inputs = hydrate()
+    gen_s = time.perf_counter() - t0
+    ce = df._compact_every
+    n_h = len(h_inputs) - len(h_inputs) % ce
+    c_inputs, c_rows = [], []
+    t_c = time.perf_counter()
+    for i in range(ticks_churn + span_churn):
+        inp, n = churn(i, len(h_inputs) + i)
+        c_inputs.append(inp)
+        c_rows.append(n)
+    churn_gen_s = time.perf_counter() - t_c
+
+    torch.cuda.synchronize()
+    merge_kernel.LAUNCHES = 0
+    merge_kernel.LAUNCHES_BY_SHAPE.clear()
+    # -- main path: hydrate, then churn ------------------------------------------
+    t_h = time.perf_counter()
+    span_reads = []
+    for span in _spans(h_inputs[:n_h], span_hydrate):
+        before = df._readbacks
+        df.run_span(span)
+        check(df.check_flags() is False, "Q1 hydration overflowed a tier")
+        span_reads.append(df._readbacks - before)
+    if n_h < len(h_inputs):
+        df.run_steps(h_inputs[n_h:])
+    torch.cuda.synchronize()
+    hydrate_s = time.perf_counter() - t_h
+    span_ms = []
+    for span in _spans(c_inputs[:ticks_churn], span_churn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        before = df._readbacks
+        df.run_span(span)
+        check(df.check_flags() is False, "Q1 churn overflowed a tier")
+        torch.cuda.synchronize()
+        span_ms.append((time.perf_counter() - t) * 1e3)
+        span_reads.append(df._readbacks - before)
+    torch.cuda.synchronize()
+    launches = merge_kernel.LAUNCHES
+    by_shape = dict(merge_kernel.LAUNCHES_BY_SHAPE)
+    # -- end of the main path ------------------------------------------------------
+    check(all(r == 1 for r in span_reads), f"Q1 flags readbacks per span {span_reads}")
+    check(launches > 0, "the Q1 path launched no merge-path kernel")
+    check(sum(by_shape.values()) == launches, "Q1 launches by shape do not add up")
+    tick_ms = [s / span_churn for s in span_ms]
+    ups = sum(c_rows[:ticks_churn]) / (sum(span_ms) / 1e3)
+
+    # One more warm churn span under the profiler: device ops per tick.
+    def extra_span():
+        df.run_span(c_inputs[ticks_churn:])
+        check(df.check_flags() is False, "Q1 churn overflowed a tier")
+
+    ops = _device_ops(torch, extra_span)
+
+    fed = [inp["lineitem"] for inp in h_inputs + c_inputs]
+    t_o = time.perf_counter()
+    want = q1_oracle(*_q1_host(torch, fed), cutoff=Q1_CUTOFF)
+    oracle_s = time.perf_counter() - t_o
+    t = time.perf_counter()
+    rows = df.peek()
+    peek_ms = (time.perf_counter() - t) * 1e3
+    got = {(r[0], r[1]): tuple(r[2:7]) for r in rows}
+    check(len(rows) == len(got) and all(r[-1] == 1 for r in rows), "Q1 peek rows not unique")
+    check(got == want, f"Q1 peek != numpy oracle: {got} vs {want}")
+    errors = df.peek_errors()
+    check(errors == [], f"Q1 err collection not empty: {errors}")
+    out = {
+        "phase": "q1", "sf": sf, "card": card, "groups": len(got),
+        "hydrate_ticks": len(h_inputs), "hydrate_gen_s": gen_s, "hydrate_s": hydrate_s,
+        "churn_ticks": ticks_churn, "churn_gen_s": churn_gen_s,
+        "churn_updates": int(sum(c_rows[:ticks_churn])), "churn_updates_per_s": ups,
+        "span_ms": span_ms, "tick_ms_p50": float(np.percentile(tick_ms, 50)),
+        "tick_ms_p99": float(np.percentile(tick_ms, 99)),
+        "readbacks_per_span": span_reads, "launches": launches,
+        "launches_by_shape": {",".join(map(str, k)): v for k, v in sorted(by_shape.items())},
+        "device_ops_per_tick": ops / span_churn, "peek_ms": peek_ms,
+        "oracle_s": oracle_s, "peek_errors": errors,
+        "state_capacity": df.states[0][0].capacity,
+        "output_ladder": [b.capacity for b in df.output.runs_b],
+    }
+    emit(out)
+    out["by_shape"] = by_shape
+    del df, h_inputs, c_inputs, fed
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_q1_kernel(torch, merge_kernel, card, shapes) -> list:
+    """The kernel at each merge shape the Q1 path launched, against its
+    plain chain, at the few-row counts of Q1's runs (a_count, b_count =
+    min(capacity, 8))."""
+    from materialize_tpu_torch.ops.lanes import from_u64
+    from materialize_tpu_torch.ops.merge import merge_source_map_torch
+
+    rng = np.random.default_rng(99)
+    rows = []
+    for cap_a, cap_b, out, L in sorted(shapes):
+        ac, bc = min(cap_a, 8), min(cap_b, 8)
+        a = torch.from_numpy(from_u64(_pool_lanes(rng, cap_a, L, ac))).cuda()
+        b = torch.from_numpy(from_u64(_pool_lanes(rng, cap_b, L, bc))).cuda()
+        ca = torch.tensor(ac, dtype=torch.int32, device="cuda")
+        cb = torch.tensor(bc, dtype=torch.int32, device="cuda")
+        src, lanes = merge_kernel.merge_path(a, ca, cap_a, b, cb, out)
+        w_src, w_lanes = merge_source_map_torch(a, ca, cap_a, b, cb, cap_b, out)
+        err = max(_err(torch, src, w_src), _err(torch, lanes, w_lanes))
+        check(err == 0, f"Q1 shape {(cap_a, cap_b, out, L)}: kernel != plain")
+        ms, reps = cuda_ms(torch, lambda: merge_kernel.merge_path(a, ca, cap_a, b, cb, out))
+        graph_ms, _ = cuda_ms(
+            torch, lambda: merge_kernel.merge_path(a, ca, cap_a, b, cb, out), graph=True
+        )
+        plain_ms, _ = cuda_ms(
+            torch, lambda: merge_source_map_torch(a, ca, cap_a, b, cb, cap_b, out)
+        )
+        bound = merge_bound_ms(ac, bc, cap_a, out, L)
+        row = {"phase": "q1_kernel_shape", "cap_a": cap_a, "cap_b": cap_b, "out": out,
+               "L": L, "a_count": ac, "b_count": bc, "reps": reps, "ms": ms,
+               "graph_ms": graph_ms, "bound_ms": bound, "bound_share": bound / ms,
+               "plain_ms": plain_ms, "max_abs_err": err, "card": card}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def phase_q1_modes(torch, merge_kernel, card) -> None:
+    from materialize_tpu_torch.ops.merge import merge_mode
+    from materialize_tpu_torch.workloads.tpch import q1_config
+
+    def run(mode):
+        df, hydrate, churn = q1_config(sf=0.01, n_orders_per_tick=1024, seed=42,
+                                       device="cuda")
+        start = merge_kernel.LAUNCHES
+        with merge_mode(mode):
+            h = hydrate()
+            n_h = len(h) - len(h) % df._compact_every
+            df.run_span(h[:n_h])
+            df.run_steps(h[n_h:])
+            df.run_span([churn(i, df.time + i)[0] for i in range(16)])
+            check(df.check_flags() is False, "Q1 at SF 0.01 overflowed")
+            rows = df.peek()
+            errors = df.peek_errors()
+        return df, rows, errors, merge_kernel.LAUNCHES - start
+
+    kdf, krows, kerr, k_launch = run("kernel")
+    tdf, trows, terr, t_launch = run("torch")
+    check(k_launch > 0 and t_launch == 0, f"Q1 mode launches {k_launch}/{t_launch}")
+    check(krows == trows and kerr == terr == [], "Q1 peeks differ between modes")
+
+    _same_rows(torch, kdf.states[0][0].batch, tdf.states[0][0].batch, "reduce state")
+    _same_rows(torch, kdf.err_output.batch, tdf.err_output.batch, "err arrangement")
+    _same_runs(torch, kdf.output, tdf.output)
+    emit({"phase": "q1_vs_plain_path", "sf": 0.01, "groups": len(krows),
           "kernel_launches": k_launch, "plain_launches": t_launch, "equal": True,
           "card": card})
 
@@ -548,14 +775,24 @@ def main() -> int:
     card = phase_card_and_build(torch, merge_kernel)
     kern = phase_kernel(torch, merge_kernel, card)
     index = phase_index(torch, merge_kernel, card)
+    q1 = phase_q1(torch, merge_kernel, card)
     phase_modes(torch, merge_kernel, card)
+    q1_rows = phase_q1_kernel(torch, merge_kernel, card, q1["by_shape"])
+    phase_q1_modes(torch, merge_kernel, card)
     by_shape = index.pop("by_shape")
+    q1_by_shape = q1.pop("by_shape")
     table = [
         {k: r[k] for k in ("cap_a", "cap_b", "out", "L", "ms", "graph_ms", "bound_ms",
                            "bound_share", "chain_ms", "plain_ms", "pos_ms", "pos_graph_ms",
                            "pos_bound_share", "library_ms", "library_graph_ms")}
-        | {"launches": by_shape.get((r["cap_a"], r["cap_b"], r["out"], r["L"]), 0)}
+        | {"path": "index",
+           "launches": by_shape.get((r["cap_a"], r["cap_b"], r["out"], r["L"]), 0)}
         for r in kern["rows"]
+    ] + [
+        {k: r[k] for k in ("cap_a", "cap_b", "out", "L", "a_count", "b_count", "ms",
+                           "graph_ms", "bound_ms", "bound_share", "plain_ms")}
+        | {"path": "q1", "launches": q1_by_shape[(r["cap_a"], r["cap_b"], r["out"], r["L"])]}
+        for r in q1_rows
     ]
     emit({"phase": "kernel_table", "card": card, "rows": table})
     big = next(r for r in kern["rows"]
@@ -565,8 +802,9 @@ def main() -> int:
         "route": "cuda",
         "source": "materialize_tpu_torch/csrc/merge_path.cu",
         "replaces": "materialize_tpu/ops/merge_pallas.py:157",
-        "launches": index["launches"],
-        "max_abs_err": kern["max_abs_err"],
+        "launches": index["launches"] + q1["launches"],
+        "launches_by_path": {"index": index["launches"], "q1": q1["launches"]},
+        "max_abs_err": max([kern["max_abs_err"]] + [r["max_abs_err"] for r in q1_rows]),
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],
         "bound_ms": big["bound_ms"],

@@ -49,6 +49,19 @@ class Arrangement:
     def schema(self) -> Schema:
         return self.batch.schema
 
+    @property
+    def capacity(self) -> int:
+        return self.batch.capacity
+
+    @staticmethod
+    def empty(schema: Schema, key, capacity: int = 256, device=None) -> "Arrangement":
+        return Arrangement(Batch.empty(schema, capacity, device=device), tuple(key))
+
+    def map_batches(self, fn) -> "Arrangement":
+        """Rebuild with ``fn`` applied to the batch (growth); drops the
+        lane cache."""
+        return Arrangement(fn(self.batch), self.key, self.order)
+
     def _rest(self) -> list:
         return [i for i in range(self.schema.arity) if i not in self.key]
 
@@ -93,7 +106,6 @@ class Arrangement:
             kh1, kh2 = hash_pair(key_lanes(batch, cols))
             return [kh1, kh2]
         return key_lanes(batch, cols)
-
 
 
 def run_sort_lanes(batch: Batch, key, order: str) -> torch.Tensor:

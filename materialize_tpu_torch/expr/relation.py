@@ -1,16 +1,86 @@
-"""Relation expressions (MIR), the minimal copy this slice renders.
+"""Relation expressions (MIR) and the aggregate vocabulary: the copy of
+``materialize_tpu/expr/relation.py`` that the port renders.
 
-Only ``Get`` — a reference to a named source collection — is here; the
-renderer (``render/dataflow.py``) raises ``NotImplementedError`` naming
-the operator for anything else. Map, Filter and Reduce come with the
-TPC-H Q1 slice.
+Here: ``Get``, ``Project``, ``Map``, ``Filter`` and ``Reduce``, with the
+builder sugar and ``AggregateFunc``/``AggregateExpr``. The renderer
+(``render/dataflow.py``) raises ``NotImplementedError`` for any other
+node; joins, TopK, Negate, Union, Let and LetRec come with later slices
+(ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
+import enum
 from dataclasses import dataclass
+from typing import Sequence
 
-from ..repr.schema import Schema
+from ..repr.schema import Column, ColumnType, Schema
+from .scalar import ScalarExpr
+
+
+class AggregateFunc(enum.Enum):
+    """Aggregates: accumulable ones fold into per-group accumulators,
+    hierarchical ones (min/max) keep a sorted multiset, basic ones
+    (collection aggregates) keep a multiset finalized at read time."""
+
+    COUNT = "count"
+    SUM_INT = "sum_int"
+    SUM_FLOAT = "sum_float"
+    MIN = "min"
+    MAX = "max"
+    ANY = "any"
+    ALL = "all"
+    STRING_AGG = "string_agg"
+    ARRAY_AGG = "array_agg"
+    LIST_AGG = "list_agg"
+
+    @property
+    def is_accumulable(self) -> bool:
+        return self in (
+            AggregateFunc.COUNT,
+            AggregateFunc.SUM_INT,
+            AggregateFunc.SUM_FLOAT,
+            AggregateFunc.ANY,
+            AggregateFunc.ALL,
+        )
+
+    @property
+    def is_hierarchical(self) -> bool:
+        return self in (AggregateFunc.MIN, AggregateFunc.MAX)
+
+    @property
+    def is_basic(self) -> bool:
+        return self in (
+            AggregateFunc.STRING_AGG,
+            AggregateFunc.ARRAY_AGG,
+            AggregateFunc.LIST_AGG,
+        )
+
+
+@dataclass(frozen=True)
+class AggregateExpr:
+    """func applied to a scalar expression over the group."""
+
+    func: AggregateFunc
+    expr: ScalarExpr
+    distinct: bool = False
+    params: tuple = ()
+
+    def output_col(self, input_schema: Schema) -> Column:
+        inner = self.expr.typ(input_schema)
+        if self.func is AggregateFunc.COUNT:
+            return Column("count", ColumnType.INT64, False)
+        if self.func is AggregateFunc.SUM_INT:
+            return Column("sum", inner.ctype, True, inner.scale)
+        if self.func is AggregateFunc.SUM_FLOAT:
+            return Column("sum", ColumnType.FLOAT64, True)
+        if self.func in (AggregateFunc.MIN, AggregateFunc.MAX):
+            return Column(self.func.value, inner.ctype, True, inner.scale)
+        if self.func in (AggregateFunc.ANY, AggregateFunc.ALL):
+            return Column(self.func.value, ColumnType.BOOL, True)
+        if self.func.is_basic:
+            return Column(self.func.value, ColumnType.STRING, True)
+        raise NotImplementedError(self.func)
 
 
 class RelationExpr:
@@ -22,6 +92,19 @@ class RelationExpr:
     def children(self) -> list:
         return []
 
+    # builder sugar
+    def project(self, outputs: Sequence[int]) -> "Project":
+        return Project(self, tuple(outputs))
+
+    def map(self, exprs: Sequence[ScalarExpr]) -> "Map":
+        return Map(self, tuple(exprs))
+
+    def filter(self, preds: Sequence[ScalarExpr]) -> "Filter":
+        return Filter(self, tuple(preds))
+
+    def reduce(self, group_key, aggregates) -> "Reduce":
+        return Reduce(self, tuple(group_key), tuple(aggregates))
+
 
 @dataclass(frozen=True)
 class Get(RelationExpr):
@@ -32,3 +115,61 @@ class Get(RelationExpr):
 
     def schema(self) -> Schema:
         return self._schema
+
+
+@dataclass(frozen=True)
+class Project(RelationExpr):
+    input: RelationExpr
+    outputs: tuple
+
+    def schema(self):
+        return self.input.schema().project(self.outputs)
+
+    def children(self):
+        return [self.input]
+
+
+@dataclass(frozen=True)
+class Map(RelationExpr):
+    input: RelationExpr
+    scalars: tuple
+
+    def schema(self):
+        cols = list(self.input.schema().columns)
+        for e in self.scalars:
+            c = e.typ(Schema(cols))
+            cols.append(Column(f"c{len(cols)}", c.ctype, c.nullable, c.scale))
+        return Schema(cols)
+
+    def children(self):
+        return [self.input]
+
+
+@dataclass(frozen=True)
+class Filter(RelationExpr):
+    input: RelationExpr
+    predicates: tuple
+
+    def schema(self):
+        return self.input.schema()
+
+    def children(self):
+        return [self.input]
+
+
+@dataclass(frozen=True)
+class Reduce(RelationExpr):
+    input: RelationExpr
+    group_key: tuple  # column indices
+    aggregates: tuple  # AggregateExpr
+
+    def schema(self):
+        in_schema = self.input.schema()
+        cols = [in_schema[i] for i in self.group_key]
+        for j, agg in enumerate(self.aggregates):
+            c = agg.output_col(in_schema)
+            cols.append(Column(f"{c.name}_{j}", c.ctype, c.nullable, c.scale))
+        return Schema(cols)
+
+    def children(self):
+        return [self.input]

@@ -1,0 +1,341 @@
+"""Scalar expressions and their evaluation over a batch's columns (the
+port of the part of ``materialize_tpu/expr/scalar.py`` that TPC-H Q1
+reaches).
+
+Where the reference builds one fused XLA computation per expression at
+trace time, ``eval_expr`` here runs eager torch ops over whole columns.
+SQL NULLs ride as an optional bool mask per intermediate (three-valued
+logic), exactly as in the reference.
+
+Ported: column references, literals, and ``CallBinary`` for the six
+comparisons and for integer and DECIMAL ``add``/``sub``/``mul``/``div``/
+``mod`` (with their division-by-zero masks). Everything else raises
+``NotImplementedError`` naming the missing piece: unary functions and
+casts, ``AND``/``OR`` and the other variadic functions, ``If``, the date
+and string families, ``mz_now()``, and any FLOAT64 operand (FLOAT64
+lanes come first, ROADMAP Queue 1).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+from ..repr.batch import Batch
+from ..repr.schema import Column, ColumnType, Schema, torch_dtype
+from . import errors as _err
+
+
+class ScalarExpr:
+    """Base class. Subclasses are immutable dataclasses."""
+
+    def typ(self, schema: Schema) -> Column:
+        raise NotImplementedError
+
+    # convenience builders
+    def __add__(self, other):
+        return CallBinary(BinaryFunc.ADD, self, _lift(other))
+
+    def __sub__(self, other):
+        return CallBinary(BinaryFunc.SUB, self, _lift(other))
+
+    def __mul__(self, other):
+        return CallBinary(BinaryFunc.MUL, self, _lift(other))
+
+    def eq(self, other):
+        return CallBinary(BinaryFunc.EQ, self, _lift(other))
+
+    def lt(self, other):
+        return CallBinary(BinaryFunc.LT, self, _lift(other))
+
+    def lte(self, other):
+        return CallBinary(BinaryFunc.LTE, self, _lift(other))
+
+    def gt(self, other):
+        return CallBinary(BinaryFunc.GT, self, _lift(other))
+
+    def gte(self, other):
+        return CallBinary(BinaryFunc.GTE, self, _lift(other))
+
+
+def _lift(x) -> "ScalarExpr":
+    if isinstance(x, ScalarExpr):
+        return x
+    if isinstance(x, bool):
+        return Literal(x, ColumnType.BOOL)
+    if isinstance(x, int):
+        return Literal(x, ColumnType.INT64)
+    if isinstance(x, float):
+        return Literal(x, ColumnType.FLOAT64)
+    raise TypeError(x)
+
+
+@dataclass(frozen=True)
+class ColumnRef(ScalarExpr):
+    """Column reference by position."""
+
+    index: int
+
+    def typ(self, schema):
+        return schema[self.index]
+
+
+@dataclass(frozen=True)
+class Literal(ScalarExpr):
+    value: Any  # python scalar; None = NULL
+    ctype: ColumnType
+    scale: int = 0
+
+    def typ(self, schema):
+        return Column("literal", self.ctype, self.value is None, self.scale)
+
+
+class BinaryFunc:
+    ADD = "add"
+    SUB = "sub"
+    MUL = "mul"
+    DIV = "div"
+    MOD = "mod"
+    POWER = "power"
+    LOG_BASE = "log_base"
+    ROUND_TO = "round_to"
+    CAST_DECIMAL = "cast_decimal"
+    EQ = "eq"
+    NEQ = "neq"
+    LT = "lt"
+    LTE = "lte"
+    GT = "gt"
+    GTE = "gte"
+
+
+_ARITHMETIC = (BinaryFunc.ADD, BinaryFunc.SUB, BinaryFunc.MUL, BinaryFunc.DIV,
+               BinaryFunc.MOD)
+
+_COMPARISONS = {
+    BinaryFunc.EQ: torch.eq,
+    BinaryFunc.NEQ: torch.ne,
+    BinaryFunc.LT: torch.lt,
+    BinaryFunc.LTE: torch.le,
+    BinaryFunc.GT: torch.gt,
+    BinaryFunc.GTE: torch.ge,
+}
+
+
+@dataclass(frozen=True)
+class CallBinary(ScalarExpr):
+    func: str
+    left: ScalarExpr
+    right: ScalarExpr
+
+    def typ(self, schema):
+        lt_, rt = self.left.typ(schema), self.right.typ(schema)
+        nullable = lt_.nullable or rt.nullable
+        if self.func in _COMPARISONS:
+            return Column("f", ColumnType.BOOL, nullable)
+        if self.func not in _ARITHMETIC:
+            raise NotImplementedError(f"binary function {self.func!r} is not ported")
+        if self.func == BinaryFunc.DIV:
+            # int/int is integer division truncating toward zero;
+            # decimals keep the left scale; anything else goes float.
+            if lt_.ctype is ColumnType.DECIMAL:
+                return Column("f", ColumnType.DECIMAL, True, lt_.scale)
+            if lt_.ctype in (
+                ColumnType.INT32, ColumnType.INT64
+            ) and rt.ctype in (ColumnType.INT32, ColumnType.INT64):
+                return Column("f", ColumnType.INT64, True)
+            return Column("f", ColumnType.FLOAT64, True)
+        ctype, scale = _unify_arith(lt_, rt, self.func)
+        return Column("f", ctype, nullable, scale)
+
+
+def _unify_arith(lt_: Column, rt: Column, func: str) -> tuple:
+    a, b = lt_.ctype, rt.ctype
+    if ColumnType.FLOAT64 in (a, b):
+        return ColumnType.FLOAT64, 0
+    if a is ColumnType.DECIMAL or b is ColumnType.DECIMAL:
+        if func == BinaryFunc.MUL:
+            return ColumnType.DECIMAL, lt_.scale + rt.scale
+        return ColumnType.DECIMAL, max(lt_.scale, rt.scale)
+    if a is ColumnType.DATE and b in (ColumnType.INT32, ColumnType.INT64):
+        return ColumnType.DATE, 0
+    if ColumnType.INT64 in (a, b):
+        return ColumnType.INT64, 0
+    return a, 0
+
+
+# ---------------------------------------------------------------------------
+# Evaluation
+
+
+@dataclass
+class Evaled:
+    """An evaluated intermediate: column values + optional null mask."""
+
+    values: torch.Tensor
+    nulls: torch.Tensor | None
+    col: Column  # type info
+
+    def null_mask(self) -> torch.Tensor:
+        if self.nulls is None:
+            return torch.zeros(self.values.shape, dtype=torch.bool,
+                               device=self.values.device)
+        return self.nulls
+
+
+def _floordiv(a: torch.Tensor, b) -> torch.Tensor:
+    """jnp's ``//`` on integers: floor division."""
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def _to_decimal_scale(e: Evaled, scale: int) -> torch.Tensor:
+    """Rescale a decimal (or int) value array to the given decimal scale."""
+    shift = scale - e.col.scale if e.col.ctype is ColumnType.DECIMAL else scale
+    v = e.values.to(torch.int64)
+    if shift > 0:
+        return v * (10**shift)
+    if shift < 0:
+        return _floordiv(v, 10 ** (-shift))
+    return v
+
+
+def _merge_nulls(l: Evaled, r: Evaled):
+    if l.nulls is None and r.nulls is None:
+        return None
+    return l.null_mask() | r.null_mask()
+
+
+def _or_nulls(nulls, extra):
+    return extra if nulls is None else nulls | extra
+
+
+def _no_float(*cols: Column) -> None:
+    for c in cols:
+        if c.ctype is ColumnType.FLOAT64:
+            raise NotImplementedError(
+                "FLOAT64 scalar evaluation is not ported (ROADMAP Queue 1, "
+                "FLOAT64 lanes)"
+            )
+
+
+def _coerce_comparable(l: Evaled, r: Evaled):
+    """Align decimal scales / numeric types for comparison."""
+    _no_float(l.col, r.col)
+    if ColumnType.DECIMAL in (l.col.ctype, r.col.ctype):
+        scale = max(l.col.scale, r.col.scale)
+        return _to_decimal_scale(l, scale), _to_decimal_scale(r, scale)
+    return l.values, r.values
+
+
+def _div_zero_mask(zero, l: Evaled, r: Evaled) -> torch.Tensor:
+    """Rows whose division errs: a zero divisor where neither operand is
+    NULL (pg: a NULL operand yields NULL, no error)."""
+    return zero & ~(r.null_mask() | l.null_mask())
+
+
+def _trunc_quotient(li: torch.Tensor, ri: torch.Tensor) -> torch.Tensor:
+    """Integer quotient truncating toward zero (pg int8div)."""
+    q = _floordiv(torch.abs(li), torch.abs(ri))
+    return torch.where(torch.sign(li) == torch.sign(ri), q, -q)
+
+
+def eval_expr(expr: ScalarExpr, batch: Batch, time=None, masks=None) -> Evaled:
+    """Evaluate ``expr`` over every row (padding included) of ``batch``.
+    Division-by-zero masks go to ``masks`` (see ``expr/errors.py``);
+    ``time`` is the step's timestamp (kept for the reference's
+    signature: ``mz_now()`` is not ported)."""
+    schema = batch.schema
+    cap = batch.capacity
+    dev = batch.device
+
+    if isinstance(expr, ColumnRef):
+        return Evaled(
+            batch.cols[expr.index], batch.nulls[expr.index], schema[expr.index]
+        )
+
+    if isinstance(expr, Literal):
+        col = expr.typ(schema)
+        _no_float(col)
+        dtype = torch_dtype(col.dtype)
+        if expr.value is None:
+            return Evaled(
+                torch.zeros(cap, dtype=dtype, device=dev),
+                torch.ones(cap, dtype=torch.bool, device=dev),
+                col,
+            )
+        return Evaled(torch.full((cap,), expr.value, dtype=dtype, device=dev),
+                      None, col)
+
+    if not isinstance(expr, CallBinary):
+        raise NotImplementedError(
+            f"scalar expression {type(expr).__name__} is not ported"
+        )
+
+    l = eval_expr(expr.left, batch, time, masks)
+    r = eval_expr(expr.right, batch, time, masks)
+    col = expr.typ(schema)
+    nulls = _merge_nulls(l, r)
+    f = expr.func
+    if f in _COMPARISONS:
+        # Strings compare directly: dictionary codes are order-preserving
+        # labels, so integer order is lexicographic order.
+        lv, rv = _coerce_comparable(l, r)
+        return Evaled(_COMPARISONS[f](lv, rv), nulls, col)
+    _no_float(l.col, r.col, col)
+    if col.ctype is ColumnType.DECIMAL:
+        if f == BinaryFunc.MUL:
+            # No rescale: the product's scale is the sum of the scales.
+            return Evaled(l.values.to(torch.int64) * r.values.to(torch.int64),
+                          nulls, col)
+        lv = _to_decimal_scale(l, col.scale)
+        rv = _to_decimal_scale(r, col.scale)
+        if f == BinaryFunc.ADD:
+            return Evaled(lv + rv, nulls, col)
+        if f == BinaryFunc.SUB:
+            return Evaled(lv - rv, nulls, col)
+        if f == BinaryFunc.DIV:
+            # Both operands are at col.scale after rescaling, so the
+            # scale-preserving quotient multiplies by 10^col.scale.
+            zero = rv == 0
+            _err.emit(masks, _err.DIVISION_BY_ZERO, _div_zero_mask(zero, l, r))
+            safe = torch.where(zero, 1, rv)
+            return Evaled(_floordiv(lv * (10**col.scale), safe),
+                          _or_nulls(nulls, zero), col)
+    if f == BinaryFunc.ADD:
+        return Evaled(l.values + r.values, nulls, col)
+    if f == BinaryFunc.SUB:
+        return Evaled(l.values - r.values, nulls, col)
+    if f == BinaryFunc.MUL:
+        return Evaled(l.values * r.values, nulls, col)
+    if f == BinaryFunc.DIV:
+        li = l.values.to(torch.int64)
+        ri = r.values.to(torch.int64)
+        zero = ri == 0
+        _err.emit(masks, _err.DIVISION_BY_ZERO, _div_zero_mask(zero, l, r))
+        v = _trunc_quotient(li, torch.where(zero, 1, ri))
+        return Evaled(v, _or_nulls(nulls, zero), col)
+    if f == BinaryFunc.MOD:
+        # pg mod truncates toward zero: the result takes the dividend's
+        # sign. The integer path also covers DECIMAL (scaled-int mod is
+        # decimal mod at that scale).
+        zero = r.values == 0
+        _err.emit(masks, _err.DIVISION_BY_ZERO, _div_zero_mask(zero, l, r))
+        li = l.values.to(torch.int64)
+        ri = torch.where(zero, 1, r.values.to(torch.int64))
+        v = torch.where(zero, 0, li - _trunc_quotient(li, ri) * ri)
+        if l.values.dtype != torch.int64:
+            v = v.to(l.values.dtype)
+        return Evaled(v, _or_nulls(nulls, zero), col)
+    raise NotImplementedError(f"binary function {f!r} is not ported")
+
+
+# Convenience helpers for building expressions in tests/plans.
+def col(i: int) -> ColumnRef:
+    return ColumnRef(i)
+
+
+def lit(value, ctype: ColumnType | None = None, scale: int = 0) -> Literal:
+    if ctype is None:
+        return _lift(value)
+    return Literal(value, ctype, scale)

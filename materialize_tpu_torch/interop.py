@@ -13,6 +13,11 @@ bool arrays or None), ``time`` ([cap] u64), ``diff`` ([cap] int64),
 Spine dict: ``runs`` and ``slots`` (lists of batch dicts), ``lanes`` and
 ``slot_lanes`` (lists of [cap, L] u64, empty when not cached),
 ``cursor`` (int), ``key`` (tuple) and ``order`` ("hash" | "exact").
+Arrangement dict: ``batch`` (a batch dict), ``key`` and ``order``.
+
+``install_state`` puts a reference dataflow's whole state into a port
+``Dataflow`` of the same plan: its operator states, output spine, err
+arrangement and frontier.
 """
 
 from __future__ import annotations
@@ -21,10 +26,10 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .arrangement.spine import Spine
+from .arrangement.spine import Arrangement, Spine
 from .ops.lanes import from_u64, to_u64
 from .repr.batch import Batch
-from .repr.schema import Schema
+from .repr.schema import ERR_SCHEMA, Schema
 
 
 def batch_from_numpy(d: dict, schema: Schema, device=None) -> Batch:
@@ -92,3 +97,37 @@ def spine_to_numpy(sp: Spine) -> dict:
         "key": tuple(sp.key),
         "order": sp.order,
     }
+
+
+def arrangement_from_numpy(d: dict, schema: Schema, device=None) -> Arrangement:
+    """A port Arrangement holding exactly the batch of ``d``."""
+    return Arrangement(batch_from_numpy(d["batch"], schema, device), tuple(d["key"]),
+                       d.get("order", "exact"))
+
+
+def arrangement_to_numpy(arr: Arrangement) -> dict:
+    """The inverse of arrangement_from_numpy."""
+    return {"batch": batch_to_numpy(arr.batch), "key": tuple(arr.key),
+            "order": arr.order}
+
+
+def install_state(df, states: list, output: dict, err_output: dict, time: int,
+                  compact_tick: int = 0) -> None:
+    """Replace a port Dataflow's state with a reference dataflow's:
+    ``states`` holds, per state slot, the list of its parts as
+    arrangement dicts (slot order and part schemas are the plan's, so
+    both packages agree on them); ``output`` is the output spine's dict,
+    ``err_output`` the err arrangement's, ``time`` the frontier and
+    ``compact_tick`` the fold schedule's tick. ``peek_errors`` reads the
+    carried errors once the port has stepped (whether the plan has err
+    sites is learnt at the first step)."""
+    if len(states) != len(df.states):
+        raise ValueError(f"{len(states)} state slots for a plan with {len(df.states)}")
+    df.states = [
+        tuple(arrangement_from_numpy(p, cur.schema, df.device) for p, cur in zip(parts, now))
+        for parts, now in zip(states, df.states)
+    ]
+    df.output = spine_from_numpy(output, df.out_schema, df.device)
+    df.err_output = arrangement_from_numpy(err_output, ERR_SCHEMA, df.device)
+    df._time = int(time)
+    df._compact_tick = int(compact_tick)

@@ -1,0 +1,334 @@
+"""Accumulable Reduce: incremental GROUP BY with integer accumulators (the
+port of the accumulable path of ``materialize_tpu/ops/reduce.py``).
+
+The group state is one exact-order Arrangement keyed by the group
+columns, with the accumulators as values:
+
+  [group key cols...] ++ [__rows__] ++ per-aggregate accumulator cols
+
+Per step: (1) evaluate each aggregate's input over the delta and weight
+it by the diff, (2) sum the contributions per group (``sum_by_key``),
+(3) gather each touched group's old accumulators from the state, (4)
+emit the retraction of the old output row and the insertion of the new
+one, (5) merge the per-group deltas into the state, summing on key
+collision and dropping groups whose ``__rows__`` reaches 0.
+
+Every accumulator is int64, so the per-group sums (``index_add_`` on
+the card) are exact in any order. Ported aggregates: COUNT, SUM_INT,
+ANY, ALL. SUM_FLOAT, MIN/MAX (hierarchical) and the basic collection
+aggregates raise ``NotImplementedError``: they need FLOAT64 lanes and
+multiset state parts (ROADMAP Queue 1).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..arrangement.spine import Arrangement, lookup_range
+from ..expr import errors as _errors
+from ..expr.relation import AggregateExpr, AggregateFunc
+from ..expr.scalar import eval_expr
+from ..plan.decisions import plan_reduce
+from ..repr.batch import Batch
+from ..repr.schema import ERR_SCHEMA, Column, ColumnType, Schema
+from .lanes import key_lanes
+from .merge import merge_sorted
+from .sort import apply_perm, compact, segment_ids, segment_starts, sort_perm
+
+
+def accum_schema(input_schema: Schema, group_key, aggregates) -> Schema:
+    """Schema of the reduce state arrangement."""
+    cols = [input_schema[i] for i in group_key]
+    cols.append(Column("__rows__", ColumnType.INT64))
+    for j, agg in enumerate(aggregates):
+        cols.extend(_accum_cols(j, agg))
+    return Schema(cols)
+
+
+def _accum_cols(j: int, agg: AggregateExpr) -> list:
+    if agg.func is AggregateFunc.COUNT:
+        return [Column(f"__a{j}_count__", ColumnType.INT64)]
+    if agg.func is AggregateFunc.SUM_INT:
+        return [Column(f"__a{j}_sum__", ColumnType.INT64),
+                Column(f"__a{j}_nn__", ColumnType.INT64)]
+    if agg.func in (AggregateFunc.ANY, AggregateFunc.ALL):
+        return [Column(f"__a{j}_cnt__", ColumnType.INT64),
+                Column(f"__a{j}_nn__", ColumnType.INT64)]
+    raise NotImplementedError(
+        f"aggregate {agg.func.value} is not ported (SUM_FLOAT needs FLOAT64 "
+        "lanes; MIN/MAX and the collection aggregates need multiset state "
+        "parts: ROADMAP Queue 1)"
+    )
+
+
+# |running sum| beyond this bound is a NUMERIC_OUT_OF_RANGE error (the
+# guard band is half the int64 range, so one step's delta cannot lap the
+# detector).
+_SUM_ERR_BOUND = 1 << 62
+
+
+def _sum_err_batch(trans: torch.Tensor, out_time: int) -> Batch:
+    """One err-stream update row carrying the net count of groups whose
+    running sum crossed (+1) or re-entered (-1) the bound this step."""
+    dev = trans.device
+    return Batch(
+        cols=(torch.full((1,), _errors.NUMERIC_OUT_OF_RANGE, dtype=torch.int64,
+                         device=dev),),
+        nulls=(None,),
+        time=torch.full((1,), out_time, dtype=torch.int64, device=dev),
+        diff=trans.reshape(1).to(torch.int64),
+        count=torch.ones((), dtype=torch.int32, device=dev),
+        schema=ERR_SCHEMA,
+    )
+
+
+def output_schema(input_schema: Schema, group_key, aggregates) -> Schema:
+    cols = [input_schema[i] for i in group_key]
+    for j, agg in enumerate(aggregates):
+        c = agg.output_col(input_schema)
+        cols.append(Column(f"{c.name}_{j}", c.ctype, c.nullable, c.scale))
+    return Schema(cols)
+
+
+def delta_contributions(batch: Batch, group_key, aggregates, state_schema: Schema,
+                        time=None) -> Batch:
+    """Map an input delta batch to accumulator-contribution rows (one per
+    input row; ``sum_by_key`` groups them). Aggregate-input evaluation
+    errors are not collected (as in the reference): they become NULL."""
+    cols = [batch.cols[i] for i in group_key]
+    nulls = [batch.nulls[i] for i in group_key]
+    diff = batch.diff
+    cols.append(diff.to(torch.int64))  # __rows__
+    nulls.append(None)
+    for agg in aggregates:
+        ev = eval_expr(agg.expr, batch, time)
+        nn = ~ev.null_mask()
+        nn_i = nn.to(torch.int64) * diff
+        if agg.func is AggregateFunc.COUNT:
+            new = [nn_i]
+        elif agg.func is AggregateFunc.SUM_INT:
+            new = [torch.where(nn, ev.values.to(torch.int64), 0) * diff, nn_i]
+        elif agg.func is AggregateFunc.ANY:
+            new = [(ev.values & nn).to(torch.int64) * diff, nn_i]
+        elif agg.func is AggregateFunc.ALL:
+            new = [(~ev.values & nn).to(torch.int64) * diff, nn_i]
+        else:
+            _accum_cols(0, agg)  # raises, naming the aggregate
+        cols.extend(new)
+        nulls.extend([None] * len(new))
+    return Batch(
+        cols=tuple(cols),
+        nulls=tuple(nulls),
+        time=batch.time,
+        # diff 1 per contribution row: accumulators are summed by
+        # column on key collision, not multiset-counted.
+        diff=batch.valid_mask().to(torch.int64),
+        count=batch.count,
+        schema=state_schema,
+    )
+
+
+def sum_by_key(batch: Batch, n_key: int, presorted: bool = False) -> Batch:
+    """Sort by the first ``n_key`` columns and sum every remaining
+    (accumulator) column per key; one row per key survives, diff 1.
+    ``presorted`` skips the sort for key-sorted input (a merge of two
+    key-sorted runs).
+
+    The reference's ``.at[seg].add(vals, mode="drop")`` becomes one
+    int64 ``index_add_`` of the stacked accumulator columns into a
+    buffer with one spare row: padding rows (whose segment id may be -1)
+    add into the spare row, which is sliced off."""
+    cap = batch.capacity
+    lanes = key_lanes(batch, range(n_key))
+    if presorted:
+        s = batch
+    else:
+        perm = sort_perm(lanes, batch.count, cap)
+        s = apply_perm(batch, perm)
+        lanes = [l[perm] for l in lanes]
+    starts = segment_starts(lanes, s.count, cap)
+    valid = s.valid_mask()
+    dest = torch.where(valid, segment_ids(starts), cap)
+    acc = torch.stack(s.cols[n_key:], dim=1)
+    sums = acc.new_zeros((cap + 1, acc.shape[1]))
+    sums.index_add_(0, dest, torch.where(valid[:, None], acc, 0))
+    # Each row takes its segment's total; padding rows read the spare
+    # row (compact below drops them).
+    per_row = sums[dest]
+    out = s.replace(
+        cols=tuple(s.cols[:n_key]) + tuple(per_row.unbind(1)),
+        diff=starts.to(s.diff.dtype),
+    )
+    return compact(out, starts)
+
+
+def merge_accum_state(state: Arrangement, groups: Batch, out_capacity: int):
+    """Merge per-group accumulator deltas (key-sorted and key-unique: the
+    output of ``sum_by_key``) into the state arrangement, summing on key
+    collision and dropping dead groups (``__rows__`` == 0). Returns
+    (arrangement, overflowed)."""
+    n_key = len(state.key)
+    merged, overflow = merge_sorted(
+        state.batch, key_lanes(state.batch, range(n_key)),
+        groups, key_lanes(groups, range(n_key)),
+        out_capacity,
+    )
+    summed = sum_by_key(merged, n_key, presorted=True)
+    alive = summed.cols[n_key] != 0  # __rows__ > 0 (cannot go negative)
+    return Arrangement(compact(summed, alive), state.key), overflow
+
+
+def gather_old_accums(state: Arrangement, probe: Batch) -> tuple:
+    """For each probe group row, the state's accumulator columns (zeros
+    where the group is absent). Returns (gathered_cols, found)."""
+    n_key = len(state.key)
+    lo, hi = lookup_range(state, key_lanes(probe, range(n_key)))
+    found = hi > lo
+    # The reference's gather clamps; torch's raises: clamp by hand.
+    idx = torch.clamp(lo, 0, max(state.capacity - 1, 0)).to(torch.int64)
+    acc = torch.stack(state.batch.cols[n_key:], dim=1)[idx]
+    return list(torch.where(found[:, None], acc, 0).unbind(1)), found
+
+
+def accums_to_output(key_cols, key_nulls, accum_cols, aggregates) -> tuple:
+    """Accumulator columns -> (cols, nulls) of the output row per group
+    (rows of dead groups are garbage; the caller masks them)."""
+    cols = list(key_cols)
+    nulls = list(key_nulls)
+    i = 1  # accum_cols[0] is __rows__
+    for agg in aggregates:
+        if agg.func is AggregateFunc.COUNT:
+            cols.append(accum_cols[i])
+            nulls.append(None)
+            i += 1
+            continue
+        v, nn = accum_cols[i], accum_cols[i + 1]
+        if agg.func is AggregateFunc.SUM_INT:
+            cols.append(v)
+        elif agg.func is AggregateFunc.ANY:
+            cols.append(v > 0)
+        elif agg.func is AggregateFunc.ALL:
+            cols.append(v == 0)
+        else:
+            _accum_cols(0, agg)  # raises, naming the aggregate
+        nulls.append(nn == 0)
+        i += 2
+    return cols, nulls
+
+
+def _or_zeros(mask, n: int, device) -> torch.Tensor:
+    return mask if mask is not None else torch.zeros(n, dtype=torch.bool, device=device)
+
+
+@dataclass
+class ReduceOp:
+    """An accumulable Reduce (``ReducePlan`` Accumulable or Distinct).
+    State is a 1-tuple holding the accumulator Arrangement."""
+
+    input_schema: Schema
+    group_key: tuple
+    aggregates: tuple
+
+    def __post_init__(self):
+        self.n_key = len(self.group_key)
+        if any(a.distinct for a in self.aggregates):
+            # The reference's optimizer rewrites DISTINCT aggregates into
+            # plain reduces before render; the port carries no optimizer.
+            raise NotImplementedError(
+                "DISTINCT aggregates are not ported (the optimizer's "
+                "plan_distinct_aggregates rewrite)"
+            )
+        self.plan = plan_reduce(self.aggregates)
+        if self.plan.kind not in ("Accumulable", "Distinct"):
+            raise NotImplementedError(
+                f"{self.plan.kind} reduce is not ported (MIN/MAX and the "
+                "collection aggregates need multiset state parts: ROADMAP "
+                "Queue 1)"
+            )
+        self.state_schema = accum_schema(self.input_schema, self.group_key,
+                                         self.aggregates)
+        self.out_schema = output_schema(self.input_schema, self.group_key,
+                                        self.aggregates)
+        # Accumulator columns of SUM_INT sums (offsets past the key), the
+        # ones the sum-overflow error stream watches.
+        self._sum_cols = []
+        off = 1
+        for j, agg in enumerate(self.aggregates):
+            if agg.func is AggregateFunc.SUM_INT:
+                self._sum_cols.append(off)
+            off += len(_accum_cols(j, agg))
+
+    def init_state(self, capacity: int = 256, device=None) -> tuple:
+        return (Arrangement.empty(self.state_schema, tuple(range(self.n_key)),
+                                  capacity, device=device),)
+
+    def step(self, state: tuple, delta: Batch, out_time: int, errs=None):
+        """Process one delta batch at logical time ``out_time``. With
+        ``errs`` (the step's err sink) a SUM_INT reduce appends one
+        sum-overflow err row. Returns (new_state, output delta,
+        overflow: {part: flag})."""
+        acc_state = state[0]
+        dev = delta.device
+        contrib = delta_contributions(delta, self.group_key, self.aggregates,
+                                      self.state_schema, out_time)
+        groups = sum_by_key(contrib, self.n_key)  # one row per touched group
+        gcap = groups.capacity
+        gvalid = groups.valid_mask()
+
+        old_accums, _ = gather_old_accums(acc_state, groups)
+        new_accums = [o + d for o, d in zip(old_accums, groups.cols[self.n_key:])]
+        old_alive = gvalid & (old_accums[0] > 0)
+        new_alive = gvalid & (new_accums[0] > 0)
+
+        if errs is not None and self._sum_cols:
+            # A group whose |running sum| crosses the bound adds an err
+            # row; retracting inputs brings the wrapped sum back and
+            # retracts it (int64 addition is a group).
+            old = torch.stack([old_accums[c] for c in self._sum_cols], 1)
+            new = torch.stack([new_accums[c] for c in self._sum_cols], 1)
+            was = (old > _SUM_ERR_BOUND) | (old < -_SUM_ERR_BOUND)
+            now = (new > _SUM_ERR_BOUND) | (new < -_SUM_ERR_BOUND)
+            trans = torch.where(
+                gvalid[:, None], now.to(torch.int64) - was.to(torch.int64), 0
+            ).sum()
+            errs.append(_sum_err_batch(trans, out_time))
+
+        new_state_acc, ovf = merge_accum_state(acc_state, groups, acc_state.capacity)
+
+        key_cols = groups.cols[: self.n_key]
+        key_nulls = groups.nulls[: self.n_key]
+        old_cols, old_nulls = accums_to_output(key_cols, key_nulls, old_accums,
+                                               self.aggregates)
+        new_cols, new_nulls = accums_to_output(key_cols, key_nulls, new_accums,
+                                               self.aggregates)
+
+        # Old and new rows are aligned per group, so "output unchanged"
+        # is a columnwise comparison (no consolidation sort).
+        changed = old_alive != new_alive
+        for oc, nc, on, nn in zip(old_cols[self.n_key:], new_cols[self.n_key:],
+                                  old_nulls[self.n_key:], new_nulls[self.n_key:]):
+            on_m, nn_m = _or_zeros(on, gcap, dev), _or_zeros(nn, gcap, dev)
+            changed = changed | (on_m != nn_m) | (~on_m & (oc != nc))
+
+        out_nulls = []
+        for on, nn in zip(old_nulls, new_nulls):
+            if on is None and nn is None:
+                out_nulls.append(None)
+            else:
+                out_nulls.append(torch.cat([_or_zeros(on, gcap, dev),
+                                            _or_zeros(nn, gcap, dev)]))
+        out_diff = torch.cat([
+            -(old_alive & changed).to(torch.int64),
+            (new_alive & changed).to(torch.int64),
+        ])
+        out = Batch(
+            cols=tuple(torch.cat([oc, nc]) for oc, nc in zip(old_cols, new_cols)),
+            nulls=tuple(out_nulls),
+            time=torch.full((2 * gcap,), out_time, dtype=torch.int64, device=dev),
+            diff=out_diff,
+            count=torch.full((), 2 * gcap, dtype=torch.int32, device=dev),
+            schema=self.out_schema,
+        )
+        return (new_state_acc,), compact(out, out_diff != 0), {0: ovf}

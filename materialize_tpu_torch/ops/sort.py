@@ -125,3 +125,8 @@ def segment_starts(lanes, count, capacity: int) -> torch.Tensor:
         differs = differs | (lane != prev)
     return (idx < count) & differs
 
+
+def segment_ids(starts: torch.Tensor) -> torch.Tensor:
+    """0-based segment id (int64) per row from a segment-start mask. Rows
+    before the first start (every row, when there is none) get -1."""
+    return torch.cumsum(starts, 0, dtype=torch.int64) - 1

@@ -1,10 +1,12 @@
-"""The plan decisions the maintained-index slice needs (the port's copy
-of part of ``materialize_tpu/plan/decisions.py``): the capacity
-quantization menu and the output index's ingest mode. Capacities must
-match the reference's tier for tier, so overflow, rollback and replay
-land on the same ticks in both packages."""
+"""The plan decisions the port's slices need (the port's copy of part of
+``materialize_tpu/plan/decisions.py`` and of ``plan/lir.py:ReducePlan``):
+the capacity quantization menu, the output index's ingest mode and the
+Reduce plan. Capacities must match the reference's tier for tier, so
+overflow, rollback and replay land on the same ticks in both packages."""
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 # Append-slot ring length (tracks the default compaction cadence).
 INGEST_RING_SLOTS = 8
@@ -26,3 +28,35 @@ def ingest_mode(state_capacity: int, tail_capacity: int = 1024) -> str:
     tier, else 'merge' (every step merges into run 0). The reference's
     'auto' rule; its dyncfg override is not carried over."""
     return "append_slot" if state_capacity >= 8 * tail_capacity else "merge"
+
+
+@dataclass(frozen=True)
+class ReducePlan:
+    """How a Reduce executes. ``kind``: Distinct (no aggregates),
+    Accumulable (every aggregate folds into per-group accumulators),
+    Hierarchical, Basic or Collation (a mix). The positions say which
+    aggregates take which path."""
+
+    kind: str
+    accumulable: tuple = ()
+    hierarchical: tuple = ()
+    basic: tuple = ()
+
+
+def plan_reduce(aggregates) -> ReducePlan:
+    """Partition aggregates into accumulable, hierarchical and basic, and
+    pick the reduce plan."""
+    if not aggregates:
+        return ReducePlan("Distinct")
+    acc = tuple(j for j, a in enumerate(aggregates) if a.func.is_accumulable)
+    hier = tuple(j for j, a in enumerate(aggregates) if a.func.is_hierarchical)
+    basic = tuple(j for j, a in enumerate(aggregates) if a.func.is_basic)
+    if not hier and not basic:
+        return ReducePlan("Accumulable", acc, ())
+    if not acc and not basic:
+        # The accumulator part still runs (its __rows__ column is the
+        # group-liveness authority).
+        return ReducePlan("Collation", (), hier)
+    if basic and not acc and not hier:
+        return ReducePlan("Basic", (), (), basic)
+    return ReducePlan("Collation", acc, hier, basic)

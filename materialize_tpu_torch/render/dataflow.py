@@ -1,5 +1,7 @@
 """Render a MIR expression into a maintained dataflow with an output index
-(the port of ``materialize_tpu/render/dataflow.py`` for ``Get``).
+(the port of ``materialize_tpu/render/dataflow.py`` for ``Get``,
+``Project``, ``Map``, non-temporal ``Filter`` and the accumulable
+``Reduce``).
 
 The reference compiles one XLA step program and runs a span of steps
 as one ``lax.scan``; PyTorch runs eagerly, so here a span is a host
@@ -8,16 +10,23 @@ loop over ticks, with the due spine levels folded after every
 
 - the output index is a hash-ordered ``Spine`` (every column the key),
   fed by ``insert_tail`` and folded on the geometric schedule;
+- operator state (a Reduce's group arrangement) lives in state slots,
+  overflow key ``("state", slot, part)``;
+- the err collection: scalar-evaluation and sum-overflow errors are
+  kept in a second arrangement beside the output (``err_output``,
+  overflow key ``("errout",)``), read by ``peek_errors``;
 - overflow flags are OR-ed ON THE DEVICE and read back once per span
   (``check_flags``; the ``_readbacks`` counter keeps that invariant);
-- on overflow the span is rolled back to its checkpoint (spines are
-  immutable values, so the checkpoint holds references), the flagged
-  tiers grow, and the logged spans replay exactly;
+- on overflow the span is rolled back to its checkpoint (states, the
+  output spine and the err arrangement are immutable values, so the
+  checkpoint holds references), the flagged tiers grow, and the logged
+  spans replay exactly;
 - capacities follow the same pow2 tiers as the reference, so overflow,
   rollback and replay happen on the same ticks.
 
-Left out: donation, the compile ledger, the program bank, SPMD and the
-err collection (with only a ``Get`` nothing can raise).
+Left out: donation, the compile ledger, the program bank, SPMD (the
+Reduce's exchange is the identity on one device), and every other MIR
+node (``_build`` raises ``NotImplementedError`` naming it).
 """
 
 from __future__ import annotations
@@ -25,32 +34,95 @@ from __future__ import annotations
 import torch
 
 from .. import resolve_device
-from ..arrangement.spine import Spine, compact_depth, compact_level, insert_tail
+from ..arrangement.spine import (
+    Arrangement,
+    Spine,
+    compact_depth,
+    compact_level,
+    insert,
+    insert_tail,
+)
 from ..expr import relation as mir
+from ..expr.linear import MapFilterProject, apply_mfp
 from ..ops.consolidate import consolidate
-from ..ops.sort import shrink
+from ..ops.reduce import ReduceOp
+from ..ops.sort import concat_batches, shrink
 from ..plan.decisions import INGEST_RING_SLOTS, ingest_mode, quantize_cap
 from ..repr.batch import Batch
+from ..repr.schema import ERR_SCHEMA
+
+# Error deltas are shrunk to this tier before the err arrangement insert.
+ERR_DELTA_CAP = 2048
 
 
-def _build(expr: mir.RelationExpr):
-    """A closure inputs -> output delta batch."""
+class _RenderContext:
+    """Collects state slots while walking the MIR tree: each stateful
+    operator's initial state, at the dataflow's state tier."""
+
+    def __init__(self, state_cap: int, device):
+        self.state_cap = state_cap
+        self.device = device
+        self.slots: list = []
+
+    def new_slot(self, init: tuple) -> int:
+        self.slots.append(init)
+        return len(self.slots) - 1
+
+
+def _build(expr: mir.RelationExpr, ctx: _RenderContext):
+    """A closure (states, inputs, time, errs) -> (delta batch,
+    {slot: new state}, {overflow key: device flag}); ``errs`` is the
+    step's err sink (``expr/errors.py``)."""
     if isinstance(expr, mir.Get):
         name = expr.name
 
-        def run(inputs):
-            return inputs[name]
+        def run(states, inputs, time, errs):
+            return inputs[name], {}, {}
 
         return run
-    raise NotImplementedError(type(expr).__name__)
+
+    if isinstance(expr, (mir.Project, mir.Map, mir.Filter)):
+        inner = _build(expr.input, ctx)
+        arity = expr.input.schema().arity
+        if isinstance(expr, mir.Project):
+            mfp = MapFilterProject(arity, projection=expr.outputs)
+        elif isinstance(expr, mir.Map):
+            mfp = MapFilterProject(arity, expressions=expr.scalars)
+        else:
+            mfp = MapFilterProject(arity, predicates=expr.predicates)
+        # MIR's naming (c{i}) is authoritative for a Map's output.
+        out_schema = expr.schema() if isinstance(expr, mir.Map) else None
+
+        def run(states, inputs, time, errs):
+            b, upd, ovf = inner(states, inputs, time, errs)
+            out = apply_mfp(mfp, b, time, errs)
+            return (out if out_schema is None else out.replace(schema=out_schema)), upd, ovf
+
+        return run
+
+    if isinstance(expr, mir.Reduce):
+        op = ReduceOp(expr.input.schema(), expr.group_key, expr.aggregates)
+        slot = ctx.new_slot(op.init_state(ctx.state_cap, ctx.device))
+        inner = _build(expr.input, ctx)
+
+        def run(states, inputs, time, errs):
+            b, upd, ovf = inner(states, inputs, time, errs)
+            new_state, out, overflow = op.step(states[slot], b, time, errs)
+            upd = dict(upd)
+            upd[slot] = new_state
+            ovf = dict(ovf)
+            for part, flag in overflow.items():
+                ovf[("state", slot, part)] = flag
+            return out, upd, ovf
+
+        return run
+
+    raise NotImplementedError(f"render of {type(expr).__name__} is not ported")
 
 
 class Dataflow:
     """A maintained dataflow on one device: install once, feed update
     batches (``step``/``run_steps``/``run_span``), peek."""
-
-    # Overflow keys of one step, in the reference's sorted order.
-    _OVF_KEYS = [("out", "tail"), ("outd",)]
 
     def __init__(self, expr: mir.RelationExpr, name: str = "df",
                  state_cap: int = 256, out_levels: int = 2,
@@ -68,12 +140,24 @@ class Dataflow:
                 if ingest_mode(self.state_cap, self.out_delta_cap) == "append_slot"
                 else 0
             )
-        self._run = _build(expr)
+        ctx = _RenderContext(self.state_cap, self.device)
+        self._run = _build(expr, ctx)
+        # One tuple of state parts per stateful operator (slot).
+        self.states = list(ctx.slots)
         self.output = Spine.empty(
             self.out_schema, tuple(range(self.out_schema.arity)), 256,
             tail_capacity=self.out_delta_cap, order="hash", levels=out_levels,
             ingest_slots=out_slots, device=self.device,
         )
+        # The err collection beside the data output: (err_code, time,
+        # diff) rows; nonempty means reads of this dataflow must raise.
+        self.err_output = Arrangement.empty(ERR_SCHEMA, (0,), 256, device=self.device)
+        # Whether a step can push errors (its plan has an err site): a
+        # fact of the plan, learnt at the first step.
+        self._has_errors = False
+        # Step overflow keys in the reference's sorted order (set by the
+        # first step: they are a fact of the plan).
+        self._ovf_keys: list = []
         self._time = 0
         # Compaction schedule: every `_compact_every` ticks fold level 0;
         # level l every `_compact_every * _compact_ratio**l` ticks.
@@ -127,10 +211,21 @@ class Dataflow:
         or straight to ``target`` (snapped to the pow2 menu)."""
         if target is not None:
             target = quantize_cap(target)
-        if key[0] == "out":
+
+        def grow(b):
+            return self._grow_batch(b, target)
+
+        if key[0] == "state":
+            _, slot, part = key
+            parts = list(self.states[slot])
+            parts[part] = parts[part].map_batches(grow)
+            self.states[slot] = tuple(parts)
+        elif key[0] == "out":
             self.output = self._grow_spine(self.output, key[1], target)
         elif key[0] == "outd":
             self.out_delta_cap *= 2
+        elif key[0] == "errout":
+            self.err_output = self.err_output.map_batches(grow)
         else:
             raise ValueError(f"unknown overflow key {key}")
 
@@ -170,13 +265,39 @@ class Dataflow:
         return spine.with_run(which, grown, lanes)
 
     # -- one tick and one fold ----------------------------------------------
-    def _step_core(self, output: Spine, inputs: dict):
-        out = self._run(inputs)
+    def _step_core(self, states: list, output: Spine, err_output: Arrangement,
+                   inputs: dict):
+        """One tick: returns (output delta, states, output spine, err
+        arrangement, step flags in ``_ovf_keys`` order)."""
+        errs: list = []
+        out, upd, ovf = self._run(states, inputs, self._time, errs)
+        new_states = list(states)
+        for k, v in upd.items():
+            new_states[k] = v
         # The delta is what sinks would see: consolidate it.
         out = consolidate(out, include_time=True)
         out, shrink_ovf = shrink(out, self.out_delta_cap)
         new_output, out_ovf = insert_tail(output, out)
-        return out, new_output, torch.stack([out_ovf, shrink_ovf])
+        ovf = dict(ovf)
+        ovf[("outd",)] = shrink_ovf
+        ovf[("out", "tail")] = out_ovf
+        new_err = self._apply_err_delta(err_output, errs, ovf)
+        self._ovf_keys = sorted(ovf)
+        flags = torch.stack([ovf[k].reshape(()).to(torch.bool) for k in self._ovf_keys])
+        return out, new_states, new_output, new_err, flags
+
+    def _apply_err_delta(self, err_output: Arrangement, errs: list, ovf: dict):
+        """Fold a step's err batches into the err arrangement (zero-diff
+        rows, such as a Reduce's step with no sum crossing its bound,
+        vanish in the consolidation). Adds the ``("errout",)`` flag."""
+        self._has_errors = bool(errs)
+        if not errs:
+            return err_output
+        delta = consolidate(concat_batches(errs), include_time=False)
+        delta, shrink_ovf = shrink(delta, ERR_DELTA_CAP)
+        new_err, err_ovf = insert(err_output, delta, out_capacity=err_output.capacity)
+        ovf[("errout",)] = shrink_ovf | err_ovf
+        return new_err
 
     def _compact(self, max_level: int) -> torch.Tensor:
         """Fold levels [0, max_level] of the output spine; returns the
@@ -217,7 +338,9 @@ class Dataflow:
         deltas = []
         for inputs in inputs_list:
             self._check_inputs(inputs)
-            out, self.output, fl = self._step_core(self.output, inputs)
+            out, self.states, self.output, self.err_output, fl = self._step_core(
+                self.states, self.output, self.err_output, inputs
+            )
             deltas.append(out)
             sfl = self._or(sfl, fl)
             self._time += 1
@@ -238,7 +361,7 @@ class Dataflow:
         parts, keys = [], []
         if sfl is not None:
             parts.append(sfl)
-            keys += self._OVF_KEYS
+            keys += self._ovf_keys
         if cfl is not None:
             parts.append(cfl)
             keys += self._covf_keys
@@ -250,10 +373,12 @@ class Dataflow:
 
     # -- checkpoints --------------------------------------------------------
     def _checkpoint(self):
-        return (self.output, self._time, self._compact_tick)
+        return (list(self.states), self.output, self.err_output, self._time,
+                self._compact_tick)
 
     def _restore(self, ck) -> None:
-        self.output, self._time, self._compact_tick = ck
+        states, self.output, self.err_output, self._time, self._compact_tick = ck
+        self.states = list(states)
 
     # -- public stepping ----------------------------------------------------
     def step(self, inputs: dict) -> Batch:
@@ -357,3 +482,16 @@ class Dataflow:
     def peek(self) -> list:
         """The full maintained result (SELECT * FROM the index)."""
         return self.output_batch().to_rows()
+
+    def peek_errors(self) -> list:
+        """The maintained err collection: [(err_code, count)] with count
+        != 0. Nonempty means reads of this dataflow must raise (the
+        reference picks an arbitrary error). A dataflow whose plan has
+        no err site skips the readback."""
+        if not self._has_errors:
+            return []
+        self.check_flags()
+        acc: dict = {}
+        for row in self.err_output.batch.to_rows():
+            acc[row[0]] = acc.get(row[0], 0) + row[-1]
+        return sorted((c, n) for c, n in acc.items() if n != 0)

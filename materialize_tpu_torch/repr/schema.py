@@ -107,6 +107,9 @@ class Schema:
                 return i
         raise KeyError(name)
 
+    def project(self, indices) -> "Schema":
+        return Schema([self.columns[i] for i in indices])
+
 
 class DictExhausted(RuntimeError):
     """A gap in the label space ran out between two dense neighbours."""

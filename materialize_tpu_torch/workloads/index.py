@@ -1,5 +1,6 @@
 """The maintained TPC-H lineitem index: the port's counterpart of the
-reference bench's ``config_index`` (``bench.py:_tpch_lineitem_config``).
+reference bench's ``config_index``, and the lineitem-stream layout every
+lineitem workload shares (``bench.py:_tpch_lineitem_config``).
 
 A bare ``Get lineitem`` dataflow whose output index is a hash-ordered
 spine with an append-slot ring and a geometric run ladder sized for the
@@ -7,7 +8,8 @@ churn rate: hydrate the lineitem snapshot, then churn orders
 (delete + re-insert, Materialize's TPC-H load-generator tick). The run
 ladder, slot ring, compaction cadence (``ce``/``ratio``) and churn
 capacity are computed exactly as the reference computes them, so both
-packages hold the same tiers.
+packages hold the same tiers. ``workloads/tpch.py`` lays TPC-H Q1 over
+the same stream.
 """
 
 from __future__ import annotations
@@ -26,15 +28,15 @@ def rows_per_tick(n_orders_per_tick: int) -> int:
     return int(n_orders_per_tick * 4.5 * 2)
 
 
-def build_index_dataflow(n_orders_per_tick: int = 1024, state_cap: int = 1 << 21,
-                         out_levels: int = 4, ce: int = 4, ratio: int = 4,
-                         slots: bool = True, device=None):
-    """The index dataflow with the reference's layout applied. Returns
-    (df, hydrate_batch_orders, churn_capacity)."""
+def build_lineitem_dataflow(expr: mir.RelationExpr, n_orders_per_tick: int,
+                            state_cap: int, out_levels: int, ce: int, ratio: int,
+                            slots: bool, device=None):
+    """A dataflow over the lineitem stream with the reference's layout
+    applied. Returns (df, hydrate_batch_orders, churn_capacity)."""
     rpt = rows_per_tick(n_orders_per_tick)
     churn_cap = max(capacity_tier(rpt), CHURN_CAP)
     df = Dataflow(
-        mir.Get("lineitem", LINEITEM_SCHEMA), state_cap=state_cap,
+        expr, state_cap=state_cap,
         out_levels=out_levels, out_slots=(ce if slots else 0), device=device,
     )
     df._compact_every = ce
@@ -61,16 +63,36 @@ def build_index_dataflow(n_orders_per_tick: int = 1024, state_cap: int = 1 << 21
     return df, h_orders, churn_cap
 
 
+def build_index_dataflow(n_orders_per_tick: int = 1024, state_cap: int = 1 << 21,
+                         out_levels: int = 4, ce: int = 4, ratio: int = 4,
+                         slots: bool = True, device=None):
+    """The index dataflow with the reference's layout applied. Returns
+    (df, hydrate_batch_orders, churn_capacity)."""
+    return build_lineitem_dataflow(
+        mir.Get("lineitem", LINEITEM_SCHEMA), n_orders_per_tick, state_cap,
+        out_levels, ce, ratio, slots, device,
+    )
+
+
 def index_config(sf: float = 0.25, n_orders_per_tick: int = 1024,
                  state_cap: int = 1 << 21, out_levels: int = 4, ce: int = 4,
                  ratio: int = 4, slots: bool = True, seed: int = 42, device=None):
     """Returns (df, hydrate, churn): ``hydrate()`` lists the snapshot's
     step inputs; ``churn(i, t)`` gives tick i's step inputs at logical
     time t and its host row count."""
-    gen = TpchGenerator(sf=sf, seed=seed)
-    df, h_orders, churn_cap = build_index_dataflow(
-        n_orders_per_tick, state_cap, out_levels, ce, ratio, slots, device
+    return lineitem_config(
+        *build_index_dataflow(n_orders_per_tick, state_cap, out_levels, ce, ratio,
+                              slots, device),
+        sf, n_orders_per_tick, seed,
     )
+
+
+def lineitem_config(df, h_orders: int, churn_cap: int, sf: float,
+                    n_orders_per_tick: int, seed: int = 42):
+    """The TPC-H stream of a dataflow built by ``build_lineitem_dataflow``
+    (its three results first): returns (df, hydrate, churn) as
+    ``index_config`` does."""
+    gen = TpchGenerator(sf=sf, seed=seed)
 
     def hydrate():
         return [

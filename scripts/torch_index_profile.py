@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's maintained lineitem index, on a card.
+"""Where the time goes in a maintained TPC-H workload of the port, on a card.
 
-    python3 scripts/torch_index_profile.py [--sf 1.0] [--ticks 16] [--trace PATH]
+    python3 scripts/torch_index_profile.py [index|q1] [--sf 1.0] [--ticks 16] [--trace PATH]
 
-Builds the index configuration of ``chip_smoke.py`` (the reference
-bench's ``config_index`` layout, ``state_cap = 2^23``), hydrates the
+Builds the workload's configuration of ``chip_smoke.py`` (``index``: the
+reference bench's ``config_index`` layout, ``state_cap = 2^23``;
+``q1``: TPC-H Q1 in the bench's ``config_q1`` layout), hydrates the
 TPC-H snapshot, warms one churn span, then traces one more churn span
 of ``--ticks`` ticks with ``torch.profiler`` (CPU + CUDA). Prints JSON
 lines: the span's wall time, the device's busy time (union of kernel
 intervals) and idle share, the kernel launches, and the device time by
 kernel name (top 15, with the merge-path kernel's launches and share;
-a span that shows no launch of it fails). With
+a span that shows no launch of it fails), and the host time spent in
+each layer of the step path (``host_ms_by_layer``: the script wraps the
+layer functions in profiler ranges for the traced span; ranges nest, so
+a layer's time includes its parts'). With
 ``--trace PATH`` the Chrome trace of the span is written to PATH.
 """
 
@@ -25,6 +29,50 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+# (range name, module, attribute): the step path's layers, wrapped in
+# profiler ranges for the traced span only.
+LAYERS = (
+    ("step", "materialize_tpu_torch.render.dataflow", "Dataflow._step_core"),
+    ("fold", "materialize_tpu_torch.render.dataflow", "Dataflow._compact"),
+    ("mfp", "materialize_tpu_torch.render.dataflow", "apply_mfp"),
+    ("reduce", "materialize_tpu_torch.ops.reduce", "ReduceOp.step"),
+    ("reduce.contributions", "materialize_tpu_torch.ops.reduce", "delta_contributions"),
+    ("reduce.sum_by_key", "materialize_tpu_torch.ops.reduce", "sum_by_key"),
+    ("reduce.lookup", "materialize_tpu_torch.ops.reduce", "gather_old_accums"),
+    ("reduce.state_merge", "materialize_tpu_torch.ops.reduce", "merge_accum_state"),
+    ("out.consolidate", "materialize_tpu_torch.render.dataflow", "consolidate"),
+    ("out.insert", "materialize_tpu_torch.render.dataflow", "insert_tail"),
+    ("err", "materialize_tpu_torch.render.dataflow", "Dataflow._apply_err_delta"),
+)
+
+
+def _wrap_layers(torch) -> None:
+    import functools
+    import importlib
+
+    for name, mod_name, attr in LAYERS:
+        owner = importlib.import_module(mod_name)
+        *path, leaf = attr.split(".")
+        for part in path:
+            owner = getattr(owner, part)
+        fn = getattr(owner, leaf)
+
+        def wrapped(*a, _fn=fn, _name=name, **k):
+            with torch.profiler.record_function(_name):
+                return _fn(*a, **k)
+
+        setattr(owner, leaf, functools.wraps(fn)(wrapped))
+
+
+def layer_host_ms(torch, events) -> dict:
+    """Host ms inside each layer's range, summed over its calls."""
+    names = {name for name, _, _ in LAYERS}
+    out: dict = {}
+    for e in events:
+        if e.name in names and e.device_type == torch.autograd.DeviceType.CPU:
+            out[e.name] = out.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    return out
+
 
 def main() -> int:
     import torch
@@ -34,8 +82,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     from materialize_tpu_torch.workloads.index import index_config
+    from materialize_tpu_torch.workloads.tpch import q1_config
 
     ap = argparse.ArgumentParser()
+    ap.add_argument("workload", nargs="?", choices=("index", "q1"), default="index")
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--ticks", type=int, default=16)
     ap.add_argument("--trace", default=None, help="write the Chrome trace here")
@@ -45,11 +95,17 @@ def main() -> int:
         capture_output=True, text=True, timeout=60,
     ).stdout.strip()
 
-    df, hydrate, churn = index_config(
-        sf=args.sf, n_orders_per_tick=1024, state_cap=1 << 23, out_levels=4,
-        ce=4, ratio=4, slots=True, seed=42, device="cuda",
-    )
+    if args.workload == "index":
+        df, hydrate, churn = index_config(
+            sf=args.sf, n_orders_per_tick=1024, state_cap=1 << 23, out_levels=4,
+            ce=4, ratio=4, slots=True, seed=42, device="cuda",
+        )
+    else:
+        df, hydrate, churn = q1_config(sf=args.sf, n_orders_per_tick=1024, seed=42,
+                                       device="cuda")
     h = hydrate()
+    if args.ticks % df._compact_every:
+        ap.error(f"--ticks must be a multiple of {df._compact_every}")
     n_h = len(h) - len(h) % df._compact_every
     for i in range(0, n_h, 32):
         df.run_span(h[i:min(i + 32, n_h)])
@@ -63,6 +119,7 @@ def main() -> int:
 
     from torch.profiler import ProfilerActivity, profile
 
+    _wrap_layers(torch)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         df.run_span(traced)
@@ -70,9 +127,13 @@ def main() -> int:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
+    # The layer ranges also appear on the device as annotations spanning
+    # their kernels: they are not kernels.
+    layer_names = {name for name, _, _ in LAYERS}
     kernels = [
         e for e in prof.events()
         if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+        and e.name not in layer_names
     ]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy_us, cur_s, cur_e = 0.0, None, None
@@ -95,13 +156,16 @@ def main() -> int:
     merge_us = sum(v[1] for k, v in by_name.items() if "merge_path_kernel" in k)
     merge_launches = sum(v[0] for k, v in by_name.items() if "merge_path_kernel" in k)
     print(json.dumps({
-        "phase": "profile", "card": card, "sf": args.sf, "ticks": args.ticks,
+        "phase": "profile", "workload": args.workload, "card": card, "sf": args.sf,
+        "ticks": args.ticks,
         "overflowed": over, "span_wall_ms": wall_ms,
         "device_busy_ms": busy_us / 1e3, "device_idle_share": 1 - busy_us / 1e3 / wall_ms,
         "kernel_launches": len(kernels), "kernel_time_ms": total_us / 1e3,
         "merge_path_ms": merge_us / 1e3, "merge_path_launches": merge_launches,
         "merge_path_share_of_kernel_time": merge_us / total_us if total_us else 0.0,
     }))
+    print(json.dumps({"host_ms_by_layer": layer_host_ms(torch, prof.events()),
+                      "span_wall_ms": wall_ms}))
     for name, (cnt, us) in top:
         print(json.dumps({"kernel": name[:120], "launches": cnt, "ms": us / 1e3,
                           "share": us / total_us}))

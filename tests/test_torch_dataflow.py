@@ -57,7 +57,7 @@ def _jspine_dict(sp):
         "slots": [_jbatch_dict(s) for s in sp.slots],
         "lanes": [np.asarray(l) for l in sp.lanes],
         "slot_lanes": [np.asarray(l) for l in sp.slot_lanes],
-        "cursor": int(sp.cursor),
+        "cursor": int(sp.cursor or 0),  # None without a slot ring
         "key": sp.key,
         "order": sp.order,
     }

@@ -241,6 +241,53 @@ def test_index_rollback_grow_replay_agree_on_card():
         assert torch.equal(kl[:n], tl[:n])
 
 
+def _q1_forced_overflow(mode):
+    """Q1 at SF 0.01 on the card whose reduce state starts at 2 rows: the
+    first hydrate tick's 4 groups overflow it, the span rolls back, the
+    state doubles and the span replays. Returns (dataflow, overflow per
+    span, merge-path launches)."""
+    from materialize_tpu_torch.arrangement.spine import Arrangement
+    from materialize_tpu_torch.workloads.tpch import q1_config
+
+    df, hydrate, churn = q1_config(sf=0.01, n_orders_per_tick=64, device="cuda")
+    state = df.states[0][0]
+    df.states[0] = (Arrangement.empty(state.schema, state.key, 2, device="cuda"),)
+    before = merge_kernel.LAUNCHES
+    overs = []
+    with merge_mode(mode):
+        h = hydrate()
+        n_h = len(h) - len(h) % df._compact_every
+        df.run_span(h[:n_h])
+        overs.append(df.check_flags())
+        df.run_steps(h[n_h:])
+        df.run_span([churn(i, df.time + i)[0] for i in range(16)])
+        overs.append(df.check_flags())
+    return df, overs, merge_kernel.LAUNCHES - before
+
+
+@pytest.mark.cuda
+def test_q1_state_overflow_agrees_on_card():
+    """Q1 with a forced state overflow, run through the kernel and through
+    the plain chain: equal results after rollback, growth and replay."""
+    _need_card()
+    (kdf, kover, klaunch), (tdf, tover, tlaunch) = (
+        _q1_forced_overflow("kernel"), _q1_forced_overflow("torch"))
+    assert kover == tover == [True, False]
+    assert klaunch > 0 and tlaunch == 0
+    # 2 -> 4 -> 8: the merge holds state and touched groups before summing
+    assert kdf.states[0][0].capacity == tdf.states[0][0].capacity == 8
+    rows = kdf.peek()
+    assert rows == tdf.peek() and len(rows) == 4
+    assert kdf.peek_errors() == tdf.peek_errors() == []
+    for kb, tb in ((kdf.states[0][0].batch, tdf.states[0][0].batch),
+                   (kdf.err_output.batch, tdf.err_output.batch),
+                   (kdf.output.base, tdf.output.base)):
+        n = int(kb.count)
+        assert int(tb.count) == n
+        for x, y in zip(kb.cols + (kb.time, kb.diff), tb.cols + (tb.time, tb.diff)):
+            assert torch.equal(x[:n], y[:n])
+
+
 def test_index_reads_decode_against_numpy_oracle():
     """The port's own index end to end on the CPU (its generator, its
     string dictionary): scan, lookup and point reads, decoded, against a

@@ -35,12 +35,17 @@ SLICE_MODULES = [
     "materialize_tpu_torch.ops.merge",
     "materialize_tpu_torch.ops.merge_kernel",
     "materialize_tpu_torch.arrangement.spine",
+    "materialize_tpu_torch.ops.reduce",
     "materialize_tpu_torch.plan.decisions",
+    "materialize_tpu_torch.expr.errors",
+    "materialize_tpu_torch.expr.scalar",
+    "materialize_tpu_torch.expr.linear",
     "materialize_tpu_torch.expr.relation",
     "materialize_tpu_torch.render.dataflow",
     "materialize_tpu_torch.storage.generator.tpch",
     "materialize_tpu_torch.coord.peek",
     "materialize_tpu_torch.workloads.index",
+    "materialize_tpu_torch.workloads.tpch",
     "materialize_tpu_torch.interop",
 ]
 
@@ -85,6 +90,7 @@ def test_entry_points_default_to_cuda():
     from materialize_tpu_torch.render.dataflow import Dataflow
     from materialize_tpu_torch.storage.generator.tpch import LINEITEM_SCHEMA
     from materialize_tpu_torch.workloads.index import index_config
+    from materialize_tpu_torch.workloads.tpch import q1_config
 
     assert default_device() == "cuda"
     if torch.cuda.is_available():
@@ -94,6 +100,8 @@ def test_entry_points_default_to_cuda():
         Dataflow(Get("lineitem", LINEITEM_SCHEMA))
     with pytest.raises(RuntimeError, match="cuda"):
         index_config(sf=0.001)
+    with pytest.raises(RuntimeError, match="cuda"):
+        q1_config(sf=0.001)
     cpu = Dataflow(Get("lineitem", LINEITEM_SCHEMA), device="cpu")
     assert cpu.device.type == "cpu"
 
