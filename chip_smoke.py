@@ -41,10 +41,24 @@ Phases, each printing one JSON line (any failure exits non-zero):
 6. the kernel at each merge shape the Q1 path launched, against its
    plain chain;
 7. Q1 at SF 0.01 in both merge modes: equal peeks, reduce states, output
-   runs and err arrangements.
+   runs and err arrangements;
+8. TPC-H Q15 at SF 1 (``workloads/tpch.py``, the reference bench's Q15
+   layout: the revenue view, its global MAX and the supplier table in a
+   3-input delta join): hydrate in spans (the revenue state, the join
+   spines, the MAX multiset and the join tier grow on overflow, roll back
+   and replay), churn 32 ticks as spans of 16 with one flags readback
+   each, kernel launches over the Q15 run in all and by merge shape,
+   device operations per tick (one more span under ``torch.profiler``),
+   ``peek()`` against a numpy Q15 oracle over every batch fed and
+   ``peek_errors()`` empty;
+9. the kernel at each merge shape the Q15 path launched, against its
+   plain chain;
+10. Q15 at SF 0.01 in both merge modes: equal peeks, revenue
+    accumulators, join spines, MAX multiset, output runs and err
+    arrangements.
 
 ``{"phase": "kernel_table", ...}`` gives one row per merge shape of each
-main path (the index's, then Q1's). The line before the last is ``{"kernels": [...]}``; the last is
+main path (the index's, then Q1's, then Q15's). The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
 and prints no result.
 """
@@ -560,13 +574,13 @@ Q1_COLS = (4, 5, 6, 7, 8, 9, 10)  # quantity, extendedprice, discount, tax,
 # returnflag, linestatus, shipdate: what Q1 reads of lineitem
 
 
-def _q1_host(torch, batches) -> tuple:
-    """The Q1 columns and diffs of every fed batch, on the host (one
-    concatenation on the device and one copy per column)."""
+def _host_cols(torch, batches, cols) -> tuple:
+    """Columns ``cols`` and the diffs of every fed batch, on the host
+    (one concatenation on the device and one copy per column)."""
     def column(get):
         return torch.cat([get(b)[:b._host_count] for b in batches]).cpu().numpy()
 
-    return tuple(column(lambda b, i=i: b.cols[i]).astype(np.int64) for i in Q1_COLS) + (
+    return tuple(column(lambda b, i=i: b.cols[i]).astype(np.int64) for i in cols) + (
         column(lambda b: b.diff),
     )
 
@@ -600,69 +614,123 @@ def _device_ops(torch, fn) -> int:
                if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
 
 
-def phase_q1(torch, merge_kernel, card, sf: float = 1.0) -> dict:
-    from materialize_tpu_torch.workloads.tpch import Q1_CUTOFF, q1_config
-
-    ticks_churn, span_churn, span_hydrate = 32, 16, 32
-    t0 = time.perf_counter()
-    df, hydrate, churn = q1_config(sf=sf, n_orders_per_tick=1024, seed=42, device="cuda")
-    h_inputs = hydrate()
-    gen_s = time.perf_counter() - t0
+def _drive(torch, merge_kernel, df, h_inputs, c_inputs, name: str,
+           warm: int = 0, span_hydrate: int = 32, span_churn: int = 16,
+           ticks_churn: int = 32) -> dict:
+    """The main path of a TPC-H workload: hydrate in spans, churn
+    ``warm`` ticks, then churn ``ticks_churn`` more ticks in timed spans
+    of ``span_churn``, each span's flags read back once. With ``warm``
+    (a workload whose tiers grow to the churn's size), hydrate and warm
+    spans may overflow (roll back, grow and replay); without, no span
+    may. The merge-path counts are zeroed just before and read just
+    after."""
+    growth = warm > 0
     ce = df._compact_every
     n_h = len(h_inputs) - len(h_inputs) % ce
-    c_inputs, c_rows = [], []
-    t_c = time.perf_counter()
-    for i in range(ticks_churn + span_churn):
-        inp, n = churn(i, len(h_inputs) + i)
-        c_inputs.append(inp)
-        c_rows.append(n)
-    churn_gen_s = time.perf_counter() - t_c
-
     torch.cuda.synchronize()
     merge_kernel.LAUNCHES = 0
     merge_kernel.LAUNCHES_BY_SHAPE.clear()
     # -- main path: hydrate, then churn ------------------------------------------
     t_h = time.perf_counter()
-    span_reads = []
+    h_reads, grown = [], 0
     for span in _spans(h_inputs[:n_h], span_hydrate):
         before = df._readbacks
         df.run_span(span)
-        check(df.check_flags() is False, "Q1 hydration overflowed a tier")
-        span_reads.append(df._readbacks - before)
+        over = df.check_flags()
+        check(growth or not over, f"{name} hydration overflowed a tier")
+        grown += over
+        h_reads.append(df._readbacks - before)
     if n_h < len(h_inputs):
         df.run_steps(h_inputs[n_h:])
     torch.cuda.synchronize()
     hydrate_s = time.perf_counter() - t_h
-    span_ms = []
-    for span in _spans(c_inputs[:ticks_churn], span_churn):
+    w_reads = []
+    for span in _spans(c_inputs[:warm], span_churn):
+        before = df._readbacks
+        df.run_span(span)
+        grown += df.check_flags()
+        w_reads.append(df._readbacks - before)
+    span_ms, c_reads = [], []
+    for span in _spans(c_inputs[warm:warm + ticks_churn], span_churn):
         torch.cuda.synchronize()
         t = time.perf_counter()
         before = df._readbacks
         df.run_span(span)
-        check(df.check_flags() is False, "Q1 churn overflowed a tier")
+        check(df.check_flags() is False, f"{name} churn overflowed a tier")
         torch.cuda.synchronize()
         span_ms.append((time.perf_counter() - t) * 1e3)
-        span_reads.append(df._readbacks - before)
+        c_reads.append(df._readbacks - before)
     torch.cuda.synchronize()
     launches = merge_kernel.LAUNCHES
     by_shape = dict(merge_kernel.LAUNCHES_BY_SHAPE)
     # -- end of the main path ------------------------------------------------------
-    check(all(r == 1 for r in span_reads), f"Q1 flags readbacks per span {span_reads}")
-    check(launches > 0, "the Q1 path launched no merge-path kernel")
-    check(sum(by_shape.values()) == launches, "Q1 launches by shape do not add up")
-    tick_ms = [s / span_churn for s in span_ms]
-    ups = sum(c_rows[:ticks_churn]) / (sum(span_ms) / 1e3)
+    check(all(r == 1 for r in c_reads), f"{name} churn flags readbacks per span {c_reads}")
+    check(growth or all(r == 1 for r in h_reads),
+          f"{name} hydrate flags readbacks per span {h_reads}")
+    check(launches > 0, f"the {name} path launched no merge-path kernel")
+    check(sum(by_shape.values()) == launches, f"{name} launches by shape do not add up")
+    return {"hydrate_s": hydrate_s, "span_ms": span_ms, "readbacks_per_span": c_reads,
+            "hydrate_readbacks_per_span": h_reads, "warm_readbacks_per_span": w_reads,
+            "spans_grown": grown,
+            "launches": launches, "by_shape": by_shape,
+            "tick_ms": [m / span_churn for m in span_ms]}
 
-    # One more warm churn span under the profiler: device ops per tick.
+
+def _profiled_span(torch, df, inputs, name: str) -> float:
+    """Device operations per tick over one more warm churn span."""
     def extra_span():
-        df.run_span(c_inputs[ticks_churn:])
-        check(df.check_flags() is False, "Q1 churn overflowed a tier")
+        df.run_span(inputs)
+        check(df.check_flags() is False, f"{name} churn overflowed a tier")
 
-    ops = _device_ops(torch, extra_span)
+    return _device_ops(torch, extra_span) / len(inputs)
+
+
+def _path_summary(run: dict, c_rows: list) -> dict:
+    """The end-to-end numbers of a ``_drive`` run; ``c_rows``: the row
+    updates of its timed churn ticks."""
+    return {
+        "hydrate_s": run["hydrate_s"], "churn_ticks": len(c_rows),
+        "churn_updates": int(sum(c_rows)),
+        "churn_updates_per_s": sum(c_rows) / (sum(run["span_ms"]) / 1e3),
+        "span_ms": run["span_ms"], "tick_ms_p50": float(np.percentile(run["tick_ms"], 50)),
+        "tick_ms_p99": float(np.percentile(run["tick_ms"], 99)),
+        "readbacks_per_span": run["readbacks_per_span"],
+        "hydrate_readbacks_per_span": run["hydrate_readbacks_per_span"],
+        "warm_readbacks_per_span": run["warm_readbacks_per_span"],
+        "spans_grown": run["spans_grown"], "launches": run["launches"],
+        "launches_by_shape": {",".join(map(str, k)): v
+                              for k, v in sorted(run["by_shape"].items())},
+    }
+
+
+def _stream(config, sf: float, ticks: int):
+    """(df, hydrate inputs, churn inputs, churn rows, gen s, churn gen s)
+    of a workload's configuration at ``sf`` on the card."""
+    t0 = time.perf_counter()
+    df, hydrate, churn = config(sf=sf, n_orders_per_tick=1024, seed=42, device="cuda")
+    h_inputs = hydrate()
+    gen_s = time.perf_counter() - t0
+    t_c = time.perf_counter()
+    c_inputs, c_rows = [], []
+    for i in range(ticks):
+        inp, n = churn(i, len(h_inputs) + i)
+        c_inputs.append(inp)
+        c_rows.append(n)
+    return df, h_inputs, c_inputs, c_rows, gen_s, time.perf_counter() - t_c
+
+
+def phase_q1(torch, merge_kernel, card, sf: float = 1.0) -> dict:
+    from materialize_tpu_torch.workloads.tpch import Q1_CUTOFF, q1_config
+
+    ticks_churn, span_churn = 32, 16
+    df, h_inputs, c_inputs, c_rows, gen_s, churn_gen_s = _stream(
+        q1_config, sf, ticks_churn + span_churn)
+    run = _drive(torch, merge_kernel, df, h_inputs, c_inputs, "Q1")
+    ops = _profiled_span(torch, df, c_inputs[ticks_churn:], "Q1")
 
     fed = [inp["lineitem"] for inp in h_inputs + c_inputs]
     t_o = time.perf_counter()
-    want = q1_oracle(*_q1_host(torch, fed), cutoff=Q1_CUTOFF)
+    want = q1_oracle(*_host_cols(torch, fed, Q1_COLS), cutoff=Q1_CUTOFF)
     oracle_s = time.perf_counter() - t_o
     t = time.perf_counter()
     rows = df.peek()
@@ -674,36 +742,110 @@ def phase_q1(torch, merge_kernel, card, sf: float = 1.0) -> dict:
     check(errors == [], f"Q1 err collection not empty: {errors}")
     out = {
         "phase": "q1", "sf": sf, "card": card, "groups": len(got),
-        "hydrate_ticks": len(h_inputs), "hydrate_gen_s": gen_s, "hydrate_s": hydrate_s,
-        "churn_ticks": ticks_churn, "churn_gen_s": churn_gen_s,
-        "churn_updates": int(sum(c_rows[:ticks_churn])), "churn_updates_per_s": ups,
-        "span_ms": span_ms, "tick_ms_p50": float(np.percentile(tick_ms, 50)),
-        "tick_ms_p99": float(np.percentile(tick_ms, 99)),
-        "readbacks_per_span": span_reads, "launches": launches,
-        "launches_by_shape": {",".join(map(str, k)): v for k, v in sorted(by_shape.items())},
-        "device_ops_per_tick": ops / span_churn, "peek_ms": peek_ms,
+        "hydrate_ticks": len(h_inputs), "hydrate_gen_s": gen_s, "churn_gen_s": churn_gen_s,
+        **_path_summary(run, c_rows[:ticks_churn]),
+        "device_ops_per_tick": ops, "peek_ms": peek_ms,
         "oracle_s": oracle_s, "peek_errors": errors,
         "state_capacity": df.states[0][0].capacity,
         "output_ladder": [b.capacity for b in df.output.runs_b],
     }
     emit(out)
-    out["by_shape"] = by_shape
+    out["by_shape"] = run["by_shape"]
     del df, h_inputs, c_inputs, fed
     torch.cuda.empty_cache()
     return out
 
 
-def phase_q1_kernel(torch, merge_kernel, card, shapes) -> list:
-    """The kernel at each merge shape the Q1 path launched, against its
-    plain chain, at the few-row counts of Q1's runs (a_count, b_count =
-    min(capacity, 8))."""
+# -- TPC-H Q15 ------------------------------------------------------------------
+
+Q15_COLS = (2, 5, 6, 10)  # suppkey, extendedprice, discount, shipdate
+
+
+def q15_oracle(supp, ext, disc, ship, diff, lo: int, hi: int, s_keys, s_names) -> set:
+    """TPC-H Q15 in numpy int64, independent of the port: {(s_suppkey,
+    s_name, total_revenue)} for the suppliers whose revenue (scale 4)
+    over the live rows shipped in [lo, hi) is the largest. A supplier's
+    group lives while its rows net to a nonzero count."""
+    keep = (ship >= lo) & (ship < hi)
+    amount = ext[keep] * (100 - disc[keep]) * diff[keep]
+    keys, inv = np.unique(supp[keep], return_inverse=True)
+    revenue = np.zeros(len(keys), dtype=np.int64)
+    rows = np.zeros(len(keys), dtype=np.int64)
+    np.add.at(revenue, inv.reshape(-1), amount)
+    np.add.at(rows, inv.reshape(-1), diff[keep])
+    live = rows != 0
+    if not live.any():
+        return set()
+    top = revenue[live].max()
+    name = dict(zip(s_keys.tolist(), s_names.tolist()))
+    return {(int(k), int(name[int(k)]), int(r))
+            for k, r, alive in zip(keys, revenue, live) if alive and r == top}
+
+
+def _state_tiers(df) -> list:
+    """Capacity tiers of every state part (each run of a spine)."""
+    return [[[b.capacity for b in p.runs_b] if hasattr(p, "runs_b") else p.capacity
+             for p in parts] for parts in df.states]
+
+
+def phase_q15(torch, merge_kernel, card, sf: float = 1.0) -> dict:
+    from materialize_tpu_torch.workloads.tpch import Q15_HI, Q15_LO, q15_config
+
+    warm, ticks_churn, span_churn = 16, 32, 16
+    df, h_inputs, c_inputs, c_rows, gen_s, churn_gen_s = _stream(
+        q15_config, sf, warm + ticks_churn + span_churn)
+    tiers_before = _state_tiers(df)
+    # The join spines' first run takes a churn tick's revenue changes
+    # (~2.5x a hydrate tick's) for 8 ticks: the warm span grows it.
+    run = _drive(torch, merge_kernel, df, h_inputs, c_inputs, "Q15", warm=warm)
+    ops = _profiled_span(torch, df, c_inputs[warm + ticks_churn:], "Q15")
+
+    fed = [inp["lineitem"] for inp in h_inputs + c_inputs]
+    sup = h_inputs[0]["supplier"]
+    n_sup = int(sup.count)
+    t_o = time.perf_counter()
+    want = q15_oracle(*_host_cols(torch, fed, Q15_COLS), lo=Q15_LO, hi=Q15_HI,
+                      s_keys=sup.cols[0][:n_sup].cpu().numpy(),
+                      s_names=sup.cols[2][:n_sup].cpu().numpy())
+    oracle_s = time.perf_counter() - t_o
+    t = time.perf_counter()
+    rows = df.peek()
+    peek_ms = (time.perf_counter() - t) * 1e3
+    got = {tuple(r[:3]) for r in rows}
+    check(len(rows) == len(got) and all(r[-1] == 1 for r in rows), "Q15 peek rows not unique")
+    check(got == want and len(got) >= 1, f"Q15 peek != numpy oracle: {got} vs {want}")
+    errors = df.peek_errors()
+    check(errors == [], f"Q15 err collection not empty: {errors}")
+    out = {
+        "phase": "q15", "sf": sf, "card": card, "rows": sorted(got),
+        "suppliers": n_sup, "hydrate_ticks": len(h_inputs),
+        "hydrate_gen_s": gen_s, "churn_gen_s": churn_gen_s, "warm_ticks": warm,
+        **_path_summary(run, c_rows[warm:warm + ticks_churn]),
+        "device_ops_per_tick": ops, "peek_ms": peek_ms,
+        "oracle_s": oracle_s, "peek_errors": errors,
+        "state_tiers_before": tiers_before, "state_tiers": _state_tiers(df),
+        "join_tiers": list(df._ctx.join_caps),
+        "output_ladder": [b.capacity for b in df.output.runs_b],
+        "max_memory_allocated": int(torch.cuda.max_memory_allocated()),
+    }
+    emit(out)
+    out["by_shape"] = run["by_shape"]
+    del df, h_inputs, c_inputs, fed
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_path_kernel(torch, merge_kernel, card, shapes, phase: str, counts) -> list:
+    """The kernel at each merge shape a path launched, against its plain
+    chain; ``counts(cap_a, cap_b, out)`` gives the valid rows of each
+    side."""
     from materialize_tpu_torch.ops.lanes import from_u64
     from materialize_tpu_torch.ops.merge import merge_source_map_torch
 
     rng = np.random.default_rng(99)
     rows = []
     for cap_a, cap_b, out, L in sorted(shapes):
-        ac, bc = min(cap_a, 8), min(cap_b, 8)
+        ac, bc = counts(cap_a, cap_b, out)
         a = torch.from_numpy(from_u64(_pool_lanes(rng, cap_a, L, ac))).cuda()
         b = torch.from_numpy(from_u64(_pool_lanes(rng, cap_b, L, bc))).cuda()
         ca = torch.tensor(ac, dtype=torch.int32, device="cuda")
@@ -711,7 +853,7 @@ def phase_q1_kernel(torch, merge_kernel, card, shapes) -> list:
         src, lanes = merge_kernel.merge_path(a, ca, cap_a, b, cb, out)
         w_src, w_lanes = merge_source_map_torch(a, ca, cap_a, b, cb, cap_b, out)
         err = max(_err(torch, src, w_src), _err(torch, lanes, w_lanes))
-        check(err == 0, f"Q1 shape {(cap_a, cap_b, out, L)}: kernel != plain")
+        check(err == 0, f"{phase} {(cap_a, cap_b, out, L)}: kernel != plain")
         ms, reps = cuda_ms(torch, lambda: merge_kernel.merge_path(a, ca, cap_a, b, cb, out))
         graph_ms, _ = cuda_ms(
             torch, lambda: merge_kernel.merge_path(a, ca, cap_a, b, cb, out), graph=True
@@ -720,7 +862,7 @@ def phase_q1_kernel(torch, merge_kernel, card, shapes) -> list:
             torch, lambda: merge_source_map_torch(a, ca, cap_a, b, cb, cap_b, out)
         )
         bound = merge_bound_ms(ac, bc, cap_a, out, L)
-        row = {"phase": "q1_kernel_shape", "cap_a": cap_a, "cap_b": cap_b, "out": out,
+        row = {"phase": phase, "cap_a": cap_a, "cap_b": cap_b, "out": out,
                "L": L, "a_count": ac, "b_count": bc, "reps": reps, "ms": ms,
                "graph_ms": graph_ms, "bound_ms": bound, "bound_share": bound / ms,
                "plain_ms": plain_ms, "max_abs_err": err, "card": card}
@@ -729,34 +871,46 @@ def phase_q1_kernel(torch, merge_kernel, card, shapes) -> list:
     return rows
 
 
-def phase_q1_modes(torch, merge_kernel, card) -> None:
+def _same_state(torch, kdf, tdf) -> None:
+    """Every state part (an arrangement's batch; a spine's runs and
+    cached lanes), the err arrangement and the output runs are equal."""
+    for kparts, tparts in zip(kdf.states, tdf.states):
+        for kp, tp in zip(kparts, tparts):
+            if hasattr(kp, "runs_b"):
+                _same_runs(torch, kp, tp)
+            else:
+                _same_rows(torch, kp.batch, tp.batch, "state part")
+    _same_rows(torch, kdf.err_output.batch, tdf.err_output.batch, "err arrangement")
+    _same_runs(torch, kdf.output, tdf.output)
+
+
+def phase_path_modes(torch, merge_kernel, card, phase: str, config) -> None:
+    """A path at SF 0.01 with the merge forced to the kernel and then to
+    the plain chain: equal peeks, err collections and states."""
     from materialize_tpu_torch.ops.merge import merge_mode
-    from materialize_tpu_torch.workloads.tpch import q1_config
 
     def run(mode):
-        df, hydrate, churn = q1_config(sf=0.01, n_orders_per_tick=1024, seed=42,
-                                       device="cuda")
+        df, hydrate, churn = config(sf=0.01, n_orders_per_tick=1024, seed=42,
+                                    device="cuda")
         start = merge_kernel.LAUNCHES
         with merge_mode(mode):
             h = hydrate()
             n_h = len(h) - len(h) % df._compact_every
             df.run_span(h[:n_h])
+            df.check_flags()
             df.run_steps(h[n_h:])
             df.run_span([churn(i, df.time + i)[0] for i in range(16)])
-            check(df.check_flags() is False, "Q1 at SF 0.01 overflowed")
+            check(df.check_flags() is False, f"{phase}: churn at SF 0.01 overflowed")
             rows = df.peek()
             errors = df.peek_errors()
         return df, rows, errors, merge_kernel.LAUNCHES - start
 
     kdf, krows, kerr, k_launch = run("kernel")
     tdf, trows, terr, t_launch = run("torch")
-    check(k_launch > 0 and t_launch == 0, f"Q1 mode launches {k_launch}/{t_launch}")
-    check(krows == trows and kerr == terr == [], "Q1 peeks differ between modes")
-
-    _same_rows(torch, kdf.states[0][0].batch, tdf.states[0][0].batch, "reduce state")
-    _same_rows(torch, kdf.err_output.batch, tdf.err_output.batch, "err arrangement")
-    _same_runs(torch, kdf.output, tdf.output)
-    emit({"phase": "q1_vs_plain_path", "sf": 0.01, "groups": len(krows),
+    check(k_launch > 0 and t_launch == 0, f"{phase} mode launches {k_launch}/{t_launch}")
+    check(krows == trows and kerr == terr == [], f"{phase}: peeks differ between modes")
+    _same_state(torch, kdf, tdf)
+    emit({"phase": phase, "sf": 0.01, "rows": len(krows),
           "kernel_launches": k_launch, "plain_launches": t_launch, "equal": True,
           "card": card})
 
@@ -770,6 +924,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from materialize_tpu_torch.ops import merge_kernel
+    from materialize_tpu_torch.workloads.tpch import q1_config, q15_config
 
     t0 = time.perf_counter()
     card = phase_card_and_build(torch, merge_kernel)
@@ -777,10 +932,20 @@ def main() -> int:
     index = phase_index(torch, merge_kernel, card)
     q1 = phase_q1(torch, merge_kernel, card)
     phase_modes(torch, merge_kernel, card)
-    q1_rows = phase_q1_kernel(torch, merge_kernel, card, q1["by_shape"])
-    phase_q1_modes(torch, merge_kernel, card)
+    # Q1's runs hold a few rows (4 groups, one output row a group).
+    q1_rows = phase_path_kernel(torch, merge_kernel, card, q1["by_shape"],
+                                "q1_kernel_shape", lambda ca, cb, out: (min(ca, 8), min(cb, 8)))
+    phase_path_modes(torch, merge_kernel, card, "q1_vs_plain_path", q1_config)
+    q15 = phase_q15(torch, merge_kernel, card)
+    # Q15's runs fill up to their tier (the join spines and the MAX
+    # multiset hold one row per supplier): time them half full.
+    q15_rows = phase_path_kernel(
+        torch, merge_kernel, card, q15["by_shape"], "q15_kernel_shape",
+        lambda ca, cb, out: (ca // 2, min(cb // 2, max(out - ca // 2, 0))))
+    phase_path_modes(torch, merge_kernel, card, "q15_vs_plain_path", q15_config)
     by_shape = index.pop("by_shape")
     q1_by_shape = q1.pop("by_shape")
+    q15_by_shape = q15.pop("by_shape")
     table = [
         {k: r[k] for k in ("cap_a", "cap_b", "out", "L", "ms", "graph_ms", "bound_ms",
                            "bound_share", "chain_ms", "plain_ms", "pos_ms", "pos_graph_ms",
@@ -793,6 +958,12 @@ def main() -> int:
                            "graph_ms", "bound_ms", "bound_share", "plain_ms")}
         | {"path": "q1", "launches": q1_by_shape[(r["cap_a"], r["cap_b"], r["out"], r["L"])]}
         for r in q1_rows
+    ] + [
+        {k: r[k] for k in ("cap_a", "cap_b", "out", "L", "a_count", "b_count", "ms",
+                           "graph_ms", "bound_ms", "bound_share", "plain_ms")}
+        | {"path": "q15",
+           "launches": q15_by_shape[(r["cap_a"], r["cap_b"], r["out"], r["L"])]}
+        for r in q15_rows
     ]
     emit({"phase": "kernel_table", "card": card, "rows": table})
     big = next(r for r in kern["rows"]
@@ -802,9 +973,11 @@ def main() -> int:
         "route": "cuda",
         "source": "materialize_tpu_torch/csrc/merge_path.cu",
         "replaces": "materialize_tpu/ops/merge_pallas.py:157",
-        "launches": index["launches"] + q1["launches"],
-        "launches_by_path": {"index": index["launches"], "q1": q1["launches"]},
-        "max_abs_err": max([kern["max_abs_err"]] + [r["max_abs_err"] for r in q1_rows]),
+        "launches": index["launches"] + q1["launches"] + q15["launches"],
+        "launches_by_path": {"index": index["launches"], "q1": q1["launches"],
+                             "q15": q15["launches"]},
+        "max_abs_err": max([kern["max_abs_err"]]
+                           + [r["max_abs_err"] for r in q1_rows + q15_rows]),
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],
         "bound_ms": big["bound_ms"],

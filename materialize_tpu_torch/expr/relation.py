@@ -1,11 +1,11 @@
 """Relation expressions (MIR) and the aggregate vocabulary: the copy of
 ``materialize_tpu/expr/relation.py`` that the port renders.
 
-Here: ``Get``, ``Project``, ``Map``, ``Filter`` and ``Reduce``, with the
-builder sugar and ``AggregateFunc``/``AggregateExpr``. The renderer
-(``render/dataflow.py``) raises ``NotImplementedError`` for any other
-node; joins, TopK, Negate, Union, Let and LetRec come with later slices
-(ROADMAP Queue 1).
+Here: ``Get``, ``Let``, ``Project``, ``Map``, ``Filter``, ``Join`` and
+``Reduce``, with the builder sugar and ``AggregateFunc``/``AggregateExpr``.
+The renderer (``render/dataflow.py``) raises ``NotImplementedError`` for
+any other node, and for a join planned linear; TopK, Negate, Union and
+LetRec come with later slices (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -118,6 +118,21 @@ class Get(RelationExpr):
 
 
 @dataclass(frozen=True)
+class Let(RelationExpr):
+    """``body`` with ``Get(name)`` bound to ``value`` (computed once)."""
+
+    name: str
+    value: RelationExpr
+    body: RelationExpr
+
+    def schema(self):
+        return self.body.schema()
+
+    def children(self):
+        return [self.value, self.body]
+
+
+@dataclass(frozen=True)
 class Project(RelationExpr):
     input: RelationExpr
     outputs: tuple
@@ -155,6 +170,27 @@ class Filter(RelationExpr):
 
     def children(self):
         return [self.input]
+
+
+@dataclass(frozen=True)
+class Join(RelationExpr):
+    """Multiway equi-join. ``equivalences``: classes of scalar
+    expressions over the concatenated columns of all inputs, asserted
+    equal. ``implementation``: "auto" | "linear" | "delta" (auto: delta
+    for at least ``plan.decisions.DELTA_JOIN_MIN_INPUTS`` inputs)."""
+
+    inputs: tuple
+    equivalences: tuple  # tuple of tuples of ScalarExpr
+    implementation: str = "auto"
+
+    def schema(self):
+        cols = []
+        for inp in self.inputs:
+            cols.extend(inp.schema().columns)
+        return Schema(cols)
+
+    def children(self):
+        return list(self.inputs)
 
 
 @dataclass(frozen=True)

@@ -1,19 +1,20 @@
 """Scalar expressions and their evaluation over a batch's columns (the
-port of the part of ``materialize_tpu/expr/scalar.py`` that TPC-H Q1
-reaches).
+port of the part of ``materialize_tpu/expr/scalar.py`` that TPC-H Q1 and
+Q15 reach).
 
 Where the reference builds one fused XLA computation per expression at
 trace time, ``eval_expr`` here runs eager torch ops over whole columns.
 SQL NULLs ride as an optional bool mask per intermediate (three-valued
 logic), exactly as in the reference.
 
-Ported: column references, literals, and ``CallBinary`` for the six
-comparisons and for integer and DECIMAL ``add``/``sub``/``mul``/``div``/
-``mod`` (with their division-by-zero masks). Everything else raises
-``NotImplementedError`` naming the missing piece: unary functions and
-casts, ``AND``/``OR`` and the other variadic functions, ``If``, the date
-and string families, ``mz_now()``, and any FLOAT64 operand (FLOAT64
-lanes come first, ROADMAP Queue 1).
+Ported: column references, literals, ``CallUnary`` NOT and IS_NULL, and
+``CallBinary`` for the six comparisons and for integer and DECIMAL
+``add``/``sub``/``mul``/``div``/``mod`` (with their division-by-zero
+masks). Everything else raises ``NotImplementedError`` naming the
+missing piece: the other unary functions and casts, ``AND``/``OR`` and
+the other variadic functions, ``If``, the date and string families,
+``mz_now()``, and any FLOAT64 operand (FLOAT64 lanes come first, ROADMAP
+Queue 1).
 """
 
 from __future__ import annotations
@@ -90,6 +91,34 @@ class Literal(ScalarExpr):
 
     def typ(self, schema):
         return Column("literal", self.ctype, self.value is None, self.scale)
+
+
+class UnaryFunc:
+    """The unary functions the port evaluates; every other name of the
+    reference's ``UnaryFunc`` raises ``NotImplementedError``."""
+
+    NOT = "not"
+    IS_NULL = "is_null"
+
+
+def _unported_unary(func: str):
+    return NotImplementedError(
+        f"unary function {func!r} is not ported (ROADMAP Queue 1 item 7)"
+    )
+
+
+@dataclass(frozen=True)
+class CallUnary(ScalarExpr):
+    func: str
+    expr: ScalarExpr
+
+    def typ(self, schema):
+        inner = self.expr.typ(schema)
+        if self.func == UnaryFunc.NOT:
+            return Column("f", ColumnType.BOOL, inner.nullable)
+        if self.func == UnaryFunc.IS_NULL:
+            return Column("f", ColumnType.BOOL, False)
+        raise _unported_unary(self.func)
 
 
 class BinaryFunc:
@@ -266,6 +295,15 @@ def eval_expr(expr: ScalarExpr, batch: Batch, time=None, masks=None) -> Evaled:
             )
         return Evaled(torch.full((cap,), expr.value, dtype=dtype, device=dev),
                       None, col)
+
+    if isinstance(expr, CallUnary):
+        col = expr.typ(schema)
+        e = eval_expr(expr.expr, batch, time, masks)
+        if expr.func == UnaryFunc.NOT:
+            # NOT keeps its operand's NULLs (three-valued logic).
+            return Evaled(torch.logical_not(e.values), e.nulls, col)
+        # IS NULL is never NULL.
+        return Evaled(e.null_mask(), None, col)
 
     if not isinstance(expr, CallBinary):
         raise NotImplementedError(

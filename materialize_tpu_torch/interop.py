@@ -16,8 +16,9 @@ Spine dict: ``runs`` and ``slots`` (lists of batch dicts), ``lanes`` and
 Arrangement dict: ``batch`` (a batch dict), ``key`` and ``order``.
 
 ``install_state`` puts a reference dataflow's whole state into a port
-``Dataflow`` of the same plan: its operator states, output spine, err
-arrangement and frontier.
+``Dataflow`` of the same plan: its operator states (arrangements, and
+the spines of a delta join), output spine, err arrangement, frontier and
+join tiers.
 """
 
 from __future__ import annotations
@@ -111,22 +112,36 @@ def arrangement_to_numpy(arr: Arrangement) -> dict:
             "order": arr.order}
 
 
+def _part_from_numpy(d: dict, cur, device):
+    """One state part: a spine where the plan holds a spine (a delta
+    join's arrangement), else an arrangement."""
+    if isinstance(cur, Spine):
+        return spine_from_numpy(d, cur.schema, device)
+    return arrangement_from_numpy(d, cur.schema, device)
+
+
 def install_state(df, states: list, output: dict, err_output: dict, time: int,
-                  compact_tick: int = 0) -> None:
+                  compact_tick: int = 0, join_caps=None) -> None:
     """Replace a port Dataflow's state with a reference dataflow's:
     ``states`` holds, per state slot, the list of its parts as
-    arrangement dicts (slot order and part schemas are the plan's, so
-    both packages agree on them); ``output`` is the output spine's dict,
-    ``err_output`` the err arrangement's, ``time`` the frontier and
-    ``compact_tick`` the fold schedule's tick. ``peek_errors`` reads the
-    carried errors once the port has stepped (whether the plan has err
-    sites is learnt at the first step)."""
+    arrangement or spine dicts (slot order, part kinds and schemas are
+    the plan's, so both packages agree on them); ``output`` is the output
+    spine's dict, ``err_output`` the err arrangement's, ``time`` the
+    frontier, ``compact_tick`` the fold schedule's tick and
+    ``join_caps`` the join sites' output tiers (None keeps the port's).
+    ``peek_errors`` reads the carried errors once the port has stepped
+    (whether the plan has err sites is learnt at the first step)."""
     if len(states) != len(df.states):
         raise ValueError(f"{len(states)} state slots for a plan with {len(df.states)}")
     df.states = [
-        tuple(arrangement_from_numpy(p, cur.schema, df.device) for p, cur in zip(parts, now))
+        tuple(_part_from_numpy(p, cur, df.device) for p, cur in zip(parts, now))
         for parts, now in zip(states, df.states)
     ]
+    if join_caps is not None:
+        if len(join_caps) != len(df._ctx.join_caps):
+            raise ValueError(f"{len(join_caps)} join tiers for a plan with "
+                             f"{len(df._ctx.join_caps)} join sites")
+        df._ctx.join_caps[:] = [int(c) for c in join_caps]
     df.output = spine_from_numpy(output, df.out_schema, df.device)
     df.err_output = arrangement_from_numpy(err_output, ERR_SCHEMA, df.device)
     df._time = int(time)

@@ -1,8 +1,8 @@
-"""Accumulable Reduce: incremental GROUP BY with integer accumulators (the
-port of the accumulable path of ``materialize_tpu/ops/reduce.py``).
+"""Reduce: incremental GROUP BY (the port of the accumulable and the
+hierarchical paths of ``materialize_tpu/ops/reduce.py``).
 
-The group state is one exact-order Arrangement keyed by the group
-columns, with the accumulators as values:
+State part 0 is one exact-order Arrangement keyed by the group columns,
+with the accumulators as values:
 
   [group key cols...] ++ [__rows__] ++ per-aggregate accumulator cols
 
@@ -14,10 +14,14 @@ one, (5) merge the per-group deltas into the state, summing on key
 collision and dropping groups whose ``__rows__`` reaches 0.
 
 Every accumulator is int64, so the per-group sums (``index_add_`` on
-the card) are exact in any order. Ported aggregates: COUNT, SUM_INT,
-ANY, ALL. SUM_FLOAT, MIN/MAX (hierarchical) and the basic collection
-aggregates raise ``NotImplementedError``: they need FLOAT64 lanes and
-multiset state parts (ROADMAP Queue 1).
+the card) are exact in any order. Accumulable aggregates: COUNT,
+SUM_INT, ANY, ALL. Hierarchical ones (MIN, MAX) keep one more part each:
+the sorted multiset of (group key, non-NULL value), queried before and
+after the step's insert (the group's first row is its MIN, its last row
+its MAX); part 0 still runs and its ``__rows__`` decides whether a group
+is alive. SUM_FLOAT and the basic collection aggregates raise
+``NotImplementedError``: they need FLOAT64 lanes and read-time
+finalizers (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -26,13 +30,13 @@ from dataclasses import dataclass
 
 import torch
 
-from ..arrangement.spine import Arrangement, lookup_range
+from ..arrangement.spine import Arrangement, insert, lookup_range
 from ..expr import errors as _errors
 from ..expr.relation import AggregateExpr, AggregateFunc
 from ..expr.scalar import eval_expr
 from ..plan.decisions import plan_reduce
 from ..repr.batch import Batch
-from ..repr.schema import ERR_SCHEMA, Column, ColumnType, Schema
+from ..repr.schema import ERR_SCHEMA, Column, ColumnType, Schema, torch_dtype
 from .lanes import key_lanes
 from .merge import merge_sorted
 from .sort import apply_perm, compact, segment_ids, segment_starts, sort_perm
@@ -58,8 +62,8 @@ def _accum_cols(j: int, agg: AggregateExpr) -> list:
                 Column(f"__a{j}_nn__", ColumnType.INT64)]
     raise NotImplementedError(
         f"aggregate {agg.func.value} is not ported (SUM_FLOAT needs FLOAT64 "
-        "lanes; MIN/MAX and the collection aggregates need multiset state "
-        "parts: ROADMAP Queue 1)"
+        "lanes; the collection aggregates need read-time finalizers: "
+        "ROADMAP Queue 1)"
     )
 
 
@@ -218,14 +222,57 @@ def accums_to_output(key_cols, key_nulls, accum_cols, aggregates) -> tuple:
     return cols, nulls
 
 
+def minmax_state_schema(input_schema: Schema, group_key, agg: AggregateExpr) -> Schema:
+    """State schema of one hierarchical (MIN/MAX) aggregate: the sorted
+    multiset of (group key, non-NULL input value). NULL inputs never
+    enter it, so the value column is non-nullable."""
+    cols = [input_schema[i] for i in group_key]
+    inner = agg.expr.typ(input_schema)
+    cols.append(Column("__v__", inner.ctype, False, inner.scale))
+    return Schema(cols)
+
+
+def minmax_contributions(batch: Batch, group_key, agg: AggregateExpr,
+                         state_schema: Schema, time=None) -> Batch:
+    """An input delta as (key..., value) multiset updates; rows whose
+    value is NULL get diff 0 and vanish in the insert's consolidation."""
+    cols = [batch.cols[i] for i in group_key]
+    nulls = [batch.nulls[i] for i in group_key]
+    ev = eval_expr(agg.expr, batch, time)
+    cols.append(ev.values.to(torch_dtype(state_schema[len(group_key)].dtype)))
+    nulls.append(None)
+    return Batch(
+        cols=tuple(cols),
+        nulls=tuple(nulls),
+        time=batch.time,
+        diff=torch.where(ev.null_mask(), 0, batch.diff),
+        count=batch.count,
+        schema=state_schema,
+    )
+
+
+def minmax_query(state: Arrangement, probe_lanes, is_max: bool):
+    """The current MIN (or MAX) per probe group: the state is sorted by
+    (key, value), so it is the first (last) row of the group's range.
+    Returns (values, absent); absent where the group holds no non-NULL
+    value (the SQL result is NULL)."""
+    lo, hi = lookup_range(state, probe_lanes)
+    found = hi > lo
+    idx = torch.clamp(hi - 1 if is_max else lo, 0, max(state.capacity - 1, 0))
+    vals = state.batch.cols[len(state.key)][idx.to(torch.int64)]
+    return torch.where(found, vals, 0), ~found
+
+
 def _or_zeros(mask, n: int, device) -> torch.Tensor:
     return mask if mask is not None else torch.zeros(n, dtype=torch.bool, device=device)
 
 
 @dataclass
 class ReduceOp:
-    """An accumulable Reduce (``ReducePlan`` Accumulable or Distinct).
-    State is a 1-tuple holding the accumulator Arrangement."""
+    """A Reduce (``ReducePlan`` Accumulable, Distinct or Collation over
+    accumulable and hierarchical aggregates). State: part 0 the
+    accumulator Arrangement (always present: its ``__rows__`` column
+    decides liveness), parts 1.. one sorted multiset per MIN/MAX."""
 
     input_schema: Schema
     group_key: tuple
@@ -241,28 +288,37 @@ class ReduceOp:
                 "plan_distinct_aggregates rewrite)"
             )
         self.plan = plan_reduce(self.aggregates)
-        if self.plan.kind not in ("Accumulable", "Distinct"):
+        if self.plan.basic:
             raise NotImplementedError(
-                f"{self.plan.kind} reduce is not ported (MIN/MAX and the "
-                "collection aggregates need multiset state parts: ROADMAP "
+                "the collection aggregates (STRING_AGG, ARRAY_AGG, LIST_AGG) "
+                "are not ported: they need read-time finalizers (ROADMAP "
                 "Queue 1)"
             )
+        self.acc_aggs = tuple(self.aggregates[j] for j in self.plan.accumulable)
+        self.hier_aggs = tuple(self.aggregates[j] for j in self.plan.hierarchical)
         self.state_schema = accum_schema(self.input_schema, self.group_key,
-                                         self.aggregates)
+                                         self.acc_aggs)
+        self.mm_schemas = tuple(
+            minmax_state_schema(self.input_schema, self.group_key, a)
+            for a in self.hier_aggs
+        )
         self.out_schema = output_schema(self.input_schema, self.group_key,
                                         self.aggregates)
         # Accumulator columns of SUM_INT sums (offsets past the key), the
         # ones the sum-overflow error stream watches.
         self._sum_cols = []
         off = 1
-        for j, agg in enumerate(self.aggregates):
+        for j, agg in enumerate(self.acc_aggs):
             if agg.func is AggregateFunc.SUM_INT:
                 self._sum_cols.append(off)
             off += len(_accum_cols(j, agg))
 
     def init_state(self, capacity: int = 256, device=None) -> tuple:
-        return (Arrangement.empty(self.state_schema, tuple(range(self.n_key)),
-                                  capacity, device=device),)
+        key = tuple(range(self.n_key))
+        return tuple(
+            Arrangement.empty(sch, key, capacity, device=device)
+            for sch in (self.state_schema,) + self.mm_schemas
+        )
 
     def step(self, state: tuple, delta: Batch, out_time: int, errs=None):
         """Process one delta batch at logical time ``out_time``. With
@@ -271,7 +327,7 @@ class ReduceOp:
         overflow: {part: flag})."""
         acc_state = state[0]
         dev = delta.device
-        contrib = delta_contributions(delta, self.group_key, self.aggregates,
+        contrib = delta_contributions(delta, self.group_key, self.acc_aggs,
                                       self.state_schema, out_time)
         groups = sum_by_key(contrib, self.n_key)  # one row per touched group
         gcap = groups.capacity
@@ -295,14 +351,44 @@ class ReduceOp:
             ).sum()
             errs.append(_sum_err_batch(trans, out_time))
 
-        new_state_acc, ovf = merge_accum_state(acc_state, groups, acc_state.capacity)
+        overflow = {}
+        new_state_acc, overflow[0] = merge_accum_state(acc_state, groups,
+                                                       acc_state.capacity)
+
+        # Hierarchical parts: query before and after the multiset insert.
+        probe = key_lanes(groups, range(self.n_key))
+        mm_old, mm_new, new_mm_states = [], [], []
+        for p, (agg, sch) in enumerate(zip(self.hier_aggs, self.mm_schemas), start=1):
+            is_max = agg.func is AggregateFunc.MAX
+            mm_old.append(minmax_query(state[p], probe, is_max))
+            contrib_mm = minmax_contributions(delta, self.group_key, agg, sch, out_time)
+            new_mm, overflow[p] = insert(state[p], contrib_mm, state[p].capacity)
+            mm_new.append(minmax_query(new_mm, probe, is_max))
+            new_mm_states.append(new_mm)
 
         key_cols = groups.cols[: self.n_key]
         key_nulls = groups.nulls[: self.n_key]
-        old_cols, old_nulls = accums_to_output(key_cols, key_nulls, old_accums,
-                                               self.aggregates)
-        new_cols, new_nulls = accums_to_output(key_cols, key_nulls, new_accums,
-                                               self.aggregates)
+
+        def assemble(accums, mm_vals):
+            """Output columns over every aggregate in order."""
+            acc_cols, acc_nulls = accums_to_output(key_cols, key_nulls, accums,
+                                                   self.acc_aggs)
+            cols, nulls = list(key_cols), list(key_nulls)
+            acc_i, mm_i = self.n_key, 0
+            for agg in self.aggregates:
+                if agg.func.is_accumulable:
+                    cols.append(acc_cols[acc_i])
+                    nulls.append(acc_nulls[acc_i])
+                    acc_i += 1
+                else:
+                    vals, absent = mm_vals[mm_i]
+                    cols.append(vals)
+                    nulls.append(absent)
+                    mm_i += 1
+            return cols, nulls
+
+        old_cols, old_nulls = assemble(old_accums, mm_old)
+        new_cols, new_nulls = assemble(new_accums, mm_new)
 
         # Old and new rows are aligned per group, so "output unchanged"
         # is a columnwise comparison (no consolidation sort).
@@ -331,4 +417,5 @@ class ReduceOp:
             count=torch.full((), 2 * gcap, dtype=torch.int32, device=dev),
             schema=self.out_schema,
         )
-        return (new_state_acc,), compact(out, out_diff != 0), {0: ovf}
+        return ((new_state_acc, *new_mm_states), compact(out, out_diff != 0),
+                overflow)

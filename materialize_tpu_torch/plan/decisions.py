@@ -1,17 +1,23 @@
 """The plan decisions the port's slices need (the port's copy of part of
 ``materialize_tpu/plan/decisions.py`` and of ``plan/lir.py:ReducePlan``):
-the capacity quantization menu, the output index's ingest mode and the
-Reduce plan. Capacities must match the reference's tier for tier, so
+the capacity quantization menu, the ingest modes of the output index and
+of operator-state spines, the Reduce plan and the join implementation. Capacities must match the reference's tier for tier, so
 overflow, rollback and replay land on the same ticks in both packages."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+from ..expr import relation as mir
+
 # Append-slot ring length (tracks the default compaction cadence).
 INGEST_RING_SLOTS = 8
 
 QUANT_MENU_FLOOR = 256
+
+# A join of at least this many inputs renders as a delta join (the
+# reference's ``delta_join_min_inputs`` dyncfg default).
+DELTA_JOIN_MIN_INPUTS = 3
 
 
 def quantize_cap(n: int, minimum: int = QUANT_MENU_FLOOR) -> int:
@@ -28,6 +34,12 @@ def ingest_mode(state_capacity: int, tail_capacity: int = 1024) -> str:
     tier, else 'merge' (every step merges into run 0). The reference's
     'auto' rule; its dyncfg override is not carried over."""
     return "append_slot" if state_capacity >= 8 * tail_capacity else "merge"
+
+
+def state_ingest_mode(state_capacity: int, tail_capacity: int = 1024) -> str:
+    """Ingest for operator-state spines (the delta join's arrangements):
+    the same 'auto' rule as the output index, on one device."""
+    return ingest_mode(state_capacity, tail_capacity)
 
 
 @dataclass(frozen=True)
@@ -60,3 +72,12 @@ def plan_reduce(aggregates) -> ReducePlan:
     if basic and not acc and not hier:
         return ReducePlan("Basic", (), (), basic)
     return ReducePlan("Collation", acc, hier, basic)
+
+
+def join_implementation(expr: mir.Join) -> str:
+    """Resolve ``implementation='auto'``: delta for at least
+    ``DELTA_JOIN_MIN_INPUTS`` inputs, linear otherwise."""
+    impl = expr.implementation
+    if impl == "auto":
+        impl = "delta" if len(expr.inputs) >= DELTA_JOIN_MIN_INPUTS else "linear"
+    return impl

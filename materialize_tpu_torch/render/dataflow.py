@@ -1,7 +1,7 @@
 """Render a MIR expression into a maintained dataflow with an output index
-(the port of ``materialize_tpu/render/dataflow.py`` for ``Get``,
-``Project``, ``Map``, non-temporal ``Filter`` and the accumulable
-``Reduce``).
+(the port of ``materialize_tpu/render/dataflow.py`` for ``Get``, ``Let``,
+``Project``, ``Map``, non-temporal ``Filter``, the delta ``Join`` and the
+``Reduce`` with accumulable and MIN/MAX aggregates).
 
 The reference compiles one XLA step program and runs a span of steps
 as one ``lax.scan``; PyTorch runs eagerly, so here a span is a host
@@ -10,8 +10,14 @@ loop over ticks, with the due spine levels folded after every
 
 - the output index is a hash-ordered ``Spine`` (every column the key),
   fed by ``insert_tail`` and folded on the geometric schedule;
-- operator state (a Reduce's group arrangement) lives in state slots,
-  overflow key ``("state", slot, part)``;
+- operator state lives in state slots: a Reduce's arrangements (overflow
+  key ``("state", slot, part)``) and a delta join's exact-order spines
+  (``("state", slot, (part, run))``, folded on the output's schedule);
+- a ``Let`` binding's delta is computed once per tick and shared by
+  every ``Get`` of it;
+- each join site has an output-capacity tier (default 1024, overflow
+  key ``("join", site)``), read from the render context at every tick,
+  so the replay after a doubling runs at the new tier;
 - the err collection: scalar-evaluation and sum-overflow errors are
   kept in a second arrangement beside the output (``err_output``,
   overflow key ``("errout",)``), read by ``peek_errors``;
@@ -25,8 +31,8 @@ loop over ticks, with the due spine levels folded after every
   rollback and replay happen on the same ticks.
 
 Left out: donation, the compile ledger, the program bank, SPMD (the
-Reduce's exchange is the identity on one device), and every other MIR
-node (``_build`` raises ``NotImplementedError`` naming it).
+exchanges are the identity on one device), the linear join, and every
+other MIR node (``_build`` raises ``NotImplementedError`` naming it).
 """
 
 from __future__ import annotations
@@ -45,9 +51,16 @@ from ..arrangement.spine import (
 from ..expr import relation as mir
 from ..expr.linear import MapFilterProject, apply_mfp
 from ..ops.consolidate import consolidate
+from ..ops.delta_join import DeltaJoinOp
 from ..ops.reduce import ReduceOp
 from ..ops.sort import concat_batches, shrink
-from ..plan.decisions import INGEST_RING_SLOTS, ingest_mode, quantize_cap
+from ..plan.decisions import (
+    INGEST_RING_SLOTS,
+    ingest_mode,
+    join_implementation,
+    quantize_cap,
+    state_ingest_mode,
+)
 from ..repr.batch import Batch
 from ..repr.schema import ERR_SCHEMA
 
@@ -56,17 +69,28 @@ ERR_DELTA_CAP = 2048
 
 
 class _RenderContext:
-    """Collects state slots while walking the MIR tree: each stateful
-    operator's initial state, at the dataflow's state tier."""
+    """Collects state slots while walking the MIR tree (each stateful
+    operator's initial state, at the dataflow's state tier) and holds
+    the join sites' output tiers, which overflow growth doubles."""
 
-    def __init__(self, state_cap: int, device):
+    def __init__(self, state_cap: int, device, join_cap: int = 1024):
         self.state_cap = state_cap
         self.device = device
         self.slots: list = []
+        # Append slots of operator-state spines (0: merge ingest).
+        self.ingest_slots = (
+            INGEST_RING_SLOTS if state_ingest_mode(state_cap) == "append_slot" else 0
+        )
+        self.join_caps: list = []
+        self.default_join_cap = quantize_cap(join_cap)
 
     def new_slot(self, init: tuple) -> int:
         self.slots.append(init)
         return len(self.slots) - 1
+
+    def new_join_site(self) -> int:
+        self.join_caps.append(self.default_join_cap)
+        return len(self.join_caps) - 1
 
 
 def _build(expr: mir.RelationExpr, ctx: _RenderContext):
@@ -117,7 +141,56 @@ def _build(expr: mir.RelationExpr, ctx: _RenderContext):
 
         return run
 
+    if isinstance(expr, mir.Let):
+        val = _build(expr.value, ctx)
+        body = _build(expr.body, ctx)
+        name = expr.name
+
+        def run(states, inputs, time, errs):
+            vb, upd, ovf = val(states, inputs, time, errs)
+            # The binding's delta is computed once and shared by every Get.
+            ob, u2, o2 = body(states, {**inputs, name: vb}, time, errs)
+            return ob, {**upd, **u2}, {**ovf, **o2}
+
+        return run
+
+    if isinstance(expr, mir.Join):
+        if join_implementation(expr) != "delta":
+            raise NotImplementedError(
+                "the linear join is not ported (ROADMAP Queue 1); a join of "
+                "3 or more inputs, or implementation='delta', renders"
+            )
+        return _build_join_delta(expr, ctx)
+
     raise NotImplementedError(f"render of {type(expr).__name__} is not ported")
+
+
+def _build_join_delta(expr: mir.Join, ctx: _RenderContext):
+    """Per-input update pipelines over shared arrangements. The state
+    slot and the join site are taken before the inputs are built, as
+    the reference takes them."""
+    op = DeltaJoinOp(tuple(i.schema() for i in expr.inputs), expr.equivalences)
+    slot = ctx.new_slot(op.init_state(ctx.state_cap, ingest_slots=ctx.ingest_slots,
+                                      device=ctx.device))
+    jsite = ctx.new_join_site()
+    inners = [_build(i, ctx) for i in expr.inputs]
+
+    def run(states, inputs, time, errs):
+        deltas, upd, ovf = [], {}, {}
+        for f in inners:
+            b, u, o = f(states, inputs, time, errs)
+            deltas.append(b)
+            upd.update(u)
+            ovf.update(o)
+        new_state, out, st_ovf, j_ovf = op.step(states[slot], deltas, time,
+                                                ctx.join_caps[jsite])
+        upd[slot] = new_state
+        for part, flag in st_ovf.items():
+            ovf[("state", slot, part)] = flag
+        ovf[("join", jsite)] = j_ovf
+        return out, upd, ovf
+
+    return run
 
 
 class Dataflow:
@@ -141,6 +214,7 @@ class Dataflow:
                 else 0
             )
         ctx = _RenderContext(self.state_cap, self.device)
+        self._ctx = ctx
         self._run = _build(expr, ctx)
         # One tuple of state parts per stateful operator (slot).
         self.states = list(ctx.slots)
@@ -164,10 +238,7 @@ class Dataflow:
         self._compact_every = 8
         self._compact_ratio = 8
         self._compact_tick = 0
-        first = 0 if self.output.slots else 1
-        self._covf_keys = [
-            ("out", first + lvl) for lvl in range(compact_depth(self.output))
-        ]
+        self._covf_keys = self._compact_keys()
         # Census: device->host flag readbacks, and spine folds run (each
         # fold is at least one merge, i.e. one merge-search launch).
         self._readbacks = 0
@@ -178,6 +249,35 @@ class Dataflow:
         self._defer_cflags = None
 
     # -- schedule -----------------------------------------------------------
+    @staticmethod
+    def _state_run_key(slot: int, part: int):
+        """Flag key of a state spine's run: ``("state", slot, (part, run))``."""
+        return lambda run: ("state", slot, (part, run))
+
+    @staticmethod
+    def _out_run_key(run) -> tuple:
+        return ("out", run)
+
+    def _spines(self) -> list:
+        """(run flag key, spine) of every state spine, then the output's."""
+        out = [
+            (self._state_run_key(slot, p), sp)
+            for slot, parts in enumerate(self.states)
+            for p, sp in enumerate(parts)
+            if isinstance(sp, Spine)
+        ]
+        return out + [(self._out_run_key, self.output)]
+
+    def _compact_keys(self) -> list:
+        """The fold flags' keys, in the reference's order: every state
+        spine's target runs, then the output's. A slotted spine's level-0
+        flush targets run 0, a slotless spine's first fold run 1."""
+        keys = []
+        for key, sp in self._spines():
+            first = 0 if sp.slots else 1
+            keys += [key(first + lvl) for lvl in range(compact_depth(sp))]
+        return keys
+
     @property
     def time(self) -> int:
         """Frontier: every tick < time is complete."""
@@ -193,17 +293,19 @@ class Dataflow:
         return lvl
 
     def _max_compact_level(self) -> int:
-        return compact_depth(self.output) - 1
+        """Deepest fold index any spine of this dataflow can take."""
+        return max(compact_depth(sp) for _, sp in self._spines()) - 1
 
     def _check_slot_ring(self) -> None:
-        """The slot ring must hold every insert between level-0 flushes
+        """A slot ring must hold every insert between level-0 flushes
         (a wrapped cursor would overwrite unflushed slots silently)."""
-        if self.output.slots and len(self.output.slots) < self._compact_every:
-            raise ValueError(
-                f"ingest slot ring ({len(self.output.slots)}) smaller than "
-                f"compact_every ({self._compact_every}): inserts would "
-                "overwrite unflushed slots"
-            )
+        for _, sp in self._spines():
+            if sp.slots and len(sp.slots) < self._compact_every:
+                raise ValueError(
+                    f"ingest slot ring ({len(sp.slots)}) smaller than "
+                    f"compact_every ({self._compact_every}): inserts would "
+                    "overwrite unflushed slots"
+                )
 
     # -- growth -------------------------------------------------------------
     def _grow_for(self, key, target: int | None = None) -> None:
@@ -218,10 +320,18 @@ class Dataflow:
         if key[0] == "state":
             _, slot, part = key
             parts = list(self.states[slot])
-            parts[part] = parts[part].map_batches(grow)
+            if isinstance(part, tuple):  # a spine's run: (part, which)
+                p, which = part
+                parts[p] = self._grow_spine(parts[p], which, target)
+            else:
+                parts[part] = parts[part].map_batches(grow)
             self.states[slot] = tuple(parts)
         elif key[0] == "out":
             self.output = self._grow_spine(self.output, key[1], target)
+        elif key[0] == "join":
+            # Read by the join's closure at every tick: the replay runs
+            # at the doubled tier.
+            self._ctx.join_caps[key[1]] *= 2
         elif key[0] == "outd":
             self.out_delta_cap *= 2
         elif key[0] == "errout":
@@ -299,21 +409,31 @@ class Dataflow:
         ovf[("errout",)] = shrink_ovf | err_ovf
         return new_err
 
+    def _fold(self, sp: Spine, max_level: int, key, flags: dict) -> Spine:
+        """Fold levels [0, max_level] of one spine; records each target
+        run's overflow flag under ``key(target run)``."""
+        first = 0 if sp.slots else 1
+        for lvl in range(min(max_level + 1, compact_depth(sp))):
+            sp, flags[key(first + lvl)] = compact_level(sp, lvl)
+            self._folds += 1
+        return sp
+
     def _compact(self, max_level: int) -> torch.Tensor:
-        """Fold levels [0, max_level] of the output spine; returns the
-        per-target-run flags in ``_covf_keys`` order (False for levels
-        not folded)."""
-        sp = self.output
-        flags = []
-        for lvl in range(compact_depth(sp)):
-            if lvl <= max_level:
-                sp, ovf = compact_level(sp, lvl)
-                self._folds += 1
-                flags.append(ovf)
-            else:
-                flags.append(torch.zeros((), dtype=torch.bool, device=self.device))
-        self.output = sp
-        return torch.stack(flags)
+        """Fold levels [0, max_level] of every state spine and of the
+        output spine; returns the per-target-run flags in
+        ``_covf_keys`` order (False for levels not folded)."""
+        flags: dict = {}
+        self.states = [
+            tuple(
+                self._fold(sp, max_level, self._state_run_key(slot, p), flags)
+                if isinstance(sp, Spine) else sp
+                for p, sp in enumerate(parts)
+            )
+            for slot, parts in enumerate(self.states)
+        ]
+        self.output = self._fold(self.output, max_level, self._out_run_key, flags)
+        false = torch.zeros((), dtype=torch.bool, device=self.device)
+        return torch.stack([flags.get(k, false) for k in self._covf_keys])
 
     @staticmethod
     def _or(acc, fl):

@@ -1,5 +1,5 @@
-"""TPC-H lineitem load generator (the port's copy of the lineitem path of
-``materialize_tpu/storage/generator/tpch.py``).
+"""TPC-H load generator (the port's copy of the lineitem and supplier
+paths of ``materialize_tpu/storage/generator/tpch.py``).
 
 Deterministic and host-side: every field of every row is a pure
 function of (seed, version, orderkey, linenumber, field tag), as in
@@ -72,6 +72,15 @@ LINEITEM_SCHEMA = Schema(
         Column("l_shipdate", ColumnType.DATE),
         Column("l_commitdate", ColumnType.DATE),
         Column("l_receiptdate", ColumnType.DATE),
+    ]
+)
+
+
+SUPPLIER_SCHEMA = Schema(
+    [
+        Column("s_suppkey", ColumnType.INT64),
+        Column("s_nationkey", ColumnType.INT64),
+        Column("s_name", ColumnType.STRING),
     ]
 )
 
@@ -158,6 +167,29 @@ class TpchGenerator:
             commitdate.astype(np.int32),
             receiptdate.astype(np.int32),
         ]
+
+    # -- static dimension tables -------------------------------------------
+    def supplier_table(self) -> list:
+        """Supplier columns: keys 1..n_supplier, a nation drawn from the
+        ``seed + 7`` stream, names ``Supplier#%09d`` as order-preserving
+        dictionary codes."""
+        rng = np.random.default_rng(self.seed + 7)
+        keys = np.arange(1, self.n_supplier + 1)
+        nation = rng.integers(0, 25, size=len(keys))
+        names = GLOBAL_DICT.encode_many([f"Supplier#{k:09d}" for k in keys])
+        return [keys, nation.astype(np.int64), names]
+
+    def table_batch(self, name: str, time: int = 0, device=None) -> Batch:
+        """A static table as one insert batch (the dimension snapshot).
+        Of the reference's tables only ``supplier`` is ported."""
+        if name != "supplier":
+            raise NotImplementedError(
+                f"TPC-H table {name!r} is not ported (ROADMAP Queue 1: Q9)"
+            )
+        cols = self.supplier_table()
+        n = len(cols[0])
+        return Batch.from_numpy(SUPPLIER_SCHEMA, cols, np.full(n, time, np.uint64),
+                                np.ones(n, np.int64), device=device)
 
     def snapshot_lineitem_parts(self, batch_orders: int = 4096):
         """Yield (cols, diffs) numpy parts covering the snapshot, each

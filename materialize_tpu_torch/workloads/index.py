@@ -8,15 +8,15 @@ churn rate: hydrate the lineitem snapshot, then churn orders
 (delete + re-insert, Materialize's TPC-H load-generator tick). The run
 ladder, slot ring, compaction cadence (``ce``/``ratio``) and churn
 capacity are computed exactly as the reference computes them, so both
-packages hold the same tiers. ``workloads/tpch.py`` lays TPC-H Q1 over
-the same stream.
+packages hold the same tiers. ``workloads/tpch.py`` lays TPC-H Q1 and
+Q15 over the same stream (Q15 with the supplier table beside it).
 """
 
 from __future__ import annotations
 
 from ..expr import relation as mir
 from ..render.dataflow import Dataflow
-from ..repr.batch import capacity_tier
+from ..repr.batch import Batch, capacity_tier
 from ..storage.generator.tpch import LINEITEM_SCHEMA, TpchGenerator
 
 CHURN_CAP = 1 << 12
@@ -88,24 +88,30 @@ def index_config(sf: float = 0.25, n_orders_per_tick: int = 1024,
 
 
 def lineitem_config(df, h_orders: int, churn_cap: int, sf: float,
-                    n_orders_per_tick: int, seed: int = 42):
+                    n_orders_per_tick: int, seed: int = 42, extra_inputs_fn=None):
     """The TPC-H stream of a dataflow built by ``build_lineitem_dataflow``
     (its three results first): returns (df, hydrate, churn) as
-    ``index_config`` does."""
+    ``index_config`` does. ``extra_inputs_fn(gen)`` gives static side
+    tables ({name: batch}), fed on the first hydrate tick; every later
+    tick feeds each of them an empty batch (the reference bench's
+    ``extra_inputs_fn``)."""
     gen = TpchGenerator(sf=sf, seed=seed)
+    extras = extra_inputs_fn(gen) if extra_inputs_fn else {}
+    empty = {name: Batch.empty(b.schema, 256, device=df.device)
+             for name, b in extras.items()}
 
     def hydrate():
-        return [
-            {"lineitem": b}
-            for b in gen.snapshot_lineitem_batches(
-                batch_orders=h_orders, time=0, device=df.device
-            )
-        ]
+        out = []
+        for k, b in enumerate(gen.snapshot_lineitem_batches(
+            batch_orders=h_orders, time=0, device=df.device
+        )):
+            out.append({"lineitem": b, **(empty if k else extras)})
+        return out
 
     def churn(i: int, t: int):
         b = gen.churn_lineitem_batch(
             n_orders_per_tick, tick=i, time=t, capacity=churn_cap, device=df.device
         )
-        return {"lineitem": b}, b._host_count
+        return {"lineitem": b, **empty}, b._host_count
 
     return df, hydrate, churn

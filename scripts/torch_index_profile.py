@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Where the time goes in a maintained TPC-H workload of the port, on a card.
 
-    python3 scripts/torch_index_profile.py [index|q1] [--sf 1.0] [--ticks 16] [--trace PATH]
+    python3 scripts/torch_index_profile.py [index|q1|q15] [--sf 1.0] [--ticks 16] [--trace PATH]
 
 Builds the workload's configuration of ``chip_smoke.py`` (``index``: the
 reference bench's ``config_index`` layout, ``state_cap = 2^23``;
-``q1``: TPC-H Q1 in the bench's ``config_q1`` layout), hydrates the
-TPC-H snapshot, warms one churn span, then traces one more churn span
+``q1``: TPC-H Q1 in the bench's ``config_q1`` layout; ``q15``: TPC-H Q15
+in the bench's ``config_q15`` layout), hydrates the TPC-H snapshot
+(growing tiers on overflow), warms one churn span, then traces one more
+churn span
 of ``--ticks`` ticks with ``torch.profiler`` (CPU + CUDA). Prints JSON
 lines: the span's wall time, the device's busy time (union of kernel
 intervals) and idle share, the kernel launches, and the device time by
@@ -14,7 +16,9 @@ kernel name (top 15, with the merge-path kernel's launches and share;
 a span that shows no launch of it fails), and the host time spent in
 each layer of the step path (``host_ms_by_layer``: the script wraps the
 layer functions in profiler ranges for the traced span; ranges nest, so
-a layer's time includes its parts'). With
+a layer's time includes its parts'; Q15's join probes, their binary
+search and range expansion, and the MIN/MAX query are layers of their
+own). With
 ``--trace PATH`` the Chrome trace of the span is written to PATH.
 """
 
@@ -43,6 +47,13 @@ LAYERS = (
     ("out.consolidate", "materialize_tpu_torch.render.dataflow", "consolidate"),
     ("out.insert", "materialize_tpu_torch.render.dataflow", "insert_tail"),
     ("err", "materialize_tpu_torch.render.dataflow", "Dataflow._apply_err_delta"),
+    ("reduce.minmax_query", "materialize_tpu_torch.ops.reduce", "minmax_query"),
+    ("reduce.minmax_insert", "materialize_tpu_torch.ops.reduce", "insert"),
+    ("join", "materialize_tpu_torch.ops.delta_join", "DeltaJoinOp.step"),
+    ("join.insert", "materialize_tpu_torch.ops.delta_join", "insert_tail"),
+    ("join.probe", "materialize_tpu_torch.ops.delta_join", "DeltaJoinOp._probe"),
+    ("join.probe.search", "materialize_tpu_torch.ops.delta_join", "lookup_range"),
+    ("join.probe.expand", "materialize_tpu_torch.ops.delta_join", "expand_ranges"),
 )
 
 
@@ -82,10 +93,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     from materialize_tpu_torch.workloads.index import index_config
-    from materialize_tpu_torch.workloads.tpch import q1_config
+    from materialize_tpu_torch.workloads.tpch import q1_config, q15_config
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("workload", nargs="?", choices=("index", "q1"), default="index")
+    ap.add_argument("workload", nargs="?", choices=("index", "q1", "q15"), default="index")
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--ticks", type=int, default=16)
     ap.add_argument("--trace", default=None, help="write the Chrome trace here")
@@ -101,8 +112,9 @@ def main() -> int:
             ce=4, ratio=4, slots=True, seed=42, device="cuda",
         )
     else:
-        df, hydrate, churn = q1_config(sf=args.sf, n_orders_per_tick=1024, seed=42,
-                                       device="cuda")
+        config = q1_config if args.workload == "q1" else q15_config
+        df, hydrate, churn = config(sf=args.sf, n_orders_per_tick=1024, seed=42,
+                                    device="cuda")
     h = hydrate()
     if args.ticks % df._compact_every:
         ap.error(f"--ticks must be a multiple of {df._compact_every}")

@@ -288,6 +288,82 @@ def test_q1_state_overflow_agrees_on_card():
             assert torch.equal(x[:n], y[:n])
 
 
+def _q15_run(mode, force: bool, device="cuda"):
+    """Q15 at SF 0.01: hydrate, then a churn span of 16. With ``force``
+    the join tier starts at 4 rows and the revenue state at 2, so the
+    first hydrate span overflows both, rolls back, grows and replays.
+    Returns (dataflow, overflow per span, merge-path launches)."""
+    from materialize_tpu_torch.arrangement.spine import Arrangement
+    from materialize_tpu_torch.workloads.tpch import q15_config
+
+    df, hydrate, churn = q15_config(sf=0.01, n_orders_per_tick=64, device=device)
+    if force:
+        df._ctx.join_caps[0] = 4
+        rev = df.states[0][0]
+        df.states[0] = (Arrangement.empty(rev.schema, rev.key, 2, device=device),)
+    before = merge_kernel.LAUNCHES
+    overs = []
+    with merge_mode(mode):
+        h = hydrate()
+        n_h = len(h) - len(h) % df._compact_every
+        df.run_span(h[:n_h])
+        overs.append(df.check_flags())
+        df.run_steps(h[n_h:])
+        df.run_span([churn(i, df.time + i)[0] for i in range(16)])
+        overs.append(df.check_flags())
+    return df, overs, merge_kernel.LAUNCHES - before
+
+
+def _same_q15_state(kdf, tdf):
+    """Equal peeks, revenue accumulators, join spines (runs and lanes),
+    MAX multiset, output runs and err arrangement."""
+    rows = kdf.peek()
+    assert rows == tdf.peek() and len(rows) >= 1
+    assert kdf.peek_errors() == tdf.peek_errors() == []
+    batches = [(kdf.err_output.batch, tdf.err_output.batch)]
+    for kparts, tparts in zip(kdf.states, tdf.states):
+        for kp, tp in zip(kparts, tparts):
+            if hasattr(kp, "runs_b"):
+                batches += list(zip(kp.runs_b, tp.runs_b))
+                for kl, tl, kb in zip(kp.lanes, tp.lanes, kp.runs_b):
+                    assert torch.equal(kl[: int(kb.count)], tl[: int(kb.count)])
+            else:
+                batches.append((kp.batch, tp.batch))
+    batches += list(zip(kdf.output.runs_b, tdf.output.runs_b))
+    for kb, tb in batches:
+        n = int(kb.count)
+        assert int(tb.count) == n and kb.capacity == tb.capacity
+        for x, y in zip(kb.cols + (kb.time, kb.diff), tb.cols + (tb.time, tb.diff)):
+            assert torch.equal(x[:n], y[:n])
+
+
+@pytest.mark.cuda
+def test_q15_paths_agree_on_card():
+    """Q15 run through the kernel and through the plain chain: equal
+    peeks, join spines, revenue state and MAX multiset."""
+    _need_card()
+    (kdf, kover, klaunch), (tdf, tover, tlaunch) = (
+        _q15_run("kernel", False), _q15_run("torch", False))
+    assert kover == tover == [False, False]
+    assert klaunch > 0 and tlaunch == 0
+    _same_q15_state(kdf, tdf)
+
+
+@pytest.mark.cuda
+def test_q15_forced_overflows_agree_on_card():
+    """A forced join-tier overflow and a forced revenue-state overflow
+    roll back, grow and replay through the kernel exactly as through the
+    plain chain."""
+    _need_card()
+    (kdf, kover, klaunch), (tdf, tover, tlaunch) = (
+        _q15_run("kernel", True), _q15_run("torch", True))
+    assert kover == tover == [True, False]
+    assert klaunch > 0 and tlaunch == 0
+    assert kdf._ctx.join_caps == tdf._ctx.join_caps and kdf._ctx.join_caps[0] > 4
+    assert kdf.states[0][0].capacity == tdf.states[0][0].capacity > 2
+    _same_q15_state(kdf, tdf)
+
+
 def test_index_reads_decode_against_numpy_oracle():
     """The port's own index end to end on the CPU (its generator, its
     string dictionary): scan, lookup and point reads, decoded, against a

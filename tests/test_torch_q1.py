@@ -39,9 +39,10 @@ SF, ORDERS_PER_TICK, SPAN = 0.002, 16, 4
 
 _CLASSES = {
     jmir.Get: tmir.Get, jmir.Project: tmir.Project, jmir.Map: tmir.Map,
-    jmir.Filter: tmir.Filter, jmir.Reduce: tmir.Reduce,
-    jmir.AggregateExpr: tmir.AggregateExpr, js.ColumnRef: ts.ColumnRef,
-    js.Literal: ts.Literal, js.CallBinary: ts.CallBinary,
+    jmir.Filter: tmir.Filter, jmir.Reduce: tmir.Reduce, jmir.Let: tmir.Let,
+    jmir.Join: tmir.Join, jmir.AggregateExpr: tmir.AggregateExpr,
+    js.ColumnRef: ts.ColumnRef, js.Literal: ts.Literal, js.CallBinary: ts.CallBinary,
+    js.CallUnary: ts.CallUnary,
 }
 
 

@@ -5,13 +5,21 @@
    a group that dies, and a SUM whose running total crosses 2^62 (an err
    row +1) and comes back (-1). After every step the group state, the
    output delta and the err row must be equal (tolerance 0: integers).
-2. A ``GROUP BY l_orderkey`` dataflow at ``state_cap`` 256 on the TPC-H
+2. The hierarchical path: ``ReduceOp.step`` with MAX and MIN, on the
+   empty group key (Q15's global MAX) and on a nullable key beside SUM
+   and COUNT, over inserts with NULL values, retractions of each group's
+   current maximum and then minimum, a group of only NULL values and a
+   group that dies. After every step every state part (the accumulators
+   and each sorted multiset) and the output delta must be equal.
+3. A ``GROUP BY l_orderkey`` dataflow at ``state_cap`` 256 on the TPC-H
    stream: its third hydrate tick overflows the state in both packages;
    both roll back, grow the state one tier and replay on that tick, and
    the maintained results stay equal through churn. One reference
    dataflow in the file (its compiles dominate the run time)."""
 
 from __future__ import annotations
+
+from collections import Counter
 
 import jax
 import jax.numpy as jnp
@@ -167,11 +175,102 @@ def test_reduce_op_steps_match_reference():
 
 def test_reduce_op_refuses_unported_aggregates():
     A, F = tmir.AggregateExpr, tmir.AggregateFunc
-    for func in (F.SUM_FLOAT, F.MIN, F.STRING_AGG):
+    for func in (F.SUM_FLOAT, F.ARRAY_AGG, F.STRING_AGG):
         with pytest.raises(NotImplementedError):
             TReduceOp(_schema(tschema), (0,), (A(func, ts.col(4)),))
     with pytest.raises(NotImplementedError, match="DISTINCT"):
         TReduceOp(_schema(tschema), (0,), (A(F.COUNT, ts.col(4), distinct=True),))
+
+
+def _mm_schema(mod):
+    C, T = mod.Column, mod.ColumnType
+    return mod.Schema([C("k", T.INT64, True), C("v", T.DECIMAL, True, 2),
+                       C("w", T.INT64)])
+
+
+def _mm_aggs(rel, sc, keyed: bool):
+    A, F = rel.AggregateExpr, rel.AggregateFunc
+    if not keyed:  # Q15's shape: hierarchical aggregates only
+        return (A(F.MAX, sc.col(1)), A(F.MIN, sc.col(1)))
+    return (A(F.SUM_INT, sc.col(2)), A(F.MAX, sc.col(1)), A(F.COUNT, sc.lit(True)),
+            A(F.MIN, sc.col(1)))
+
+
+def _mm_steps():
+    """Six steps of (k, k_null, v, v_null, w, diff), each computed from
+    the live multiset the earlier steps left: inserts with NULL values,
+    retractions of every group's current MAX then MIN, a group whose
+    values are all NULL, and a group that dies."""
+    rng = np.random.default_rng(8)
+    live: Counter = Counter()
+
+    def emit(rows):
+        for r, d in rows:
+            live[r] += d
+        return rows
+
+    def insert(n, groups, null_rate=0.2):
+        out = []
+        for _ in range(n):
+            k = int(rng.choice(groups))
+            v = None if rng.random() < null_rate else int(rng.integers(-500, 500))
+            out.append(((k, v, int(rng.integers(0, 9))), int(rng.choice([1, 2]))))
+        return emit(out)
+
+    def retract_extreme(pick):
+        by_key: dict = {}
+        for (k, v, w), c in live.items():
+            if c and v is not None:
+                by_key.setdefault(k, []).append(v)
+        return emit([((k, v, w), -c) for (k, v, w), c in list(live.items())
+                     if c and v is not None and v == pick(by_key[k])])
+
+    steps = [
+        insert(40, [1, 2, 3, -1]),  # -1 stands for the NULL key
+        retract_extreme(max),
+        insert(10, [4], null_rate=1.0) + insert(10, [1, 2]),
+        retract_extreme(min),
+        emit([(r, -c) for r, c in list(live.items()) if c and r[0] == 3]),
+        insert(12, [1, 2, 3]),
+    ]
+    out = []
+    for rows in steps:
+        k = np.array([r[0] for r, _ in rows])
+        v = np.array([0 if r[1] is None else r[1] for r, _ in rows])
+        out.append((np.where(k < 0, 0, k), k < 0, v,
+                    np.array([r[1] is None for r, _ in rows]),
+                    np.array([r[2] for r, _ in rows]), np.array([d for _, d in rows])))
+    return out
+
+
+@pytest.mark.parametrize("keyed", [False, True], ids=["global", "keyed"])
+def test_minmax_reduce_steps_match_reference(keyed):
+    key = (0,) if keyed else ()
+    jop = JReduceOp(_mm_schema(jschema), key, _mm_aggs(jmir, js, keyed))
+    top = TReduceOp(_mm_schema(tschema), key, _mm_aggs(tmir, ts, keyed))
+    assert top.plan.kind == jop.plan.kind == "Collation"
+    assert [c.name for c in top.out_schema.columns] == [c.name for c in jop.out_schema.columns]
+    jstep = jax.jit(jop.step)
+    jstate = jop.init_state(CAP)
+    tstate = top.init_state(CAP, device="cpu")
+    assert len(tstate) == len(jstate) == 3
+    outs = []
+    for t, (k, kn, v, vn, w, diff) in enumerate(_mm_steps(), start=1):
+        time = np.full(len(diff), t, np.uint64)
+        args = ([k, v, w], time, diff)
+        kw = dict(capacity=CAP, nulls=[kn, vn, None])
+        jb = JBatch.from_numpy(_mm_schema(jschema), *args, **kw)
+        tb = TBatch.from_numpy(_mm_schema(tschema), *args, device="cpu", **kw)
+        jstate, jout, jovf = jstep(jstate, jb, jnp.asarray(t, jnp.uint64))
+        tstate, tout, tovf = top.step(tstate, tb, t)
+        assert sorted(tovf) == sorted(jovf) == [0, 1, 2]
+        assert not any(bool(tovf[p]) or bool(jovf[p]) for p in tovf)
+        for jp, tp in zip(jstate, tstate):
+            _same(jp.batch, tp.batch)
+        _same(jout, tout)
+        outs.append(int(tout.count))
+    # retracting the current MAX (step 2) and MIN (step 4) changes them
+    assert outs[1] > 0 and outs[3] > 0
 
 
 def _groupby(rel, sc, schema):

@@ -1,7 +1,9 @@
 """Port parity for scalar evaluation and MapFilterProject: the port's
 ``expr/scalar.py:eval_expr`` and ``expr/linear.py:apply_mfp`` against the
 reference's, on the same seeded numpy columns (DECIMAL at scales 2 and
-4, DATE, INT64 and INT32, with NULLs and zero divisors). Every value is
+4, DATE, INT64 and INT32, with NULLs and zero divisors), including the
+unary NOT and IS NULL over columns with NULLs (Q15's ``NOT IS NULL``
+filters). Every value is
 an integer, so everything is compared exactly (tolerance 0), padding
 rows included: both evaluate every row."""
 
@@ -66,8 +68,8 @@ def batches():
 
 
 def _exprs(m):
-    """Q1's expressions, comparisons across scales and types, and the
-    dividing functions."""
+    """Q1's expressions, comparisons across scales and types, the
+    dividing functions, and NOT / IS NULL."""
     c, lit, T = m.col, m.lit, m.ColumnType
     one = lit(100, T.DECIMAL, 2)
     disc_price = c(0) * (one - c(1))
@@ -95,6 +97,12 @@ def _exprs(m):
         "int_mod": call(F.MOD, c(4), c(5)),
         "dec_mod": call(F.MOD, c(0), c(1)),
         "null_literal": c(0) + lit(None, T.DECIMAL, 2),
+        "not_nullable_cmp": m.CallUnary(m.UnaryFunc.NOT, c(3).lte(lit(CUTOFF, T.DATE))),
+        "is_null_decimal": m.CallUnary(m.UnaryFunc.IS_NULL, c(0)),
+        "is_null_non_nullable": m.CallUnary(m.UnaryFunc.IS_NULL, c(5)),
+        "q15_not_is_null": m.CallUnary(m.UnaryFunc.NOT,
+                                       m.CallUnary(m.UnaryFunc.IS_NULL, c(4))),
+        "is_null_of_div": m.CallUnary(m.UnaryFunc.IS_NULL, call(F.DIV, c(4), c(5))),
     }
 
 
@@ -201,3 +209,5 @@ def test_unported_scalar_pieces_raise(batches):
         ts.eval_expr(ts.CallBinary(ts.BinaryFunc.ROUND_TO, ts.col(4), ts.col(5)), tb)
     with pytest.raises(NotImplementedError, match="not ported"):
         ts.eval_expr(object(), tb)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        ts.eval_expr(ts.CallUnary("neg", ts.col(4)), tb)
