@@ -30,35 +30,56 @@ Phases, each printing one JSON line (any failure exits non-zero):
    merge shape, the maintained multiset against a numpy oracle, and a
    full scan, 64 ``l_orderkey = k`` lookups and 64 full-row point
    lookups against it;
-4. TPC-H Q1 at SF 1 (``workloads/tpch.py``, the reference bench's Q1
-   layout): hydrate in spans, churn 32 ticks as spans of 16, one flags
+4. the index configuration at SF 0.01 with the merge forced to the
+   kernel and then to the plain chain: the spines must be equal;
+5. TPC-H Q1 at SF 0.1 (``workloads/tpch.py``, the reference bench's Q1
+   layout and scale; SF 1 does not fit the time limit beside Q9):
+   hydrate in spans, churn 32 ticks as spans of 16, one flags
    readback per span, kernel launches over the Q1 run in all and by
-   merge shape, device operations per tick (one more span under
+   merge shape, device operations per tick (16 more ticks under
    ``torch.profiler``), ``peek()`` against a numpy Q1 oracle over every
    batch fed and ``peek_errors()`` empty;
-5. the index configuration at SF 0.01 with the merge forced to the
-   kernel and then to the plain chain: the spines must be equal;
 6. the kernel at each merge shape the Q1 path launched, against its
    plain chain;
 7. Q1 at SF 0.01 in both merge modes: equal peeks, reduce states, output
    runs and err arrangements;
-8. TPC-H Q15 at SF 1 (``workloads/tpch.py``, the reference bench's Q15
-   layout: the revenue view, its global MAX and the supplier table in a
+8. TPC-H Q15 at SF 0.1 (``workloads/tpch.py``, the reference bench's Q15
+   layout, twice its scale; SF 1 is left to earlier records, for time:
+   the revenue view, its global MAX and the supplier table in a
    3-input delta join): hydrate in spans (the revenue state, the join
    spines, the MAX multiset and the join tier grow on overflow, roll back
    and replay), churn 32 ticks as spans of 16 with one flags readback
    each, kernel launches over the Q15 run in all and by merge shape,
-   device operations per tick (one more span under ``torch.profiler``),
+   device operations per tick (16 more ticks under ``torch.profiler``),
    ``peek()`` against a numpy Q15 oracle over every batch fed and
    ``peek_errors()`` empty;
 9. the kernel at each merge shape the Q15 path launched, against its
    plain chain;
 10. Q15 at SF 0.01 in both merge modes: equal peeks, revenue
     accumulators, join spines, MAX multiset, output runs and err
+    arrangements;
+11. TPC-H Q9 at SF 1 (``workloads/tpch.py``, the reference bench's Q9
+    layout: a 6-input delta join over ten spines with a ring of 8
+    append slots each, EXTRACT(YEAR), profit summed by (n_name,
+    o_year)): part, supplier, partsupp, nation and all 1.5M orders ride
+    the first hydrate tick, lineitem hydrates in ticks of 16,384 orders
+    with every tier pre-sized (``q9_tiers``; no hydrate span may
+    overflow), no warm span, the join tier set back to a churn tick's
+    (``set_join_tiers``), then 32 churn ticks as spans of 16 with one
+    flags readback each; kernel
+    launches by merge shape (2^23 rows at L = 6 among them), device
+    operations per tick from 2 profiled ticks, peak device memory,
+    ``peek()`` against a numpy Q9 oracle over every batch fed and
+    ``peek_errors()`` empty;
+12. the kernel at each merge shape the Q9 path launched, against its
+    plain chain;
+13. Q9 at SF 0.002 in both merge modes: equal peeks, accumulators, join
+    spines with their slots and cursors, output runs and err
     arrangements.
 
 ``{"phase": "kernel_table", ...}`` gives one row per merge shape of each
-main path (the index's, then Q1's, then Q15's). The line before the last is ``{"kernels": [...]}``; the last is
+main path (the index's, then Q1's, Q15's and Q9's); ``{"phase": "done",
+...}`` gives the script's wall seconds and each phase group's. The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
 and prints no result.
 """
@@ -217,6 +238,23 @@ def _pool_lanes(rng, cap, L, count=None, pool=_POOL):
     valid = valid[np.lexsort(valid.T[::-1])]
     pad = rng.integers(0, 1 << 63, (cap - count, L), dtype=np.uint64) * np.uint64(2)
     return np.concatenate([valid, pad]).reshape(cap, L)
+
+
+def _device_pool_lanes(torch, gen, cap, L, count):
+    """``_pool_lanes`` made on the card (a sorted prefix of ``count`` rows
+    drawn from ``_POOL``, then unsorted padding), for runs too large to
+    sort on the host in time."""
+    from materialize_tpu_torch.ops.lanes import from_u64
+
+    pool = torch.from_numpy(from_u64(_POOL)).cuda()
+    t = pool[torch.randint(0, len(_POOL), (cap, L), device="cuda", generator=gen)]
+    v = t[:count]
+    for j in reversed(range(L)):
+        v = v[torch.sort(v[:, j], stable=True).indices]
+    t[:count] = v
+    t[count:] = torch.randint(-(1 << 62), 1 << 62, (cap - count, L), device="cuda",
+                              generator=gen)
+    return t
 
 
 def _hash_run(torch, rng, cap, count, share_from=None):
@@ -530,7 +568,8 @@ def _same_rows(torch, kb, tb, what: str) -> None:
 
 
 def _same_runs(torch, ks, ts) -> None:
-    """Two spines hold the same runs, slots and cached lanes."""
+    """Two spines hold the same runs, slots, cached lanes and cursor."""
+    check(ks.cursor == ts.cursor and len(ks.slots) == len(ts.slots), "slot rings differ")
     for kb, tb, kl, tl in zip(ks.runs_b + ks.slots, ts.runs_b + ts.slots,
                               ks.lanes + ks.slot_lanes, ts.lanes + ts.slot_lanes):
         _same_rows(torch, kb, tb, "run")
@@ -604,10 +643,11 @@ def q1_oracle(qty, ext, disc, tax, flag, status, ship, diff, cutoff: int) -> dic
 
 def _device_ops(torch, fn) -> int:
     """Device operations (kernels, copies, fills) ``fn`` issues, counted
-    by ``torch.profiler``."""
+    by ``torch.profiler`` (device activity only: host events would cost
+    the profiler more than the ticks)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     return sum(1 for e in prof.events()
@@ -616,14 +656,15 @@ def _device_ops(torch, fn) -> int:
 
 def _drive(torch, merge_kernel, df, h_inputs, c_inputs, name: str,
            warm: int = 0, span_hydrate: int = 32, span_churn: int = 16,
-           ticks_churn: int = 32) -> dict:
-    """The main path of a TPC-H workload: hydrate in spans, churn
-    ``warm`` ticks, then churn ``ticks_churn`` more ticks in timed spans
-    of ``span_churn``, each span's flags read back once. With ``warm``
-    (a workload whose tiers grow to the churn's size), hydrate and warm
-    spans may overflow (roll back, grow and replay); without, no span
-    may. The merge-path counts are zeroed just before and read just
-    after."""
+           ticks_churn: int = 32, after_hydrate=None) -> dict:
+    """The main path of a TPC-H workload: hydrate in spans, call
+    ``after_hydrate(df)`` if given, churn ``warm`` ticks, then churn
+    ``ticks_churn`` more ticks in timed spans of ``span_churn``, each
+    span's flags read back once. With ``warm`` (a workload whose tiers
+    grow to the churn's size), hydrate and warm spans may overflow (roll
+    back, grow and replay; counted); without, no span may. The timed
+    churn spans never may. The merge-path counts are zeroed just before
+    and read just after."""
     growth = warm > 0
     ce = df._compact_every
     n_h = len(h_inputs) - len(h_inputs) % ce
@@ -644,6 +685,8 @@ def _drive(torch, merge_kernel, df, h_inputs, c_inputs, name: str,
         df.run_steps(h_inputs[n_h:])
     torch.cuda.synchronize()
     hydrate_s = time.perf_counter() - t_h
+    if after_hydrate is not None:
+        after_hydrate(df)
     w_reads = []
     for span in _spans(c_inputs[:warm], span_churn):
         before = df._readbacks
@@ -676,13 +719,14 @@ def _drive(torch, merge_kernel, df, h_inputs, c_inputs, name: str,
             "tick_ms": [m / span_churn for m in span_ms]}
 
 
-def _profiled_span(torch, df, inputs, name: str) -> float:
-    """Device operations per tick over one more warm churn span."""
-    def extra_span():
-        df.run_span(inputs)
+def _profiled_ticks(torch, df, inputs, name: str) -> float:
+    """Device operations per tick over a few more churn ticks (one
+    deferred span, its flags read once)."""
+    def ticks():
+        df.run_steps(inputs, defer_check=True)
         check(df.check_flags() is False, f"{name} churn overflowed a tier")
 
-    return _device_ops(torch, extra_span) / len(inputs)
+    return _device_ops(torch, ticks) / len(inputs)
 
 
 def _path_summary(run: dict, c_rows: list) -> dict:
@@ -726,7 +770,7 @@ def phase_q1(torch, merge_kernel, card, sf: float = 1.0) -> dict:
     df, h_inputs, c_inputs, c_rows, gen_s, churn_gen_s = _stream(
         q1_config, sf, ticks_churn + span_churn)
     run = _drive(torch, merge_kernel, df, h_inputs, c_inputs, "Q1")
-    ops = _profiled_span(torch, df, c_inputs[ticks_churn:], "Q1")
+    ops = _profiled_ticks(torch, df, c_inputs[ticks_churn:], "Q1")
 
     fed = [inp["lineitem"] for inp in h_inputs + c_inputs]
     t_o = time.perf_counter()
@@ -798,7 +842,7 @@ def phase_q15(torch, merge_kernel, card, sf: float = 1.0) -> dict:
     # The join spines' first run takes a churn tick's revenue changes
     # (~2.5x a hydrate tick's) for 8 ticks: the warm span grows it.
     run = _drive(torch, merge_kernel, df, h_inputs, c_inputs, "Q15", warm=warm)
-    ops = _profiled_span(torch, df, c_inputs[warm + ticks_churn:], "Q15")
+    ops = _profiled_ticks(torch, df, c_inputs[warm + ticks_churn:], "Q15")
 
     fed = [inp["lineitem"] for inp in h_inputs + c_inputs]
     sup = h_inputs[0]["supplier"]
@@ -835,19 +879,149 @@ def phase_q15(torch, merge_kernel, card, sf: float = 1.0) -> dict:
     return out
 
 
+# -- TPC-H Q9 -------------------------------------------------------------------
+
+Q9_COLS = (0, 1, 2, 4, 5, 6)  # orderkey, partkey, suppkey, quantity,
+# extendedprice, discount: what Q9 reads of lineitem
+
+
+def _lookup(keys, vals, q):
+    """(hit, value) of each ``q`` in the unique ``keys``, by searchsorted."""
+    order = np.argsort(keys, kind="stable")
+    ks, vs = keys[order], vals[order]
+    i = np.clip(np.searchsorted(ks, q), 0, max(len(ks) - 1, 0))
+    hit = (ks[i] == q) if len(ks) else np.zeros(len(q), bool)
+    return hit, vs[i]
+
+
+def q9_oracle(li: tuple, part, supplier, partsupp, orders, nation) -> dict:
+    """TPC-H Q9 in numpy int64, independent of the port: {(n_name code,
+    o_year): sum_profit (scale 4)} over the live rows, each weighted by
+    its diff. ``li`` = (orderkey, partkey, suppkey, quantity,
+    extendedprice, discount, diff); the tables are column lists. Joins by
+    searchsorted; the year from ``datetime64``."""
+    okey, pkey, skey, qty, ext, disc, diff = li
+    hit_p, _ = _lookup(part[0], part[0], pkey)
+    hit_s, nkey = _lookup(supplier[0], supplier[1], skey)
+    width = int(max(partsupp[1].max(), skey.max())) + 1
+    hit_ps, cost = _lookup(partsupp[0] * width + partsupp[1], partsupp[2], pkey * width + skey)
+    hit_o, odate = _lookup(orders[0], orders[4].astype(np.int64), okey)
+    hit_n, name = _lookup(nation[0], nation[2], nkey)
+    keep = hit_p & hit_s & hit_ps & hit_o & hit_n
+    year = odate[keep].astype("datetime64[D]").astype("datetime64[Y]").astype(np.int64) + 1970
+    amount = (ext[keep] * (100 - disc[keep]) - cost[keep] * qty[keep]) * diff[keep]
+    groups, inv = np.unique(np.stack([name[keep], year], 1), axis=0, return_inverse=True)
+    sums = np.zeros(len(groups), np.int64)
+    rows = np.zeros(len(groups), np.int64)
+    np.add.at(sums, inv.reshape(-1), amount)
+    np.add.at(rows, inv.reshape(-1), diff[keep])
+    return {(int(g[0]), int(g[1])): int(v) for g, v, r in zip(groups, sums, rows) if r != 0}
+
+
+def _table_cols(torch, b) -> list:
+    n = b._host_count
+    return [c[:n].cpu().numpy().astype(np.int64) for c in b.cols]
+
+
+def q9_presized(sf: float, churn_ticks: int, hydrate_orders: int = 896, **kw):
+    """``q9_config`` with every tier pre-sized (``q9_tiers``) for its
+    hydration and ``churn_ticks`` churn ticks of 1024 orders."""
+    from materialize_tpu_torch.storage.generator.tpch import TpchGenerator
+    from materialize_tpu_torch.workloads.tpch import apply_tiers, q9_config, q9_tiers
+
+    df, hydrate, churn = q9_config(sf=sf, hydrate_orders=hydrate_orders, **kw)
+    apply_tiers(df, q9_tiers(df, TpchGenerator(sf=sf, seed=kw["seed"]), hydrate_orders,
+                             kw["n_orders_per_tick"], churn_ticks))
+    return df, hydrate, churn
+
+
+def phase_q9(torch, merge_kernel, card, sf: float = 1.0) -> dict:
+    from materialize_tpu_torch.workloads.index import rows_per_tick
+    from materialize_tpu_torch.workloads.tpch import set_join_tiers
+
+    hydrate_orders, ticks_churn, span_churn, profile_ticks = 16384, 32, 16, 2
+    n_ticks = ticks_churn + profile_ticks
+    t0 = time.perf_counter()
+    df, hydrate, churn = q9_presized(sf, n_ticks, hydrate_orders, n_orders_per_tick=1024,
+                                     seed=42, device="cuda")
+    h_inputs = hydrate()
+    gen_s = time.perf_counter() - t0
+    t_c = time.perf_counter()
+    c_inputs, c_rows = [], []
+    for i in range(n_ticks):
+        inp, n = churn(i, len(h_inputs) + i)
+        c_inputs.append(inp)
+        c_rows.append(n)
+    churn_gen_s = time.perf_counter() - t_c
+    tiers_before = _state_tiers(df)
+    join_before = list(df._ctx.join_caps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # Pre-sized: no hydrate span may overflow. The join tier carries no
+    # rows between ticks: churn runs at a churn tick's, not a hydrate
+    # tick's (an overflow would still grow it, and fail the churn check).
+    run = _drive(torch, merge_kernel, df, h_inputs, c_inputs, "Q9", span_churn=span_churn,
+                 ticks_churn=ticks_churn,
+                 after_hydrate=lambda df: set_join_tiers(df, rows_per_tick(1024)))
+    peak = int(torch.cuda.max_memory_allocated())
+    ops = _profiled_ticks(torch, df, c_inputs[ticks_churn:], "Q9")
+
+    first = h_inputs[0]
+    tables = {n: _table_cols(torch, first[n])
+              for n in ("part", "supplier", "partsupp", "orders", "nation")}
+    fed = [inp["lineitem"] for inp in h_inputs + c_inputs]
+    t_o = time.perf_counter()
+    want = q9_oracle(_host_cols(torch, fed, Q9_COLS), **tables)
+    oracle_s = time.perf_counter() - t_o
+    t = time.perf_counter()
+    rows = df.peek()
+    peek_ms = (time.perf_counter() - t) * 1e3
+    got = {(r[0], r[1]): r[2] for r in rows}
+    check(len(rows) == len(got) and all(r[-1] == 1 for r in rows), "Q9 peek rows not unique")
+    check(got == want, f"Q9 peek != numpy oracle ({len(got)} vs {len(want)} groups)")
+    check(sf < 1 or len(got) >= 100, f"Q9 peek holds {len(got)} groups")
+    errors = df.peek_errors()
+    check(errors == [], f"Q9 err collection not empty: {errors}")
+    wide = sorted(k for k in run["by_shape"] if k[3] == 6 and max(k[:3]) >= 1 << 23)
+    check(sf < 1 or wide, "Q9 launched no merge of 2^23 rows at L = 6")
+    out = {
+        "phase": "q9", "sf": sf, "card": card, "groups": len(got),
+        "orders": int(first["orders"]._host_count), "parts": int(first["part"]._host_count),
+        "suppliers": int(first["supplier"]._host_count),
+        "partsupp": int(first["partsupp"]._host_count),
+        "lineitem_rows": int(sum(b._host_count for b in fed[:len(h_inputs)])),
+        "hydrate_orders_per_tick": hydrate_orders, "hydrate_ticks": len(h_inputs),
+        "hydrate_gen_s": gen_s, "churn_gen_s": churn_gen_s,
+        **_path_summary(run, c_rows[:ticks_churn]),
+        "device_ops_per_tick": ops, "profiled_ticks": profile_ticks, "peek_ms": peek_ms,
+        "oracle_s": oracle_s, "peek_errors": errors,
+        "wide_shapes": [list(k) for k in wide],
+        "state_tiers_before": tiers_before, "state_tiers": _state_tiers(df),
+        "slot_tiers": [[sp.slots[0].capacity if sp.slots else 0 for sp in parts
+                        if hasattr(sp, "slots")] for parts in df.states],
+        "join_tiers_before": join_before, "join_tiers": list(df._ctx.join_caps),
+        "output_ladder": [b.capacity for b in df.output.runs_b],
+        "max_memory_allocated": peak,
+    }
+    emit(out)
+    out["by_shape"] = run["by_shape"]
+    del df, h_inputs, c_inputs, fed
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_path_kernel(torch, merge_kernel, card, shapes, phase: str, counts) -> list:
     """The kernel at each merge shape a path launched, against its plain
     chain; ``counts(cap_a, cap_b, out)`` gives the valid rows of each
     side."""
-    from materialize_tpu_torch.ops.lanes import from_u64
     from materialize_tpu_torch.ops.merge import merge_source_map_torch
 
-    rng = np.random.default_rng(99)
+    gen = torch.Generator(device="cuda").manual_seed(99)
     rows = []
     for cap_a, cap_b, out, L in sorted(shapes):
         ac, bc = counts(cap_a, cap_b, out)
-        a = torch.from_numpy(from_u64(_pool_lanes(rng, cap_a, L, ac))).cuda()
-        b = torch.from_numpy(from_u64(_pool_lanes(rng, cap_b, L, bc))).cuda()
+        a = _device_pool_lanes(torch, gen, cap_a, L, ac)
+        b = _device_pool_lanes(torch, gen, cap_b, L, bc)
         ca = torch.tensor(ac, dtype=torch.int32, device="cuda")
         cb = torch.tensor(bc, dtype=torch.int32, device="cuda")
         src, lanes = merge_kernel.merge_path(a, ca, cap_a, b, cb, out)
@@ -868,6 +1042,8 @@ def phase_path_kernel(torch, merge_kernel, card, shapes, phase: str, counts) -> 
                "plain_ms": plain_ms, "max_abs_err": err, "card": card}
         emit(row)
         rows.append(row)
+        del a, b, src, lanes, w_src, w_lanes
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -884,13 +1060,15 @@ def _same_state(torch, kdf, tdf) -> None:
     _same_runs(torch, kdf.output, tdf.output)
 
 
-def phase_path_modes(torch, merge_kernel, card, phase: str, config) -> None:
-    """A path at SF 0.01 with the merge forced to the kernel and then to
-    the plain chain: equal peeks, err collections and states."""
+def phase_path_modes(torch, merge_kernel, card, phase: str, config, sf: float = 0.01,
+                     span_ticks: int = 16) -> None:
+    """A path at a small SF with the merge forced to the kernel and then
+    to the plain chain (hydration, then one churn span of ``span_ticks``):
+    equal peeks, err collections and states."""
     from materialize_tpu_torch.ops.merge import merge_mode
 
     def run(mode):
-        df, hydrate, churn = config(sf=0.01, n_orders_per_tick=1024, seed=42,
+        df, hydrate, churn = config(sf=sf, n_orders_per_tick=1024, seed=42,
                                     device="cuda")
         start = merge_kernel.LAUNCHES
         with merge_mode(mode):
@@ -899,8 +1077,8 @@ def phase_path_modes(torch, merge_kernel, card, phase: str, config) -> None:
             df.run_span(h[:n_h])
             df.check_flags()
             df.run_steps(h[n_h:])
-            df.run_span([churn(i, df.time + i)[0] for i in range(16)])
-            check(df.check_flags() is False, f"{phase}: churn at SF 0.01 overflowed")
+            df.run_span([churn(i, df.time + i)[0] for i in range(span_ticks)])
+            check(df.check_flags() is False, f"{phase}: churn at SF {sf} overflowed")
             rows = df.peek()
             errors = df.peek_errors()
         return df, rows, errors, merge_kernel.LAUNCHES - start
@@ -910,7 +1088,7 @@ def phase_path_modes(torch, merge_kernel, card, phase: str, config) -> None:
     check(k_launch > 0 and t_launch == 0, f"{phase} mode launches {k_launch}/{t_launch}")
     check(krows == trows and kerr == terr == [], f"{phase}: peeks differ between modes")
     _same_state(torch, kdf, tdf)
-    emit({"phase": phase, "sf": 0.01, "rows": len(krows),
+    emit({"phase": phase, "sf": sf, "rows": len(krows),
           "kernel_launches": k_launch, "plain_launches": t_launch, "equal": True,
           "card": card})
 
@@ -927,43 +1105,58 @@ def main() -> int:
     from materialize_tpu_torch.workloads.tpch import q1_config, q15_config
 
     t0 = time.perf_counter()
+    marks = [("start", t0)]
+
+    def mark(name):
+        marks.append((name, time.perf_counter()))
+
     card = phase_card_and_build(torch, merge_kernel)
     kern = phase_kernel(torch, merge_kernel, card)
+    mark("build+kernel")
     index = phase_index(torch, merge_kernel, card)
-    q1 = phase_q1(torch, merge_kernel, card)
     phase_modes(torch, merge_kernel, card)
+    mark("index")
+    q1 = phase_q1(torch, merge_kernel, card, sf=0.1)
     # Q1's runs hold a few rows (4 groups, one output row a group).
     q1_rows = phase_path_kernel(torch, merge_kernel, card, q1["by_shape"],
                                 "q1_kernel_shape", lambda ca, cb, out: (min(ca, 8), min(cb, 8)))
     phase_path_modes(torch, merge_kernel, card, "q1_vs_plain_path", q1_config)
-    q15 = phase_q15(torch, merge_kernel, card)
-    # Q15's runs fill up to their tier (the join spines and the MAX
-    # multiset hold one row per supplier): time them half full.
-    q15_rows = phase_path_kernel(
-        torch, merge_kernel, card, q15["by_shape"], "q15_kernel_shape",
-        lambda ca, cb, out: (ca // 2, min(cb // 2, max(out - ca // 2, 0))))
+    mark("q1")
+    q15 = phase_q15(torch, merge_kernel, card, sf=0.1)
+    # Q15's and Q9's runs fill up to their tier (Q15's join spines and MAX
+    # multiset hold one row per supplier, Q9's its tables): time them
+    # half full.
+    def half_full(ca, cb, out):
+        return ca // 2, min(cb // 2, max(out - ca // 2, 0))
+
+    q15_rows = phase_path_kernel(torch, merge_kernel, card, q15["by_shape"],
+                                 "q15_kernel_shape", half_full)
     phase_path_modes(torch, merge_kernel, card, "q15_vs_plain_path", q15_config)
-    by_shape = index.pop("by_shape")
-    q1_by_shape = q1.pop("by_shape")
-    q15_by_shape = q15.pop("by_shape")
+    mark("q15")
+    q9 = phase_q9(torch, merge_kernel, card)
+    mark("q9")
+    q9_rows = phase_path_kernel(torch, merge_kernel, card, q9["by_shape"],
+                                "q9_kernel_shape", half_full)
+    mark("q9_kernel_shape")
+    phase_path_modes(torch, merge_kernel, card, "q9_vs_plain_path",
+                     lambda **kw: q9_presized(churn_ticks=8, **kw), sf=0.002, span_ticks=8)
+    mark("q9_vs_plain_path")
+    paths = {"index": index, "q1": q1, "q15": q15, "q9": q9}
+    by_path = {name: out.pop("by_shape") for name, out in paths.items()}
+    keys = ("cap_a", "cap_b", "out", "L", "a_count", "b_count", "ms", "graph_ms",
+            "bound_ms", "bound_share", "plain_ms")
     table = [
         {k: r[k] for k in ("cap_a", "cap_b", "out", "L", "ms", "graph_ms", "bound_ms",
                            "bound_share", "chain_ms", "plain_ms", "pos_ms", "pos_graph_ms",
                            "pos_bound_share", "library_ms", "library_graph_ms")}
         | {"path": "index",
-           "launches": by_shape.get((r["cap_a"], r["cap_b"], r["out"], r["L"]), 0)}
+           "launches": by_path["index"].get((r["cap_a"], r["cap_b"], r["out"], r["L"]), 0)}
         for r in kern["rows"]
     ] + [
-        {k: r[k] for k in ("cap_a", "cap_b", "out", "L", "a_count", "b_count", "ms",
-                           "graph_ms", "bound_ms", "bound_share", "plain_ms")}
-        | {"path": "q1", "launches": q1_by_shape[(r["cap_a"], r["cap_b"], r["out"], r["L"])]}
-        for r in q1_rows
-    ] + [
-        {k: r[k] for k in ("cap_a", "cap_b", "out", "L", "a_count", "b_count", "ms",
-                           "graph_ms", "bound_ms", "bound_share", "plain_ms")}
-        | {"path": "q15",
-           "launches": q15_by_shape[(r["cap_a"], r["cap_b"], r["out"], r["L"])]}
-        for r in q15_rows
+        {k: r[k] for k in keys}
+        | {"path": path, "launches": by_path[path][(r["cap_a"], r["cap_b"], r["out"], r["L"])]}
+        for path, rows in (("q1", q1_rows), ("q15", q15_rows), ("q9", q9_rows))
+        for r in rows
     ]
     emit({"phase": "kernel_table", "card": card, "rows": table})
     big = next(r for r in kern["rows"]
@@ -973,18 +1166,18 @@ def main() -> int:
         "route": "cuda",
         "source": "materialize_tpu_torch/csrc/merge_path.cu",
         "replaces": "materialize_tpu/ops/merge_pallas.py:157",
-        "launches": index["launches"] + q1["launches"] + q15["launches"],
-        "launches_by_path": {"index": index["launches"], "q1": q1["launches"],
-                             "q15": q15["launches"]},
+        "launches": sum(out["launches"] for out in paths.values()),
+        "launches_by_path": {name: out["launches"] for name, out in paths.items()},
         "max_abs_err": max([kern["max_abs_err"]]
-                           + [r["max_abs_err"] for r in q1_rows + q15_rows]),
+                           + [r["max_abs_err"] for r in q1_rows + q15_rows + q9_rows]),
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],
         "bound_ms": big["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
     }]})
-    emit({"phase": "done", "wall_s": time.perf_counter() - t0, "card": card})
+    emit({"phase": "done", "wall_s": time.perf_counter() - t0, "card": card,
+          "phase_s": {name: t - prev for (_, prev), (name, t) in zip(marks, marks[1:])}})
     print(card, flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu",

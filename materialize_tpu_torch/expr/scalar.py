@@ -1,20 +1,22 @@
 """Scalar expressions and their evaluation over a batch's columns (the
-port of the part of ``materialize_tpu/expr/scalar.py`` that TPC-H Q1 and
-Q15 reach).
+port of the part of ``materialize_tpu/expr/scalar.py`` that TPC-H Q1,
+Q15 and Q9 reach).
 
 Where the reference builds one fused XLA computation per expression at
 trace time, ``eval_expr`` here runs eager torch ops over whole columns.
 SQL NULLs ride as an optional bool mask per intermediate (three-valued
 logic), exactly as in the reference.
 
-Ported: column references, literals, ``CallUnary`` NOT and IS_NULL, and
+Ported: column references, literals, ``CallUnary`` NOT, IS_NULL and the
+integer EXTRACT family on DATE and TIMESTAMP (YEAR, MONTH, DAY, QUARTER,
+DOW, ISODOW, DOY, WEEK, HOUR, MINUTE, MILLENNIUM, CENTURY, DECADE), and
 ``CallBinary`` for the six comparisons and for integer and DECIMAL
 ``add``/``sub``/``mul``/``div``/``mod`` (with their division-by-zero
 masks). Everything else raises ``NotImplementedError`` naming the
 missing piece: the other unary functions and casts, ``AND``/``OR`` and
-the other variadic functions, ``If``, the date and string families,
-``mz_now()``, and any FLOAT64 operand (FLOAT64 lanes come first, ROADMAP
-Queue 1).
+the other variadic functions, ``If``, date_trunc and the string
+families, ``mz_now()``, and any FLOAT64 operand or result (EXTRACT
+EPOCH and SECOND among them: FLOAT64 lanes come first, ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -94,16 +96,58 @@ class Literal(ScalarExpr):
 
 
 class UnaryFunc:
-    """The unary functions the port evaluates; every other name of the
-    reference's ``UnaryFunc`` raises ``NotImplementedError``."""
+    """The unary functions the port names (the reference's strings);
+    every other name of the reference's ``UnaryFunc`` raises
+    ``NotImplementedError``. EXTRACT EPOCH and SECOND are named but
+    raise: they return FLOAT64."""
 
     NOT = "not"
     IS_NULL = "is_null"
+    # date parts (DATE = days since epoch; TIMESTAMP = ms since epoch)
+    EXTRACT_YEAR = "extract_year"
+    EXTRACT_MONTH = "extract_month"
+    EXTRACT_DAY = "extract_day"
+    EXTRACT_QUARTER = "extract_quarter"
+    EXTRACT_DOW = "extract_dow"
+    EXTRACT_ISODOW = "extract_isodow"
+    EXTRACT_DOY = "extract_doy"
+    EXTRACT_WEEK = "extract_week"
+    EXTRACT_EPOCH = "extract_epoch"
+    EXTRACT_HOUR = "extract_hour"
+    EXTRACT_MINUTE = "extract_minute"
+    EXTRACT_SECOND = "extract_second"
+    EXTRACT_MILLENNIUM = "extract_millennium"
+    EXTRACT_CENTURY = "extract_century"
+    EXTRACT_DECADE = "extract_decade"
+
+
+_EXTRACT_INT_FUNCS = frozenset(
+    {
+        UnaryFunc.EXTRACT_YEAR,
+        UnaryFunc.EXTRACT_MONTH,
+        UnaryFunc.EXTRACT_DAY,
+        UnaryFunc.EXTRACT_QUARTER,
+        UnaryFunc.EXTRACT_DOW,
+        UnaryFunc.EXTRACT_ISODOW,
+        UnaryFunc.EXTRACT_DOY,
+        UnaryFunc.EXTRACT_WEEK,
+        UnaryFunc.EXTRACT_HOUR,
+        UnaryFunc.EXTRACT_MINUTE,
+        UnaryFunc.EXTRACT_MILLENNIUM,
+        UnaryFunc.EXTRACT_CENTURY,
+        UnaryFunc.EXTRACT_DECADE,
+    }
+)
 
 
 def _unported_unary(func: str):
+    if func in (UnaryFunc.EXTRACT_EPOCH, UnaryFunc.EXTRACT_SECOND):
+        return NotImplementedError(
+            f"unary function {func!r} returns FLOAT64, which is not ported "
+            "(ROADMAP Queue 1 item 5)"
+        )
     return NotImplementedError(
-        f"unary function {func!r} is not ported (ROADMAP Queue 1 item 7)"
+        f"unary function {func!r} is not ported (ROADMAP Queue 1 item 9)"
     )
 
 
@@ -118,6 +162,8 @@ class CallUnary(ScalarExpr):
             return Column("f", ColumnType.BOOL, inner.nullable)
         if self.func == UnaryFunc.IS_NULL:
             return Column("f", ColumnType.BOOL, False)
+        if self.func in _EXTRACT_INT_FUNCS:
+            return Column("f", ColumnType.INT64, inner.nullable)
         raise _unported_unary(self.func)
 
 
@@ -218,6 +264,86 @@ def _floordiv(a: torch.Tensor, b) -> torch.Tensor:
     return torch.div(a, b, rounding_mode="floor")
 
 
+def _civil_from_days(days: torch.Tensor):
+    """Howard Hinnant's civil_from_days, vectorized: (year, month, day)
+    int64 tensors from days since the epoch (proleptic Gregorian). Every
+    division floors, as jnp's ``//`` does."""
+    z = days + 719468
+    era = _floordiv(torch.where(z >= 0, z, z - 146096), 146097)
+    doe = z - era * 146097
+    yoe = _floordiv(
+        doe - _floordiv(doe, 1460) + _floordiv(doe, 36524) - _floordiv(doe, 146096), 365
+    )
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + _floordiv(yoe, 4) - _floordiv(yoe, 100))
+    mp = _floordiv(5 * doy + 2, 153)
+    d = doy - _floordiv(153 * mp + 2, 5) + 1
+    m = torch.where(mp < 10, mp + 3, mp - 9)
+    return torch.where(m <= 2, y + 1, y), m, d
+
+
+def _days_from_civil_jan1(y: torch.Tensor) -> torch.Tensor:
+    """Days since the epoch of January 1st of year ``y``: the reference's
+    ``_days_from_civil(y, 1, 1)`` (month 1 counts in the previous
+    March-based year)."""
+    y = y - 1
+    era = _floordiv(torch.where(y >= 0, y, y - 399), 400)
+    yoe = y - era * 400
+    doy = (153 * 10 + 2) // 5  # month 1 is the 11th month from March
+    doe = yoe * 365 + _floordiv(yoe, 4) - _floordiv(yoe, 100) + doy
+    return era * 146097 + doe - 719468
+
+
+_MS_PER_DAY = 86_400_000
+
+
+def _days_and_ms(e: "Evaled"):
+    """(days since the epoch, ms of the day) of a DATE or TIMESTAMP."""
+    if e.col.ctype is ColumnType.TIMESTAMP:
+        ms = e.values.to(torch.int64)
+        return _floordiv(ms, _MS_PER_DAY), torch.remainder(ms, _MS_PER_DAY)
+    days = e.values.to(torch.int64)
+    return days, torch.zeros_like(days)
+
+
+def _eval_extract(f: str, e: "Evaled", col: Column) -> "Evaled":
+    """The integer arms of the reference's ``_eval_extract``."""
+    days, msod = _days_and_ms(e)
+    if f == UnaryFunc.EXTRACT_HOUR:
+        return Evaled(_floordiv(msod, 3_600_000), e.nulls, col)
+    if f == UnaryFunc.EXTRACT_MINUTE:
+        return Evaled(torch.remainder(_floordiv(msod, 60_000), 60), e.nulls, col)
+    if f == UnaryFunc.EXTRACT_DOW:
+        # pg: Sunday=0..Saturday=6; 1970-01-01 was a Thursday
+        return Evaled(torch.remainder(days + 4, 7), e.nulls, col)
+    if f == UnaryFunc.EXTRACT_ISODOW:
+        return Evaled(torch.remainder(days + 3, 7) + 1, e.nulls, col)
+    y, m, d = _civil_from_days(days)
+    if f == UnaryFunc.EXTRACT_YEAR:
+        return Evaled(y, e.nulls, col)
+    if f == UnaryFunc.EXTRACT_MONTH:
+        return Evaled(m, e.nulls, col)
+    if f == UnaryFunc.EXTRACT_DAY:
+        return Evaled(d, e.nulls, col)
+    if f == UnaryFunc.EXTRACT_QUARTER:
+        return Evaled(_floordiv(m + 2, 3), e.nulls, col)
+    if f == UnaryFunc.EXTRACT_DOY:
+        return Evaled(days - _days_from_civil_jan1(y) + 1, e.nulls, col)
+    if f == UnaryFunc.EXTRACT_WEEK:
+        # ISO 8601 week: the week holding this date's Thursday
+        thursday = days + (3 - torch.remainder(days + 3, 7))
+        ty, _, _ = _civil_from_days(thursday)
+        week = _floordiv(thursday - _days_from_civil_jan1(ty), 7) + 1
+        return Evaled(week, e.nulls, col)
+    if f == UnaryFunc.EXTRACT_MILLENNIUM:
+        return Evaled(_floordiv(y - 1, 1000) + 1, e.nulls, col)
+    if f == UnaryFunc.EXTRACT_CENTURY:
+        return Evaled(_floordiv(y - 1, 100) + 1, e.nulls, col)
+    if f == UnaryFunc.EXTRACT_DECADE:
+        return Evaled(_floordiv(y, 10), e.nulls, col)
+    raise _unported_unary(f)
+
+
 def _to_decimal_scale(e: Evaled, scale: int) -> torch.Tensor:
     """Rescale a decimal (or int) value array to the given decimal scale."""
     shift = scale - e.col.scale if e.col.ctype is ColumnType.DECIMAL else scale
@@ -302,8 +428,10 @@ def eval_expr(expr: ScalarExpr, batch: Batch, time=None, masks=None) -> Evaled:
         if expr.func == UnaryFunc.NOT:
             # NOT keeps its operand's NULLs (three-valued logic).
             return Evaled(torch.logical_not(e.values), e.nulls, col)
-        # IS NULL is never NULL.
-        return Evaled(e.null_mask(), None, col)
+        if expr.func == UnaryFunc.IS_NULL:
+            # IS NULL is never NULL.
+            return Evaled(e.null_mask(), None, col)
+        return _eval_extract(expr.func, e, col)
 
     if not isinstance(expr, CallBinary):
         raise NotImplementedError(

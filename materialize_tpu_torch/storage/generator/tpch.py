@@ -1,5 +1,7 @@
-"""TPC-H load generator (the port's copy of the lineitem and supplier
-paths of ``materialize_tpu/storage/generator/tpch.py``).
+"""TPC-H load generator (the port's copy of the lineitem, orders, part,
+supplier, partsupp and nation paths of
+``materialize_tpu/storage/generator/tpch.py``; customer and region are
+not ported: no query the port runs reads them).
 
 Deterministic and host-side: every field of every row is a pure
 function of (seed, version, orderkey, linenumber, field tag), as in
@@ -76,6 +78,17 @@ LINEITEM_SCHEMA = Schema(
 )
 
 
+ORDERS_SCHEMA = Schema(
+    [
+        Column("o_orderkey", ColumnType.INT64),
+        Column("o_custkey", ColumnType.INT64),
+        Column("o_orderstatus", ColumnType.STRING),
+        Column("o_totalprice", ColumnType.DECIMAL, scale=2),
+        Column("o_orderdate", ColumnType.DATE),
+        Column("o_orderpriority", ColumnType.STRING),
+    ]
+)
+
 SUPPLIER_SCHEMA = Schema(
     [
         Column("s_suppkey", ColumnType.INT64),
@@ -84,11 +97,47 @@ SUPPLIER_SCHEMA = Schema(
     ]
 )
 
+PART_SCHEMA = Schema(
+    [
+        Column("p_partkey", ColumnType.INT64),
+        Column("p_name", ColumnType.STRING),
+        Column("p_retailprice", ColumnType.DECIMAL, scale=2),
+    ]
+)
+
+PARTSUPP_SCHEMA = Schema(
+    [
+        Column("ps_partkey", ColumnType.INT64),
+        Column("ps_suppkey", ColumnType.INT64),
+        Column("ps_supplycost", ColumnType.DECIMAL, scale=2),
+    ]
+)
+
+NATION_SCHEMA = Schema(
+    [
+        Column("n_nationkey", ColumnType.INT64),
+        Column("n_regionkey", ColumnType.INT64),
+        Column("n_name", ColumnType.STRING),
+    ]
+)
+
+_NATIONS = [
+    "ALGERIA", "ARGENTINA", "BRAZIL", "CANADA", "EGYPT", "ETHIOPIA",
+    "FRANCE", "GERMANY", "INDIA", "INDONESIA", "IRAN", "IRAQ", "JAPAN",
+    "JORDAN", "KENYA", "MOROCCO", "MOZAMBIQUE", "PERU", "CHINA",
+    "ROMANIA", "SAUDI ARABIA", "VIETNAM", "RUSSIA", "UNITED KINGDOM",
+    "UNITED STATES",
+]
+_NATION_REGION = [0, 1, 1, 1, 4, 0, 3, 3, 2, 2, 4, 4, 2, 4, 0, 0, 0, 1,
+                  2, 3, 4, 2, 3, 3, 1]
+
 
 @dataclass
 class TpchGenerator:
-    """Deterministic lineitem generator at a scale factor: 1.5M * sf
-    orders, 1..7 (average 4) lineitems each."""
+    """Deterministic TPC-H generator at a scale factor: 1.5M * sf orders
+    with 1..7 (average 4) lineitems each, 200k * sf parts (4 partsupp
+    rows each), 10k * sf suppliers, 25 nations; customer keys are drawn
+    from 150k * sf."""
 
     sf: float = 0.01
     seed: int = 1
@@ -97,8 +146,12 @@ class TpchGenerator:
         self.n_orders = max(int(1_500_000 * self.sf), 16)
         self.n_part = max(int(200_000 * self.sf), 8)
         self.n_supplier = max(int(10_000 * self.sf), 4)
+        self.n_customer = max(int(150_000 * self.sf), 8)
         self._flag_codes = GLOBAL_DICT.encode_many(["R", "A", "N"])
         self._status_codes = GLOBAL_DICT.encode_many(["F", "O"])
+        self._prio_codes = GLOBAL_DICT.encode_many(
+            ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW"]
+        )
         self._order_version: dict = {}
 
     def _mix64(self, *vals):
@@ -117,12 +170,16 @@ class TpchGenerator:
         """Uniform ints in [lo, hi), elementwise over broadcast keys."""
         return (self._mix64(*keys) % np.uint64(hi - lo)).astype(np.int64) + lo
 
+    def lines_per_order(self, orderkeys: np.ndarray, version: int = 0) -> np.ndarray:
+        """How many lineitems (1..7) each order has at ``version``."""
+        sd = np.uint64(self.seed * 1_000_003 + version)
+        return self._draw(1, 8, sd, np.asarray(orderkeys, dtype=np.uint64), 11)
+
     def lineitems_for_orders(self, orderkeys: np.ndarray, version: int = 0) -> list:
         """Lineitem columns for the given order keys at ``version`` (0 =
         snapshot; churn tick t writes version 1000 + t)."""
         sd = np.uint64(self.seed * 1_000_003 + version)
-        ok_u = np.asarray(orderkeys, dtype=np.uint64)
-        n_lines = self._draw(1, 8, sd, ok_u, 11)
+        n_lines = self.lines_per_order(orderkeys, version)
         okeys = np.repeat(orderkeys, n_lines)
         n = len(okeys)
         linenumber = (
@@ -168,6 +225,28 @@ class TpchGenerator:
             receiptdate.astype(np.int32),
         ]
 
+    def orders_rows(self, orderkeys: np.ndarray) -> list:
+        """Orders columns for the given order keys (field tags 21-24 of
+        the snapshot stream; the order date is the one its lineitems
+        derive their dates from)."""
+        sd = np.uint64(self.seed * 1_000_003)
+        u = np.asarray(orderkeys, dtype=np.uint64)
+        custkey = self._draw(1, self.n_customer + 1, sd, u, 21)
+        status = self._status_codes[self._draw(0, 2, sd, u, 22)].astype(np.int64)
+        totalprice = self._draw(1_000_00, 500_000_00, sd, u, 23)
+        orderdate = _EPOCH_1992 + (
+            (orderkeys * 2654435761) % (_DATE_RANGE - 151)
+        ).astype(np.int64)
+        prio = self._prio_codes[self._draw(0, 5, sd, u, 24)].astype(np.int64)
+        return [
+            orderkeys,
+            custkey,
+            status,
+            totalprice.astype(np.int64),
+            orderdate.astype(np.int32),
+            prio,
+        ]
+
     # -- static dimension tables -------------------------------------------
     def supplier_table(self) -> list:
         """Supplier columns: keys 1..n_supplier, a nation drawn from the
@@ -179,16 +258,52 @@ class TpchGenerator:
         names = GLOBAL_DICT.encode_many([f"Supplier#{k:09d}" for k in keys])
         return [keys, nation.astype(np.int64), names]
 
+    def part_table(self) -> list:
+        """Part columns: keys 1..n_part, names ``part {k % 92}``, the
+        retail price lineitem's extended price derives from."""
+        keys = np.arange(1, self.n_part + 1)
+        names = GLOBAL_DICT.encode_many([f"part {k % 92}" for k in keys])
+        retail = (90_000 + (keys * 100) % 200_000 + (keys % 1000) * 100).astype(np.int64)
+        return [keys, names, retail]
+
+    def partsupp_table(self) -> list:
+        """Partsupp columns: four suppliers per part, spread a quarter of
+        the supplier range apart, costs from the ``seed + 11`` stream."""
+        rng = np.random.default_rng(self.seed + 11)
+        pkeys = np.repeat(np.arange(1, self.n_part + 1), 4)
+        skeys = (
+            (pkeys + np.tile(np.arange(4), self.n_part) * (self.n_supplier // 4 + 1))
+            % self.n_supplier
+        ) + 1
+        cost = rng.integers(100, 1000_00, size=len(pkeys)).astype(np.int64)
+        return [pkeys, skeys, cost]
+
+    def nation_table(self) -> list:
+        """The 25 TPC-H nations with their regions."""
+        return [
+            np.arange(25, dtype=np.int64),
+            np.asarray(_NATION_REGION, dtype=np.int64),
+            GLOBAL_DICT.encode_many(_NATIONS),
+        ]
+
     def table_batch(self, name: str, time: int = 0, device=None) -> Batch:
         """A static table as one insert batch (the dimension snapshot).
-        Of the reference's tables only ``supplier`` is ported."""
-        if name != "supplier":
+        Customer and region are not ported (ROADMAP Queue 1 item 10: no
+        query the port runs reads them)."""
+        tables = {
+            "supplier": (SUPPLIER_SCHEMA, self.supplier_table),
+            "part": (PART_SCHEMA, self.part_table),
+            "partsupp": (PARTSUPP_SCHEMA, self.partsupp_table),
+            "nation": (NATION_SCHEMA, self.nation_table),
+        }
+        if name not in tables:
             raise NotImplementedError(
-                f"TPC-H table {name!r} is not ported (ROADMAP Queue 1: Q9)"
+                f"TPC-H table {name!r} is not ported (ROADMAP Queue 1 item 10)"
             )
-        cols = self.supplier_table()
+        schema, make = tables[name]
+        cols = make()
         n = len(cols[0])
-        return Batch.from_numpy(SUPPLIER_SCHEMA, cols, np.full(n, time, np.uint64),
+        return Batch.from_numpy(schema, cols, np.full(n, time, np.uint64),
                                 np.ones(n, np.int64), device=device)
 
     def snapshot_lineitem_parts(self, batch_orders: int = 4096):

@@ -12,8 +12,18 @@ built in this file.
 - The port's ``DeltaJoinOp.step`` over seeded steps with retractions
   and NULL keys: each step's output delta equals the change of
   ``_oracle_join``'s numpy oracle, and a 2-row output tier overflows.
+- The port's ``DeltaJoinOp.step`` with slotted state spines
+  (``ingest_slots=8``, the append-slot ring Q9's state tier selects)
+  over 12 steps with retractions, the ring flushed into run 0 after 8
+  (``compact_level(sp, 0)``): each step's output equals the oracle's
+  change and, row for row, the reference op's; every spine's runs,
+  slots, cached lanes and cursor equal the reference's after each step;
+  the reference's state carried across mid-ring (cursor 2) steps onward
+  to the same result.
 - A port ``Dataflow`` over R ⋈ S ⋈ T against the same oracle over
-  several seeded steps, and concurrent deltas in one step counted once.
+  several seeded steps, concurrent deltas in one step counted once, and
+  a join tier lowered by ``set_join_tiers`` between steps that
+  overflows, grows and replays to the oracle's result.
 Every value is an integer: tolerance 0.
 """
 
@@ -27,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 
+from materialize_tpu.arrangement import spine as jspine
 from materialize_tpu.expr import relation as jmir
 from materialize_tpu.expr.scalar import ColumnRef as JColumnRef
 from materialize_tpu.ops import delta_join as jdj
@@ -35,14 +46,19 @@ from materialize_tpu.repr import schema as jschema
 from materialize_tpu.repr.batch import Batch as JBatch
 from materialize_tpu.transform.optimizer import optimize
 from materialize_tpu.workloads.tpch import q9_mir, q15_mir
+from materialize_tpu_torch import interop
+from materialize_tpu_torch.arrangement import spine as tspine
 from materialize_tpu_torch.expr import relation as tmir
 from materialize_tpu_torch.expr.scalar import ColumnRef
 from materialize_tpu_torch.ops import delta_join as tdj
 from materialize_tpu_torch.ops import join as tjoin
+from materialize_tpu_torch.plan.decisions import quantize_cap
 from materialize_tpu_torch.render.dataflow import Dataflow
 from materialize_tpu_torch.repr import schema as tschema
 from materialize_tpu_torch.repr.batch import Batch as TBatch
+from materialize_tpu_torch.workloads.tpch import set_join_tiers
 from tests.test_delta_join import _oracle_join
+from tests.test_torch_dataflow import _jspine_dict
 
 
 def _find_join(x):
@@ -224,6 +240,89 @@ def test_delta_join_op_steps_match_oracle():
         assert int(out.time[: int(out.count)].ne(t).sum()) == 0
 
 
+def _same_out(jb, tb):
+    """Equal valid rows (columns, NULL masks, time, diff), in order."""
+    n = int(tb.count)
+    assert int(jb.count) == n
+    for a, b in zip(jb.cols + (jb.diff,), tb.cols + (tb.diff,)):
+        assert np.array_equal(np.asarray(a)[:n], b[:n].numpy())
+    assert np.array_equal(np.asarray(jb.time)[:n].view(np.int64), tb.time[:n].numpy())
+    for a, b in zip(jb.nulls, tb.nulls):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert np.array_equal(np.asarray(a)[:n], b[:n].numpy())
+
+
+def _same_spine(jsp, tsp):
+    """Runs, slots (rows at their capacities), cached lanes, cursor."""
+    want = _jspine_dict(jsp)
+    got = interop.spine_to_numpy(tsp)
+    assert got["cursor"] == want["cursor"]
+    for g, w in zip(got["runs"] + got["slots"], want["runs"] + want["slots"]):
+        n = w["count"]
+        assert g["count"] == n and len(g["diff"]) == len(w["diff"])
+        for a, b in zip(g["cols"] + [g["diff"], g["time"]], w["cols"] + [w["diff"], w["time"]]):
+            assert np.array_equal(a[:n], b[:n])
+    for g, w, run in zip(got["lanes"] + got["slot_lanes"], want["lanes"] + want["slot_lanes"],
+                         want["runs"] + want["slots"]):
+        assert g.shape == w.shape and np.array_equal(g[: run["count"]], w[: run["count"]])
+
+
+def _canonical(sp):
+    """A reference spine whose nullable columns all carry a null mask, as
+    a flush leaves them: one step program serves every step."""
+    return jspine.Spine(tuple(b.canonicalize_nulls() for b in sp.runs_b), sp.key, sp.order,
+                        tuple(b.canonicalize_nulls() for b in sp.slots), sp.cursor,
+                        sp.lanes, sp.slot_lanes)
+
+
+def test_slotted_delta_join_op_matches_oracle_and_reference():
+    top = tdj.DeltaJoinOp(_rst(tschema), _eq(tschema, ColumnRef))
+    jop = jdj.DeltaJoinOp(_rst(jschema), _eq(jschema, JColumnRef))
+    tstate = top.init_state(256, 256, ingest_slots=8, device="cpu")
+    jstate = tuple(_canonical(sp) for sp in jop.init_state(256, 256, ingest_slots=8))
+    assert all(len(sp.slots) == 8 and sp.cursor == 0 for sp in tstate)
+    jstep = jax.jit(lambda st, d, t: jop.step(st, d, t, CAP))
+    jflush = jax.jit(lambda st: tuple(jspine.compact_level(sp, 0)[0] for sp in st))
+    rng = np.random.default_rng(29)
+    ms = [Counter(), Counter(), Counter()]
+    carried = None
+
+    def flush(state):
+        return tuple(tspine.compact_level(sp, 0)[0] for sp in state)
+
+    for t in range(12):
+        data = _step_data(rng, n=12)
+        tb = _batches(tschema, TBatch, data, t, "cpu")
+        before = _oracle_after(ms)
+        _absorb(ms, data)
+        after = _oracle_after(ms)
+        want = {k: after.get(k, 0) - before.get(k, 0) for k in set(after) | set(before)}
+        jstate, jout, _, _ = jstep(jstate, _batches(jschema, JBatch, data, t), np.uint64(t))
+        outs = []
+        for state in (tstate, carried):
+            if state is not None:
+                state, out, st_ovf, ovf = top.step(state, tb, t, CAP)
+                assert _tvalid(out) == {k: v for k, v in want.items() if v}, t
+                _same_out(jout, out)
+                assert not bool(ovf) and not any(map(bool, st_ovf.values()))
+            outs.append(state)
+        tstate, carried = outs
+        if t == 7:  # the ring is full: flush it into run 0
+            jstate = jflush(jstate)
+            tstate = flush(tstate)
+        for jsp, tsp in zip(jstate, tstate):
+            _same_spine(jsp, tsp)
+        assert all(sp.cursor == (t + 1) % 8 if t != 7 else sp.cursor == 0 for sp in tstate)
+        if t == 9:  # carry the reference's state across mid-ring
+            carried = tuple(interop.spine_from_numpy(_jspine_dict(jsp), tsp.schema, "cpu")
+                            for jsp, tsp in zip(jstate, tstate))
+            assert all(sp.cursor == 2 for sp in carried)
+    for jsp, csp in zip(jstate, carried):
+        _same_spine(jsp, csp)
+    assert sum(int(s.count) for sp in tstate for s in sp.slots) > 0
+
+
 def _three_way_df():
     A, B, C = _rst(tschema)
     plan = tmir.Join(
@@ -263,3 +362,26 @@ def test_concurrent_deltas_counted_once():
         for (name, (x, y)), sch in zip(rows.items(), schemas)
     })
     assert _peek(df) == {(1, 2, 2, 3, 3, 4): 1}
+
+
+def test_lowered_join_tier_overflows_grows_and_replays():
+    """``set_join_tiers`` lowers every join tier between ticks (Q9's churn
+    after a hydration in larger ticks): a tick beyond the lowered tier
+    overflows, rolls back, grows it and replays to the oracle's result."""
+    df = _three_way_df()
+    rng = np.random.default_rng(23)
+    ms = [Counter(), Counter(), Counter()]
+    set_join_tiers(df, 5000)
+    assert df._ctx.join_caps == [8192]
+    for t in range(4):
+        if t == 1:
+            set_join_tiers(df, 1)
+            assert df._ctx.join_caps == [quantize_cap(1)]
+        data = _step_data(rng, n=80)
+        before = df._readbacks
+        df.step(dict(zip("RST", _batches(tschema, TBatch, data, t, "cpu"))))
+        _absorb(ms, data)
+        assert _peek(df) == _oracle_after(ms), t
+        if t == 1:  # the lowered tier overflowed: one more readback, then the replay's
+            assert df._readbacks - before > 1
+    assert df._ctx.join_caps[0] > quantize_cap(1) and _peek(df)

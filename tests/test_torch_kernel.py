@@ -314,18 +314,20 @@ def _q15_run(mode, force: bool, device="cuda"):
     return df, overs, merge_kernel.LAUNCHES - before
 
 
-def _same_q15_state(kdf, tdf):
-    """Equal peeks, revenue accumulators, join spines (runs and lanes),
-    MAX multiset, output runs and err arrangement."""
-    rows = kdf.peek()
-    assert rows == tdf.peek() and len(rows) >= 1
-    assert kdf.peek_errors() == tdf.peek_errors() == []
+def _same_dataflow_state(kdf, tdf, min_rows: int = 1):
+    """Equal peeks, err collections, and every state part: arrangements'
+    batches; spines' runs, slots, cached lanes and slot cursors (the
+    delta join's); the output runs and the err arrangement. The states
+    are compared before the peeks, whose compaction folds every run and
+    slot into the base."""
     batches = [(kdf.err_output.batch, tdf.err_output.batch)]
     for kparts, tparts in zip(kdf.states, tdf.states):
         for kp, tp in zip(kparts, tparts):
             if hasattr(kp, "runs_b"):
-                batches += list(zip(kp.runs_b, tp.runs_b))
-                for kl, tl, kb in zip(kp.lanes, tp.lanes, kp.runs_b):
+                assert kp.cursor == tp.cursor and len(kp.slots) == len(tp.slots)
+                batches += list(zip(kp.runs_b + kp.slots, tp.runs_b + tp.slots))
+                for kl, tl, kb in zip(kp.lanes + kp.slot_lanes, tp.lanes + tp.slot_lanes,
+                                      kp.runs_b + kp.slots):
                     assert torch.equal(kl[: int(kb.count)], tl[: int(kb.count)])
             else:
                 batches.append((kp.batch, tp.batch))
@@ -335,6 +337,9 @@ def _same_q15_state(kdf, tdf):
         assert int(tb.count) == n and kb.capacity == tb.capacity
         for x, y in zip(kb.cols + (kb.time, kb.diff), tb.cols + (tb.time, tb.diff)):
             assert torch.equal(x[:n], y[:n])
+    rows = kdf.peek()
+    assert rows == tdf.peek() and len(rows) >= min_rows
+    assert kdf.peek_errors() == tdf.peek_errors() == []
 
 
 @pytest.mark.cuda
@@ -346,7 +351,7 @@ def test_q15_paths_agree_on_card():
         _q15_run("kernel", False), _q15_run("torch", False))
     assert kover == tover == [False, False]
     assert klaunch > 0 and tlaunch == 0
-    _same_q15_state(kdf, tdf)
+    _same_dataflow_state(kdf, tdf)
 
 
 @pytest.mark.cuda
@@ -361,7 +366,73 @@ def test_q15_forced_overflows_agree_on_card():
     assert klaunch > 0 and tlaunch == 0
     assert kdf._ctx.join_caps == tdf._ctx.join_caps and kdf._ctx.join_caps[0] > 4
     assert kdf.states[0][0].capacity == tdf.states[0][0].capacity > 2
-    _same_q15_state(kdf, tdf)
+    _same_dataflow_state(kdf, tdf)
+
+
+# The Q9 tiers a forced run starts at half of: the join tier, the slot
+# ring of the join's first lineitem spine and run 0 of its second.
+Q9_FORCED = (("state", 1, (5, "tail")), ("state", 1, (6, 0)))
+
+
+def _q9_run(mode, force: bool, device="cuda"):
+    """Q9 at SF 0.002 in the bench's slotted layout, pre-sized
+    (``q9_tiers``): 4 hydrate ticks and 4 churn ticks as one span (the
+    join spines' rings flush into run 0 at tick 8), then 4 churn ticks
+    into the flushed rings. With ``force`` the join tier, one lineitem
+    spine's slot ring and another's run 0 start at half their tier, so
+    the first span overflows all three, rolls back, grows and replays.
+    Returns (dataflow, overflow per span, merge-path launches)."""
+    from materialize_tpu_torch.storage.generator.tpch import TpchGenerator
+    from materialize_tpu_torch.workloads.tpch import apply_tiers, q9_config, q9_tiers
+
+    df, hydrate, churn = q9_config(sf=0.002, n_orders_per_tick=16, device=device)
+    tiers = q9_tiers(df, TpchGenerator(sf=0.002, seed=42), 896, 16, 8)
+    if force:
+        tiers["grow"] = [[k, c // 2 if k in Q9_FORCED else c] for k, c in tiers["grow"]]
+        tiers["join_caps"] = [c // 2 for c in tiers["join_caps"]]
+    apply_tiers(df, tiers)
+    before = merge_kernel.LAUNCHES
+    overs = []
+    with merge_mode(mode):
+        h = hydrate()
+        df.run_span(h + [churn(i, len(h) + i)[0] for i in range(8 - len(h))])
+        overs.append(df.check_flags())
+        df.run_steps([churn(i, df.time + i - 4)[0] for i in range(4, 8)],
+                     defer_check=True)
+        overs.append(df.check_flags())
+    return df, overs, merge_kernel.LAUNCHES - before
+
+
+@pytest.mark.cuda
+def test_q9_paths_agree_on_card():
+    """Q9 (ten slotted join spines) through the kernel and through the
+    plain chain: equal peeks, join spines with their slots and cursors,
+    accumulators, output and err arrangements."""
+    _need_card()
+    (kdf, kover, klaunch), (tdf, tover, tlaunch) = (
+        _q9_run("kernel", False), _q9_run("torch", False))
+    assert kover == tover == [False, False]
+    assert klaunch > 0 and tlaunch == 0
+    assert all(len(sp.slots) == 8 and sp.cursor == 4 for sp in kdf.states[1])
+    _same_dataflow_state(kdf, tdf, min_rows=50)
+
+
+@pytest.mark.cuda
+def test_q9_forced_overflows_agree_on_card():
+    """Forced overflows of the join tier, of a spine's slot ring and of a
+    spine's run 0 roll back, grow and replay through the kernel exactly
+    as through the plain chain."""
+    _need_card()
+    (kdf, kover, klaunch), (tdf, tover, tlaunch) = (
+        _q9_run("kernel", True), _q9_run("torch", True))
+    assert kover == tover == [True, False]
+    assert klaunch > 0 and tlaunch == 0
+    assert kdf._ctx.join_caps == tdf._ctx.join_caps
+    for df in (kdf, tdf):  # each grew back to its pre-sized tier
+        spines = df.states[1]
+        assert spines[5].slots[0].capacity == spines[6].slots[0].capacity
+        assert spines[6].runs_b[0].capacity == spines[5].runs_b[0].capacity
+    _same_dataflow_state(kdf, tdf, min_rows=50)
 
 
 def test_index_reads_decode_against_numpy_oracle():

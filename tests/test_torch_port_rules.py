@@ -92,7 +92,7 @@ def test_entry_points_default_to_cuda():
     from materialize_tpu_torch.render.dataflow import Dataflow
     from materialize_tpu_torch.storage.generator.tpch import LINEITEM_SCHEMA
     from materialize_tpu_torch.workloads.index import index_config
-    from materialize_tpu_torch.workloads.tpch import q1_config, q15_config
+    from materialize_tpu_torch.workloads.tpch import q1_config, q9_config, q15_config
 
     assert default_device() == "cuda"
     if torch.cuda.is_available():
@@ -106,6 +106,8 @@ def test_entry_points_default_to_cuda():
         q1_config(sf=0.001)
     with pytest.raises(RuntimeError, match="cuda"):
         q15_config(sf=0.001)
+    with pytest.raises(RuntimeError, match="cuda"):
+        q9_config(sf=0.001)
     cpu = Dataflow(Get("lineitem", LINEITEM_SCHEMA), device="cpu")
     assert cpu.device.type == "cpu"
 

@@ -3,7 +3,9 @@
 reference's, on the same seeded numpy columns (DECIMAL at scales 2 and
 4, DATE, INT64 and INT32, with NULLs and zero divisors), including the
 unary NOT and IS NULL over columns with NULLs (Q15's ``NOT IS NULL``
-filters). Every value is
+filters), and every integer EXTRACT (Q9's ``EXTRACT(YEAR FROM
+o_orderdate)`` among them) over seeded DATE and TIMESTAMP columns with
+NULLs, dates before 1970, leap days and ISO week 53. Every value is
 an integer, so everything is compared exactly (tolerance 0), padding
 rows included: both evaluate every row."""
 
@@ -209,5 +211,83 @@ def test_unported_scalar_pieces_raise(batches):
         ts.eval_expr(ts.CallBinary(ts.BinaryFunc.ROUND_TO, ts.col(4), ts.col(5)), tb)
     with pytest.raises(NotImplementedError, match="not ported"):
         ts.eval_expr(object(), tb)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 9"):
         ts.eval_expr(ts.CallUnary("neg", ts.col(4)), tb)
+    for f in (ts.UnaryFunc.EXTRACT_EPOCH, ts.UnaryFunc.EXTRACT_SECOND):
+        with pytest.raises(NotImplementedError, match="FLOAT64"):
+            ts.eval_expr(ts.CallUnary(f, ts.col(3)), tb)
+
+
+# -- the integer EXTRACT family ---------------------------------------------------
+
+EXTRACTS = ("year", "month", "day", "quarter", "dow", "isodow", "doy", "week",
+            "hour", "minute", "millennium", "century", "decade")
+DAY_MS = 86_400_000
+# Days since 1970-01-01: leap days (1972-02-29, 2000-02-29, 1600-02-29,
+# -0004-02-29), 1900-03-01 (1900 is not leap), the days around 1970-01-01,
+# and the ISO week 53 of 2015, 2020 and 1976 with the days beside them.
+EDGE_DAYS = np.array([789, 11016, -135081, -719469, -25508, -1, 0, 1, 16800, 16801,
+                      18627, 18628, 18629, 2556, 2557, 2558, -719468, -1000000,
+                      1000000, -146097, 146097], dtype=np.int64)
+
+
+def _date_data(seed=11):
+    """(DATE days, TIMESTAMP ms, their NULL masks): seeded values across
+    +-2700 years and +-34 years, negatives included, then the edges."""
+    rng = np.random.default_rng(seed)
+    days = np.concatenate([rng.integers(-1_000_000, 1_000_000, N - 2 * len(EDGE_DAYS)),
+                           EDGE_DAYS, EDGE_DAYS])
+    ms = np.concatenate([rng.integers(-(1 << 40), 1 << 40, N - 2 * len(EDGE_DAYS)),
+                         EDGE_DAYS * DAY_MS, EDGE_DAYS * DAY_MS - 1])
+    return (days.astype(np.int32), ms, rng.random(N) < 0.15, rng.random(N) < 0.15)
+
+
+def _date_schema(mod):
+    T = mod.ColumnType
+    return mod.Schema([mod.Column("d", T.DATE, True), mod.Column("ts", T.TIMESTAMP, True)])
+
+
+@pytest.fixture(scope="module")
+def date_batches():
+    days, ms, dn, tn = _date_data()
+    time, diff = np.zeros(N, np.uint64), np.ones(N, np.int64)
+    j = JBatch.from_numpy(_date_schema(jschema), [days, ms], time, diff, capacity=CAP,
+                          nulls=[dn, tn])
+    t = TBatch.from_numpy(_date_schema(tschema), [days, ms], time, diff, capacity=CAP,
+                          nulls=[dn, tn], device="cpu")
+    return j, t
+
+
+@pytest.mark.parametrize("column", [0, 1], ids=["date", "timestamp"])
+@pytest.mark.parametrize("part", EXTRACTS)
+def test_extract_matches_reference(date_batches, part, column):
+    jb, tb = date_batches
+    func = js.UnaryFunc.EXTRACTS[part]
+    jev = js.eval_expr(js.CallUnary(func, js.col(column)), jb)
+    tev = ts.eval_expr(ts.CallUnary(func, ts.col(column)), tb)
+    _same(jev.values, tev.values)
+    assert tev.values.dtype == torch.int64
+    _same(jev.null_mask(), tev.null_mask())
+    assert (jev.col.ctype.value, jev.col.nullable) == (tev.col.ctype.value, tev.col.nullable)
+
+
+def test_extract_year_week_against_the_calendar(date_batches):
+    """YEAR and ISO WEEK of the DATE column against Python's calendar,
+    independent of both packages (year 1 onwards: ``datetime`` starts
+    there)."""
+    import datetime
+
+    _, tb = date_batches
+    days = tb.cols[0][:N].numpy()
+    year = ts.eval_expr(ts.CallUnary(ts.UnaryFunc.EXTRACT_YEAR, ts.col(0)), tb).values
+    week = ts.eval_expr(ts.CallUnary(ts.UnaryFunc.EXTRACT_WEEK, ts.col(0)), tb).values
+    epoch = datetime.date(1970, 1, 1)
+    checked = 0
+    for i, d in enumerate(days):
+        if d < -719162:  # before 0001-01-01
+            continue
+        day = epoch + datetime.timedelta(days=int(d))
+        assert (int(year[i]), int(week[i])) == (day.year, day.isocalendar()[1]), day
+        checked += 1
+    assert checked > N // 2
+    assert 53 in set(week[:N].tolist())
