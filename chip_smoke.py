@@ -75,13 +75,37 @@ Phases, each printing one JSON line (any failure exits non-zero):
     plain chain;
 13. Q9 at SF 0.002 in both merge modes: equal peeks, accumulators, join
     spines with their slots and cursors, output runs and err
-    arrangements.
+    arrangements;
+14. the auction (``workloads/auction.py``, the reference bench's
+    ``config_auction``: TopK feeding Distinct over the churning bids of
+    512 users, 128 auctions of 8 bids a tick, bids retracted 4 ticks
+    later, ``state_cap`` 2^13), and ``auction_x16`` at 16 times the rate
+    (8,192 users, 16,384 bids a tick, ``state_cap`` 2^17): 8 hydrate
+    ticks, a warm span of 16, 32 churn ticks as 2 spans of 16 with one
+    flags readback each, 16 profiled ticks, ``peek()`` against a numpy
+    oracle of the distinct winning bidders over every bid fed, and
+    ``peek_errors()`` empty;
+15. the kernel at each merge shape the auction paths launched, and the
+    small auction in both merge modes (every state part equal);
+16. pagerank (``workloads/pagerank.py``, the reference bench's
+    ``config_pagerank``: 2,000 nodes, 10,000 edges, 64 rewired a tick,
+    60 evaluations a tick, ``state_cap`` 2^14, tiers pre-sized): 1
+    hydrate tick, 16 churn ticks as 2 spans of 8 with one flags readback
+    each (the LetRec's and the float sums' readbacks counted apart), a
+    profiled tick, ``peek()`` one row per node within rel 1e-3 of a
+    numpy fixpoint, and ``tests/test_letrec.py``'s five edges at 300
+    evaluations within rel 1e-9; ``pagerank_x32`` at 32 times the graph
+    (65,536 nodes, 327,680 edges, 2,048 rewired a tick, ``state_cap``
+    2^19): 1 hydrate tick, 2 churn ticks (not 8: the script's time
+    limit, PERF.md §6), a profiled tick;
+17. the kernel at each merge shape the pagerank paths launched, and a
+    small pagerank in both merge modes (every state part equal).
 
 ``{"phase": "kernel_table", ...}`` gives one row per merge shape of each
-main path (the index's, then Q1's, Q15's and Q9's); ``{"phase": "done",
-...}`` gives the script's wall seconds and each phase group's. The line before the last is ``{"kernels": [...]}``; the last is
-``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
-and prints no result.
+main path; ``{"phase": "done", ...}`` gives the script's wall seconds and
+each phase group's. The line before the last is ``{"kernels": [...]}``;
+the last is ``{"ok": true, "device": {...}}``. Without a CUDA card it
+exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -644,27 +668,30 @@ def q1_oracle(qty, ext, disc, tax, flag, status, ship, diff, cutoff: int) -> dic
 def _device_ops(torch, fn) -> int:
     """Device operations (kernels, copies, fills) ``fn`` issues, counted
     by ``torch.profiler`` (device activity only: host events would cost
-    the profiler more than the ticks)."""
+    the profiler more than the ticks). The profiler's raw events are
+    counted: turning 10^5 of them into ``FunctionEvent``s takes tens of
+    seconds."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events()
-               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(1 for e in prof.profiler.kineto_results.events() if e.device_type() == cuda)
 
 
 def _drive(torch, merge_kernel, df, h_inputs, c_inputs, name: str,
            warm: int = 0, span_hydrate: int = 32, span_churn: int = 16,
-           ticks_churn: int = 32, after_hydrate=None) -> dict:
-    """The main path of a TPC-H workload: hydrate in spans, call
+           ticks_churn: int = 32, after_hydrate=None, counters=None) -> dict:
+    """The main path of a workload: hydrate in spans, call
     ``after_hydrate(df)`` if given, churn ``warm`` ticks, then churn
     ``ticks_churn`` more ticks in timed spans of ``span_churn``, each
     span's flags read back once. With ``warm`` (a workload whose tiers
     grow to the churn's size), hydrate and warm spans may overflow (roll
     back, grow and replay; counted); without, no span may. The timed
     churn spans never may. The merge-path counts are zeroed just before
-    and read just after."""
+    and read just after. ``counters()`` gives more counts to difference
+    over each timed span."""
     growth = warm > 0
     ce = df._compact_every
     n_h = len(h_inputs) - len(h_inputs) % ce
@@ -693,16 +720,24 @@ def _drive(torch, merge_kernel, df, h_inputs, c_inputs, name: str,
         df.run_span(span)
         grown += df.check_flags()
         w_reads.append(df._readbacks - before)
-    span_ms, c_reads = [], []
+    span_ms, c_reads, c_counts = [], [], []
     for span in _spans(c_inputs[warm:warm + ticks_churn], span_churn):
         torch.cuda.synchronize()
         t = time.perf_counter()
         before = df._readbacks
-        df.run_span(span)
-        check(df.check_flags() is False, f"{name} churn overflowed a tier")
+        before_c = counters() if counters else {}
+        if len(span) % ce:  # a span the fold schedule cannot start clean
+            df.run_steps(span, defer_check=True)
+        else:
+            df.run_span(span)
+        n_grown = len(df._grown)
+        check(df.check_flags() is False,
+              f"{name} churn overflowed a tier: {df._grown[n_grown:]}")
         torch.cuda.synchronize()
         span_ms.append((time.perf_counter() - t) * 1e3)
         c_reads.append(df._readbacks - before)
+        if counters:
+            c_counts.append({k: v - before_c[k] for k, v in counters().items()})
     torch.cuda.synchronize()
     launches = merge_kernel.LAUNCHES
     by_shape = dict(merge_kernel.LAUNCHES_BY_SHAPE)
@@ -714,7 +749,8 @@ def _drive(torch, merge_kernel, df, h_inputs, c_inputs, name: str,
     check(sum(by_shape.values()) == launches, f"{name} launches by shape do not add up")
     return {"hydrate_s": hydrate_s, "span_ms": span_ms, "readbacks_per_span": c_reads,
             "hydrate_readbacks_per_span": h_reads, "warm_readbacks_per_span": w_reads,
-            "spans_grown": grown,
+            "spans_grown": grown, "grown_keys": [str(k) for k in df._grown],
+            "counts_per_span": c_counts,
             "launches": launches, "by_shape": by_shape,
             "tick_ms": [m / span_churn for m in span_ms]}
 
@@ -741,7 +777,8 @@ def _path_summary(run: dict, c_rows: list) -> dict:
         "readbacks_per_span": run["readbacks_per_span"],
         "hydrate_readbacks_per_span": run["hydrate_readbacks_per_span"],
         "warm_readbacks_per_span": run["warm_readbacks_per_span"],
-        "spans_grown": run["spans_grown"], "launches": run["launches"],
+        "spans_grown": run["spans_grown"], "grown_keys": run["grown_keys"],
+        "launches": run["launches"],
         "launches_by_shape": {",".join(map(str, k)): v
                               for k, v in sorted(run["by_shape"].items())},
     }
@@ -1093,6 +1130,280 @@ def phase_path_modes(torch, merge_kernel, card, phase: str, config, sf: float = 
           "card": card})
 
 
+# -- the auction -----------------------------------------------------------------
+
+
+def auction_oracle(ids, buyers, auctions, amounts, diff, k: int = 3) -> set:
+    """``auction_winning_bidders_mir(k)`` in numpy, independent of the
+    port (``tests/test_auction.py:_oracle_topk`` vectorised): the buyers
+    of the top ``k`` live bids of each auction by amount DESC, ties by
+    the bid's row (its id first). Bid ids are unique, so a bid is live
+    when its updates net to 1."""
+    uid, first, inv = np.unique(ids, return_index=True, return_inverse=True)
+    net = np.zeros(len(uid), dtype=np.int64)
+    np.add.at(net, inv.reshape(-1), diff)
+    check(bool(np.isin(net, (0, 1)).all()), "a bid's updates net outside {0, 1}")
+    live = first[net == 1]
+    a, m, i, b = auctions[live], amounts[live], ids[live], buyers[live]
+    order = np.lexsort((i, -m, a))
+    a, b = a[order], b[order]
+    start = np.ones(len(a), dtype=bool)
+    start[1:] = a[1:] != a[:-1]
+    first_of = np.maximum.accumulate(np.where(start, np.arange(len(a)), 0))
+    rank = np.arange(len(a)) - first_of
+    return {int(x) for x in b[rank < k]}
+
+
+def phase_auction(torch, merge_kernel, card, name: str, state_cap: int, **gen) -> dict:
+    """The auction (TopK feeding Distinct) on the bid stream of
+    ``AuctionGenerator(seed=42, **gen)``, the output's base pre-sized to
+    2 rows a user (the bench's recorded tier, ``bench_tiers.json``: 1,024
+    for 512 users): 8 hydrate ticks, a warm span of 16 churn ticks, 32
+    timed churn ticks as 2 spans of 16, 16 profiled ticks; ``peek()``
+    against the numpy oracle over every bid fed."""
+    from materialize_tpu_torch.workloads.auction import auction_config
+    from materialize_tpu_torch.workloads.tpch import apply_tiers
+
+    warm, ticks_churn, span_churn, profile_ticks = 16, 32, 16, 16
+    t0 = time.perf_counter()
+    df, hydrate, churn = auction_config(seed=42, state_cap=state_cap, device="cuda", **gen)
+    apply_tiers(df, {"grow": [[("out", df.output.levels - 1), 2 * gen["n_users"]]],
+                     "join_caps": [], "out_delta_cap": df.out_delta_cap})
+    h_inputs = hydrate()
+    c_inputs, c_rows = [], []
+    for i in range(warm + ticks_churn + profile_ticks):
+        inp, n = churn(i, len(h_inputs) + i)
+        c_inputs.append(inp)
+        c_rows.append(n)
+    gen_s = time.perf_counter() - t0
+    run = _drive(torch, merge_kernel, df, h_inputs, c_inputs, name, warm=warm,
+                 span_hydrate=8, span_churn=span_churn, ticks_churn=ticks_churn)
+    ops = _profiled_ticks(torch, df, c_inputs[warm + ticks_churn:], name)
+    fed = [inp["bids"] for inp in h_inputs + c_inputs]
+    t_o = time.perf_counter()
+    want = auction_oracle(*_host_cols(torch, fed, (0, 1, 2, 3)))
+    oracle_s = time.perf_counter() - t_o
+    t = time.perf_counter()
+    rows = df.peek()
+    peek_ms = (time.perf_counter() - t) * 1e3
+    got = {r[0] for r in rows}
+    check(len(got) == len(rows) and all(r[-1] == 1 for r in rows),
+          f"{name} peek rows not unique")
+    check(got == want and len(want) > 0,
+          f"{name} peek != numpy oracle ({len(got)} vs {len(want)} buyers)")
+    errors = df.peek_errors()
+    check(errors == [], f"{name} err collection not empty: {errors}")
+    out = {
+        "phase": name, "card": card, **gen, "state_cap": state_cap,
+        "bids_per_tick": gen["auctions_per_tick"] * gen["bids_per_auction"],
+        "buyers": len(got), "hydrate_ticks": len(h_inputs), "gen_s": gen_s,
+        **_path_summary(run, c_rows[warm:warm + ticks_churn]),
+        "device_ops_per_tick": ops, "profiled_ticks": profile_ticks, "peek_ms": peek_ms,
+        "oracle_s": oracle_s, "peek_errors": errors, "state_tiers": _state_tiers(df),
+        "output_ladder": [b.capacity for b in df.output.runs_b],
+    }
+    emit(out)
+    out["by_shape"] = run["by_shape"]
+    del df, h_inputs, c_inputs, fed
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- pagerank --------------------------------------------------------------------
+
+
+def pagerank_fixpoint(src, dst, max_iters: int = 2000, tol: float = 1e-15) -> dict:
+    """The pagerank fixpoint of a graph in numpy, independent of the
+    port: r = 0.15 + 0.85 * sum over edges m->n of r(m) / out_deg(m),
+    power-iterated from 0.15 until no rank moves by more than ``tol``
+    relative (multi-edges count with their multiplicity)."""
+    nodes = np.union1d(src, dst)
+    s, d = np.searchsorted(nodes, src), np.searchsorted(nodes, dst)
+    deg = np.bincount(s, minlength=len(nodes)).astype(np.float64)
+    r = np.full(len(nodes), 0.15)
+    for _ in range(max_iters):
+        nxt = np.full(len(nodes), 0.15)
+        np.add.at(nxt, d, 0.85 * r[s] / deg[s])
+        done = np.max(np.abs(nxt - r) / nxt) <= tol
+        r = nxt
+        if done:
+            break
+    return dict(zip(nodes.tolist(), r.tolist()))
+
+
+def pagerank_power(edges, n_iters: int) -> dict:
+    """``tests/test_letrec.py:_pagerank_oracle``: ``n_iters`` power
+    iterations from 0.15, in python floats."""
+    nodes = sorted({a for a, _ in edges} | {b for _, b in edges})
+    deg = {}
+    for a, _ in edges:
+        deg[a] = deg.get(a, 0) + 1
+    r = {n: 0.15 for n in nodes}
+    for _ in range(n_iters):
+        nxt = {n: 0.15 for n in nodes}
+        for a, b in edges:
+            nxt[b] += 0.85 * r[a] / deg[a]
+        r = nxt
+    return r
+
+
+def _rank_rows(df, what: str) -> dict:
+    rows = df.peek()
+    ranks = {r[0]: r[1] for r in rows}
+    check(len(ranks) == len(rows) and all(r[-1] == 1 for r in rows),
+          f"{what}: peek is not one row of multiplicity 1 per node")
+    return ranks
+
+
+def phase_pagerank(torch, merge_kernel, card, name: str, n_nodes: int, n_edges: int,
+                   per_tick: int, state_cap: int, ticks_churn: int, span_churn: int = 8,
+                   profile_ticks: int = 1, small_check: bool = False) -> dict:
+    """Pagerank (LetRec of a SUM_FLOAT over a Union and two linear joins)
+    on the bench's random graph shape, its tiers pre-sized for the
+    phase's ticks (``pagerank_tiers``): 1 hydrate tick, then
+    ``ticks_churn`` timed ticks in spans of ``span_churn`` (none may
+    overflow), and ``profile_ticks`` profiled ones. ``peek()``
+    holds one row per node of the final graph, each within rel 1e-3 of
+    its numpy fixpoint. With ``small_check``, also the 300-evaluation
+    fixpoint of ``tests/test_letrec.py``'s five edges within rel 1e-9."""
+    from materialize_tpu_torch.ops import reduce as reduce_ops
+    from materialize_tpu_torch.workloads.pagerank import pagerank_config, pagerank_tiers
+    from materialize_tpu_torch.workloads.tpch import apply_tiers
+
+    warm, max_iters = 0, 60
+    t0 = time.perf_counter()
+    df, hydrate, churn, edges = pagerank_config(
+        n_nodes=n_nodes, n_edges=n_edges, per_tick=per_tick, max_iters=max_iters,
+        state_cap=state_cap, device="cuda")
+    apply_tiers(df, pagerank_tiers(df, n_nodes, n_edges, per_tick,
+                                   1 + warm + ticks_churn + profile_ticks))
+    h_inputs = hydrate()
+    c_inputs, c_rows = [], []
+    for i in range(warm + ticks_churn + profile_ticks):
+        inp, n = churn(i, 1 + i)
+        c_inputs.append(inp)
+        c_rows.append(n)
+    gen_s = time.perf_counter() - t0
+    ctx = df._ctx
+
+    def counters():
+        return {"letrec_readbacks": ctx.letrec_readbacks,
+                "run_sum_readbacks": reduce_ops.RUN_READBACKS,
+                "evaluations": sum(ctx.letrec_evals), "letrec_ticks": len(ctx.letrec_evals)}
+
+    tiers_before = _state_tiers(df)
+    run = _drive(torch, merge_kernel, df, h_inputs, c_inputs, name, warm=warm,
+                 span_churn=span_churn, ticks_churn=ticks_churn, counters=counters)
+    timed = run["counts_per_span"]
+    evals = [c["evaluations"] / c["letrec_ticks"] for c in timed]
+    ops = _profiled_ticks(torch, df, c_inputs[warm + ticks_churn:], name)
+    src, dst = edges()
+    t_o = time.perf_counter()
+    want = pagerank_fixpoint(src, dst)
+    oracle_s = time.perf_counter() - t_o
+    t = time.perf_counter()
+    ranks = _rank_rows(df, name)
+    peek_ms = (time.perf_counter() - t) * 1e3
+    check(set(ranks) == set(want), f"{name}: peek nodes != the final graph's")
+    rel = max(abs(ranks[n] - want[n]) / want[n] for n in want)
+    check(rel < 1e-3, f"{name}: ranks off the fixpoint by rel {rel}")
+    errors = df.peek_errors()
+    check(errors == [], f"{name} err collection not empty: {errors}")
+    out = {
+        "phase": name, "card": card, "nodes": len(want), "edges": n_edges,
+        "edges_rewired_per_tick": per_tick, "max_iters": max_iters, "state_cap": state_cap,
+        "gen_s": gen_s, **_path_summary(run, c_rows[warm:warm + ticks_churn]),
+        "evaluations_per_tick": evals,
+        "letrec_readbacks_per_span": [c["letrec_readbacks"] for c in timed],
+        "run_sum_readbacks_per_span": [c["run_sum_readbacks"] for c in timed],
+        "letrec_caps": list(ctx.letrec_caps), "join_tiers": list(ctx.join_caps),
+        "device_ops_per_tick": ops, "profiled_ticks": profile_ticks,
+        "peek_ms": peek_ms, "oracle_s": oracle_s, "max_rel_err": rel,
+        "peek_errors": errors, "state_tiers_before": tiers_before,
+        "state_tiers": _state_tiers(df),
+        "output_ladder": [b.capacity for b in df.output.runs_b],
+    }
+    if small_check:
+        out["five_edge_max_rel_err"] = _pagerank_five_edges(torch)
+    emit(out)
+    out["by_shape"] = run["by_shape"]
+    del df, h_inputs, c_inputs
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pagerank_five_edges(torch) -> float:
+    """``tests/test_letrec.py``'s fixpoint case on the card: five edges,
+    300 evaluations, against 600 power iterations, within rel 1e-9."""
+    from materialize_tpu_torch.repr.batch import Batch
+    from materialize_tpu_torch.workloads.pagerank import EDGE_SCHEMA, pagerank_mir
+    from materialize_tpu_torch.render.dataflow import Dataflow
+
+    edges = [(0, 1), (1, 2), (2, 0), (0, 2), (3, 2)]
+    arr = np.array(edges)
+    df = Dataflow(pagerank_mir(EDGE_SCHEMA, max_iters=300), device="cuda")
+    df.step({"edges": Batch.from_numpy(EDGE_SCHEMA, [arr[:, 0], arr[:, 1]],
+                                       np.zeros(5, np.uint64), np.ones(5, np.int64),
+                                       device="cuda")})
+    got = _rank_rows(df, "pagerank five edges")
+    want = pagerank_power(edges, 600)
+    check(set(got) == set(want), "pagerank five edges: nodes differ")
+    rel = max(abs(got[n] - want[n]) / want[n] for n in want)
+    check(rel < 1e-9, f"pagerank five edges: rel {rel}")
+    return rel
+
+
+def phase_new_path_modes(torch, merge_kernel, card, phase: str, make) -> None:
+    """A small run with the merge forced to the kernel and then to the
+    plain chain: ``make()`` gives (df, list of tick inputs), fed as
+    synchronous steps (growing tiers as needed). Every state part, the
+    output runs and the peeks must be bit-equal."""
+    from materialize_tpu_torch.ops.merge import merge_mode
+
+    def run(mode):
+        start = merge_kernel.LAUNCHES
+        with merge_mode(mode):
+            df, ticks = make()
+            for inputs in ticks:
+                df.run_steps([inputs])
+            rows = df.peek()
+            errors = df.peek_errors()
+        return df, rows, errors, merge_kernel.LAUNCHES - start
+
+    kdf, krows, kerr, k_launch = run("kernel")
+    tdf, trows, terr, t_launch = run("torch")
+    check(k_launch > 0 and t_launch == 0, f"{phase} mode launches {k_launch}/{t_launch}")
+    check(krows == trows and kerr == terr == [], f"{phase}: peeks differ between modes")
+    _same_state(torch, kdf, tdf)
+    emit({"phase": phase, "rows": len(krows), "kernel_launches": k_launch,
+          "plain_launches": t_launch, "equal": True, "card": card})
+
+
+def _small_auction():
+    from materialize_tpu_torch.workloads.auction import auction_config
+
+    df, hydrate, churn = auction_config(seed=42, n_users=64, auctions_per_tick=8,
+                                        bids_per_auction=8, state_cap=256, device="cuda")
+    ticks = hydrate()
+    return df, ticks + [churn(i, len(ticks) + i)[0] for i in range(8)]
+
+
+def _small_pagerank():
+    from materialize_tpu_torch.workloads.pagerank import pagerank_config
+
+    df, hydrate, churn, _ = pagerank_config(n_nodes=200, n_edges=1000, per_tick=16,
+                                            max_iters=10, state_cap=256, device="cuda")
+    return df, hydrate() + [churn(i, 1 + i)[0] for i in range(3)]
+
+
+def _merged_shapes(*runs) -> dict:
+    out: dict = {}
+    for r in runs:
+        for k, v in r["by_shape"].items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1113,36 +1424,76 @@ def main() -> int:
     card = phase_card_and_build(torch, merge_kernel)
     kern = phase_kernel(torch, merge_kernel, card)
     mark("build+kernel")
-    index = phase_index(torch, merge_kernel, card)
-    phase_modes(torch, merge_kernel, card)
-    mark("index")
-    q1 = phase_q1(torch, merge_kernel, card, sf=0.1)
-    # Q1's runs hold a few rows (4 groups, one output row a group).
-    q1_rows = phase_path_kernel(torch, merge_kernel, card, q1["by_shape"],
-                                "q1_kernel_shape", lambda ca, cb, out: (min(ca, 8), min(cb, 8)))
-    phase_path_modes(torch, merge_kernel, card, "q1_vs_plain_path", q1_config)
-    mark("q1")
-    q15 = phase_q15(torch, merge_kernel, card, sf=0.1)
-    # Q15's and Q9's runs fill up to their tier (Q15's join spines and MAX
-    # multiset hold one row per supplier, Q9's its tables): time them
-    # half full.
+    paths, rows_by_path, by_path = {}, {}, {}
+
+    # Q15's, Q9's and pagerank's runs fill up to their tier (Q15's join
+    # spines and MAX multiset hold one row per supplier, Q9's its
+    # tables, pagerank's a row per node or edge): time them half full.
     def half_full(ca, cb, out):
         return ca // 2, min(cb // 2, max(out - ca // 2, 0))
 
-    q15_rows = phase_path_kernel(torch, merge_kernel, card, q15["by_shape"],
-                                 "q15_kernel_shape", half_full)
+    paths["index"] = phase_index(torch, merge_kernel, card)
+    phase_modes(torch, merge_kernel, card)
+    mark("index")
+    paths["q1"] = phase_q1(torch, merge_kernel, card, sf=0.1)
+    # Q1's runs hold a few rows (4 groups, one output row a group).
+    rows_by_path["q1"] = phase_path_kernel(
+        torch, merge_kernel, card, paths["q1"]["by_shape"], "q1_kernel_shape",
+        lambda ca, cb, out: (min(ca, 8), min(cb, 8)))
+    phase_path_modes(torch, merge_kernel, card, "q1_vs_plain_path", q1_config)
+    mark("q1")
+    paths["q15"] = phase_q15(torch, merge_kernel, card, sf=0.1)
+    rows_by_path["q15"] = phase_path_kernel(torch, merge_kernel, card,
+                                            paths["q15"]["by_shape"],
+                                            "q15_kernel_shape", half_full)
     phase_path_modes(torch, merge_kernel, card, "q15_vs_plain_path", q15_config)
     mark("q15")
-    q9 = phase_q9(torch, merge_kernel, card)
+    paths["q9"] = phase_q9(torch, merge_kernel, card)
     mark("q9")
-    q9_rows = phase_path_kernel(torch, merge_kernel, card, q9["by_shape"],
-                                "q9_kernel_shape", half_full)
+    rows_by_path["q9"] = phase_path_kernel(torch, merge_kernel, card,
+                                           paths["q9"]["by_shape"], "q9_kernel_shape",
+                                           half_full)
     mark("q9_kernel_shape")
     phase_path_modes(torch, merge_kernel, card, "q9_vs_plain_path",
-                     lambda **kw: q9_presized(churn_ticks=8, **kw), sf=0.002, span_ticks=8)
+                     lambda **kw: q9_presized(churn_ticks=8, **kw), sf=0.002,
+                     span_ticks=8)
     mark("q9_vs_plain_path")
-    paths = {"index": index, "q1": q1, "q15": q15, "q9": q9}
-    by_path = {name: out.pop("by_shape") for name, out in paths.items()}
+    paths["auction"] = phase_auction(
+        torch, merge_kernel, card, "auction", state_cap=1 << 13, n_users=512,
+        auctions_per_tick=128, bids_per_auction=8, retract_after=4)
+    paths["auction_x16"] = phase_auction(
+        torch, merge_kernel, card, "auction_x16", state_cap=1 << 17, n_users=8192,
+        auctions_per_tick=2048, bids_per_auction=8, retract_after=4)
+    # The TopK arrangement and the Distinct state hold up to their
+    # tier: time them half full.
+    by_path["auction"] = _merged_shapes(paths["auction"], paths["auction_x16"])
+    rows_by_path["auction"] = phase_path_kernel(torch, merge_kernel, card,
+                                                by_path["auction"],
+                                                "auction_kernel_shape", half_full)
+    phase_new_path_modes(torch, merge_kernel, card, "auction_vs_plain_path",
+                         _small_auction)
+    mark("auction")
+    paths["pagerank"] = phase_pagerank(
+        torch, merge_kernel, card, "pagerank", n_nodes=2000, n_edges=10000,
+        per_tick=64, state_cap=1 << 14, ticks_churn=16, profile_ticks=1,
+        small_check=True)
+    mark("pagerank")
+    # 2 churn ticks, not 8: the script's time limit (PERF.md §6).
+    paths["pagerank_x32"] = phase_pagerank(
+        torch, merge_kernel, card, "pagerank_x32", n_nodes=65536, n_edges=327680,
+        per_tick=2048, state_cap=1 << 19, ticks_churn=2, span_churn=2,
+        profile_ticks=1)
+    mark("pagerank_x32")
+    by_path["pagerank"] = _merged_shapes(paths["pagerank"], paths["pagerank_x32"])
+    rows_by_path["pagerank"] = phase_path_kernel(torch, merge_kernel, card,
+                                                 by_path["pagerank"],
+                                                 "pagerank_kernel_shape", half_full)
+    phase_new_path_modes(torch, merge_kernel, card, "pagerank_vs_plain_path",
+                         _small_pagerank)
+    mark("pagerank_kernel_shape+vs_plain")
+    for name, out in paths.items():
+        shapes = out.pop("by_shape")
+        by_path.setdefault(name, shapes)
     keys = ("cap_a", "cap_b", "out", "L", "a_count", "b_count", "ms", "graph_ms",
             "bound_ms", "bound_share", "plain_ms")
     table = [
@@ -1150,12 +1501,13 @@ def main() -> int:
                            "bound_share", "chain_ms", "plain_ms", "pos_ms", "pos_graph_ms",
                            "pos_bound_share", "library_ms", "library_graph_ms")}
         | {"path": "index",
-           "launches": by_path["index"].get((r["cap_a"], r["cap_b"], r["out"], r["L"]), 0)}
+           "launches": by_path.get("index", {}).get((r["cap_a"], r["cap_b"], r["out"],
+                                                     r["L"]), 0)}
         for r in kern["rows"]
     ] + [
         {k: r[k] for k in keys}
         | {"path": path, "launches": by_path[path][(r["cap_a"], r["cap_b"], r["out"], r["L"])]}
-        for path, rows in (("q1", q1_rows), ("q15", q15_rows), ("q9", q9_rows))
+        for path, rows in rows_by_path.items()
         for r in rows
     ]
     emit({"phase": "kernel_table", "card": card, "rows": table})
@@ -1169,7 +1521,8 @@ def main() -> int:
         "launches": sum(out["launches"] for out in paths.values()),
         "launches_by_path": {name: out["launches"] for name, out in paths.items()},
         "max_abs_err": max([kern["max_abs_err"]]
-                           + [r["max_abs_err"] for r in q1_rows + q15_rows + q9_rows]),
+                           + [r["max_abs_err"] for rows in rows_by_path.values()
+                              for r in rows]),
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],
         "bound_ms": big["bound_ms"],

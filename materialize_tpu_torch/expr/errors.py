@@ -31,6 +31,10 @@ MESSAGES = {
     NUMERIC_OUT_OF_RANGE: "numeric field overflow",
 }
 
+# Per-code count vectors (a LetRec carries one through its iterations)
+# are indexed by code: codes stay small and dense.
+N_CODES = max(MESSAGES) + 1
+
 
 def emit(masks, code: int, mask) -> None:
     """Publish a per-row error mask into ``masks`` (no-op when None)."""

@@ -1,11 +1,11 @@
 """Relation expressions (MIR) and the aggregate vocabulary: the copy of
 ``materialize_tpu/expr/relation.py`` that the port renders.
 
-Here: ``Get``, ``Let``, ``Project``, ``Map``, ``Filter``, ``Join`` and
-``Reduce``, with the builder sugar and ``AggregateFunc``/``AggregateExpr``.
-The renderer (``render/dataflow.py``) raises ``NotImplementedError`` for
-any other node, and for a join planned linear; TopK, Negate, Union and
-LetRec come with later slices (ROADMAP Queue 1).
+Here: ``Get``, ``Let``, ``LetRec``, ``Project``, ``Map``, ``Filter``,
+``Join``, ``Reduce`` (``distinct()`` is a Reduce without aggregates),
+``TopK`` and ``Union``, with the chaining helpers and
+``AggregateFunc``/``AggregateExpr``. Negate, Threshold, FlatMap,
+Constant and ArrangeBy come with a later slice (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -105,6 +105,9 @@ class RelationExpr:
     def reduce(self, group_key, aggregates) -> "Reduce":
         return Reduce(self, tuple(group_key), tuple(aggregates))
 
+    def distinct(self) -> "Reduce":
+        return Reduce(self, tuple(range(self.schema().arity)), ())
+
 
 @dataclass(frozen=True)
 class Get(RelationExpr):
@@ -130,6 +133,25 @@ class Let(RelationExpr):
 
     def children(self):
         return [self.value, self.body]
+
+
+@dataclass(frozen=True)
+class LetRec(RelationExpr):
+    """WITH MUTUALLY RECURSIVE: bindings may reference each other and
+    themselves, iterated to a fixpoint or to ``max_iters`` value
+    evaluations (None: the reference's cap of 100,000)."""
+
+    names: tuple
+    values: tuple
+    value_schemas: tuple
+    body: RelationExpr
+    max_iters: int | None = None
+
+    def schema(self):
+        return self.body.schema()
+
+    def children(self):
+        return list(self.values) + [self.body]
 
 
 @dataclass(frozen=True)
@@ -209,3 +231,41 @@ class Reduce(RelationExpr):
 
     def children(self):
         return [self.input]
+
+
+@dataclass(frozen=True)
+class TopK(RelationExpr):
+    """Per-group top ``limit`` rows (after ``offset``) by ``order_by``:
+    ``(col_index, desc, nulls_last)`` per ordering column."""
+
+    input: RelationExpr
+    group_key: tuple
+    order_by: tuple
+    limit: int | None
+    offset: int = 0
+
+    def schema(self):
+        return self.input.schema()
+
+    def children(self):
+        return [self.input]
+
+
+@dataclass(frozen=True)
+class Union(RelationExpr):
+    """Multiset union. Names, types and scales come from the first
+    input; a column is nullable when it is in any input."""
+
+    inputs: tuple
+
+    def schema(self):
+        cols = list(self.inputs[0].schema().columns)
+        for inp in self.inputs[1:]:
+            for i, c in enumerate(inp.schema().columns):
+                if i < len(cols) and c.nullable and not cols[i].nullable:
+                    old = cols[i]
+                    cols[i] = Column(old.name, old.ctype, True, old.scale)
+        return Schema(tuple(cols))
+
+    def children(self):
+        return list(self.inputs)

@@ -7,16 +7,18 @@ trace time, ``eval_expr`` here runs eager torch ops over whole columns.
 SQL NULLs ride as an optional bool mask per intermediate (three-valued
 logic), exactly as in the reference.
 
-Ported: column references, literals, ``CallUnary`` NOT, IS_NULL and the
-integer EXTRACT family on DATE and TIMESTAMP (YEAR, MONTH, DAY, QUARTER,
-DOW, ISODOW, DOY, WEEK, HOUR, MINUTE, MILLENNIUM, CENTURY, DECADE), and
-``CallBinary`` for the six comparisons and for integer and DECIMAL
+Ported: column references, literals (FLOAT64 ones included),
+``CallUnary`` NOT, IS_NULL and the EXTRACT family on DATE and TIMESTAMP
+(YEAR, MONTH, DAY, QUARTER, DOW, ISODOW, DOY, WEEK, HOUR, MINUTE,
+MILLENNIUM, CENTURY, DECADE, and the FLOAT64 EPOCH and SECOND), and
+``CallBinary`` for the six comparisons, for integer, DECIMAL and FLOAT64
 ``add``/``sub``/``mul``/``div``/``mod`` (with their division-by-zero
-masks). Everything else raises ``NotImplementedError`` naming the
-missing piece: the other unary functions and casts, ``AND``/``OR`` and
-the other variadic functions, ``If``, date_trunc and the string
-families, ``mz_now()``, and any FLOAT64 operand or result (EXTRACT
-EPOCH and SECOND among them: FLOAT64 lanes come first, ROADMAP Queue 1).
+masks; an INT64 or DECIMAL operand of a float operation is coerced as
+the reference's ``_as_float`` does) and for ``power``/``log_base``.
+Everything else raises ``NotImplementedError`` naming the missing
+piece: the other unary functions and casts, ``AND``/``OR`` and the other
+variadic functions, ``If``, date_trunc and the string families,
+``round_to``/``cast_decimal`` and ``mz_now()`` (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -98,8 +100,7 @@ class Literal(ScalarExpr):
 class UnaryFunc:
     """The unary functions the port names (the reference's strings);
     every other name of the reference's ``UnaryFunc`` raises
-    ``NotImplementedError``. EXTRACT EPOCH and SECOND are named but
-    raise: they return FLOAT64."""
+    ``NotImplementedError``."""
 
     NOT = "not"
     IS_NULL = "is_null"
@@ -140,12 +141,10 @@ _EXTRACT_INT_FUNCS = frozenset(
 )
 
 
+_EXTRACT_FLOAT_FUNCS = frozenset({UnaryFunc.EXTRACT_EPOCH, UnaryFunc.EXTRACT_SECOND})
+
+
 def _unported_unary(func: str):
-    if func in (UnaryFunc.EXTRACT_EPOCH, UnaryFunc.EXTRACT_SECOND):
-        return NotImplementedError(
-            f"unary function {func!r} returns FLOAT64, which is not ported "
-            "(ROADMAP Queue 1 item 5)"
-        )
     return NotImplementedError(
         f"unary function {func!r} is not ported (ROADMAP Queue 1 item 9)"
     )
@@ -164,6 +163,8 @@ class CallUnary(ScalarExpr):
             return Column("f", ColumnType.BOOL, False)
         if self.func in _EXTRACT_INT_FUNCS:
             return Column("f", ColumnType.INT64, inner.nullable)
+        if self.func in _EXTRACT_FLOAT_FUNCS:
+            return Column("f", ColumnType.FLOAT64, inner.nullable)
         raise _unported_unary(self.func)
 
 
@@ -209,6 +210,8 @@ class CallBinary(ScalarExpr):
         nullable = lt_.nullable or rt.nullable
         if self.func in _COMPARISONS:
             return Column("f", ColumnType.BOOL, nullable)
+        if self.func in (BinaryFunc.POWER, BinaryFunc.LOG_BASE):
+            return Column("f", ColumnType.FLOAT64, True)
         if self.func not in _ARITHMETIC:
             raise NotImplementedError(f"binary function {self.func!r} is not ported")
         if self.func == BinaryFunc.DIV:
@@ -307,8 +310,15 @@ def _days_and_ms(e: "Evaled"):
 
 
 def _eval_extract(f: str, e: "Evaled", col: Column) -> "Evaled":
-    """The integer arms of the reference's ``_eval_extract``."""
+    """The reference's ``_eval_extract``."""
     days, msod = _days_and_ms(e)
+    if f == UnaryFunc.EXTRACT_EPOCH:
+        if e.col.ctype is ColumnType.TIMESTAMP:
+            return Evaled(e.values.to(torch.float64) / 1000.0, e.nulls, col)
+        return Evaled(days.to(torch.float64) * 86400.0, e.nulls, col)
+    if f == UnaryFunc.EXTRACT_SECOND:
+        return Evaled(torch.remainder(msod, 60_000).to(torch.float64) / 1000.0,
+                      e.nulls, col)
     if f == UnaryFunc.EXTRACT_HOUR:
         return Evaled(_floordiv(msod, 3_600_000), e.nulls, col)
     if f == UnaryFunc.EXTRACT_MINUTE:
@@ -365,18 +375,17 @@ def _or_nulls(nulls, extra):
     return extra if nulls is None else nulls | extra
 
 
-def _no_float(*cols: Column) -> None:
-    for c in cols:
-        if c.ctype is ColumnType.FLOAT64:
-            raise NotImplementedError(
-                "FLOAT64 scalar evaluation is not ported (ROADMAP Queue 1, "
-                "FLOAT64 lanes)"
-            )
+def _as_float(e: Evaled) -> torch.Tensor:
+    """A numeric operand as float64 (a DECIMAL divided by its scale)."""
+    if e.col.ctype is ColumnType.DECIMAL:
+        return e.values.to(torch.float64) / (10.0**e.col.scale)
+    return e.values.to(torch.float64)
 
 
 def _coerce_comparable(l: Evaled, r: Evaled):
     """Align decimal scales / numeric types for comparison."""
-    _no_float(l.col, r.col)
+    if ColumnType.FLOAT64 in (l.col.ctype, r.col.ctype):
+        return _as_float(l), _as_float(r)
     if ColumnType.DECIMAL in (l.col.ctype, r.col.ctype):
         scale = max(l.col.scale, r.col.scale)
         return _to_decimal_scale(l, scale), _to_decimal_scale(r, scale)
@@ -411,7 +420,6 @@ def eval_expr(expr: ScalarExpr, batch: Batch, time=None, masks=None) -> Evaled:
 
     if isinstance(expr, Literal):
         col = expr.typ(schema)
-        _no_float(col)
         dtype = torch_dtype(col.dtype)
         if expr.value is None:
             return Evaled(
@@ -448,7 +456,8 @@ def eval_expr(expr: ScalarExpr, batch: Batch, time=None, masks=None) -> Evaled:
         # labels, so integer order is lexicographic order.
         lv, rv = _coerce_comparable(l, r)
         return Evaled(_COMPARISONS[f](lv, rv), nulls, col)
-    _no_float(l.col, r.col, col)
+    if f in (BinaryFunc.POWER, BinaryFunc.LOG_BASE):
+        return _eval_float_fn(f, l, r, nulls, col)
     if col.ctype is ColumnType.DECIMAL:
         if f == BinaryFunc.MUL:
             # No rescale: the product's scale is the sum of the scales.
@@ -474,6 +483,11 @@ def eval_expr(expr: ScalarExpr, batch: Batch, time=None, masks=None) -> Evaled:
         return Evaled(l.values - r.values, nulls, col)
     if f == BinaryFunc.MUL:
         return Evaled(l.values * r.values, nulls, col)
+    if f == BinaryFunc.DIV and col.ctype is ColumnType.FLOAT64:
+        lv, rv = _as_float(l), _as_float(r)
+        zero = rv == 0.0
+        _err.emit(masks, _err.DIVISION_BY_ZERO, _div_zero_mask(zero, l, r))
+        return Evaled(lv / torch.where(zero, 1.0, rv), _or_nulls(nulls, zero), col)
     if f == BinaryFunc.DIV:
         li = l.values.to(torch.int64)
         ri = r.values.to(torch.int64)
@@ -487,6 +501,10 @@ def eval_expr(expr: ScalarExpr, batch: Batch, time=None, masks=None) -> Evaled:
         # decimal mod at that scale).
         zero = r.values == 0
         _err.emit(masks, _err.DIVISION_BY_ZERO, _div_zero_mask(zero, l, r))
+        if col.ctype is ColumnType.FLOAT64:
+            # fmod truncates, as pg's float mod does.
+            v = torch.fmod(_as_float(l), torch.where(zero, 1.0, _as_float(r)))
+            return Evaled(torch.where(zero, 0.0, v), _or_nulls(nulls, zero), col)
         li = l.values.to(torch.int64)
         ri = torch.where(zero, 1, r.values.to(torch.int64))
         v = torch.where(zero, 0, li - _trunc_quotient(li, ri) * ri)
@@ -494,6 +512,20 @@ def eval_expr(expr: ScalarExpr, batch: Batch, time=None, masks=None) -> Evaled:
             v = v.to(l.values.dtype)
         return Evaled(v, _or_nulls(nulls, zero), col)
     raise NotImplementedError(f"binary function {f!r} is not ported")
+
+
+def _eval_float_fn(f: str, l: Evaled, r: Evaled, nulls, col: Column) -> Evaled:
+    """POWER and LOG_BASE: a NaN or infinite power, and a base <= 0, a
+    base of 1 or an argument <= 0 of a logarithm, give NULL (no err
+    row), as in the reference."""
+    lv, rv = _as_float(l), _as_float(r)
+    if f == BinaryFunc.POWER:
+        v = torch.pow(lv, rv)
+        bad = torch.isnan(v) | torch.isinf(v)
+        return Evaled(torch.where(bad, 0.0, v), _or_nulls(nulls, bad), col)
+    bad = (lv <= 0.0) | (lv == 1.0) | (rv <= 0.0)
+    v = torch.log(torch.where(bad, 2.0, rv)) / torch.log(torch.where(bad, 2.0, lv))
+    return Evaled(v, _or_nulls(nulls, bad), col)
 
 
 # Convenience helpers for building expressions in tests/plans.

@@ -17,8 +17,8 @@ Arrangement dict: ``batch`` (a batch dict), ``key`` and ``order``.
 
 ``install_state`` puts a reference dataflow's whole state into a port
 ``Dataflow`` of the same plan: its operator states (arrangements, and
-the spines of a delta join), output spine, err arrangement, frontier and
-join tiers.
+the spines of a join), output spine, err arrangement, frontier, and
+join and LetRec tiers.
 """
 
 from __future__ import annotations
@@ -121,14 +121,17 @@ def _part_from_numpy(d: dict, cur, device):
 
 
 def install_state(df, states: list, output: dict, err_output: dict, time: int,
-                  compact_tick: int = 0, join_caps=None) -> None:
+                  compact_tick: int = 0, join_caps=None, letrec_caps=None) -> None:
     """Replace a port Dataflow's state with a reference dataflow's:
     ``states`` holds, per state slot, the list of its parts as
     arrangement or spine dicts (slot order, part kinds and schemas are
     the plan's, so both packages agree on them); ``output`` is the output
     spine's dict, ``err_output`` the err arrangement's, ``time`` the
-    frontier, ``compact_tick`` the fold schedule's tick and
-    ``join_caps`` the join sites' output tiers (None keeps the port's).
+    frontier, ``compact_tick`` the fold schedule's tick, ``join_caps``
+    the join sites' output tiers and ``letrec_caps`` the LetRec sites'
+    binding-delta tiers (None keeps the port's). A TopK's arrangement, a
+    linear join's spines and the states inside a LetRec are parts like
+    any other.
     ``peek_errors`` reads the carried errors once the port has stepped
     (whether the plan has err sites is learnt at the first step)."""
     if len(states) != len(df.states):
@@ -142,6 +145,11 @@ def install_state(df, states: list, output: dict, err_output: dict, time: int,
             raise ValueError(f"{len(join_caps)} join tiers for a plan with "
                              f"{len(df._ctx.join_caps)} join sites")
         df._ctx.join_caps[:] = [int(c) for c in join_caps]
+    if letrec_caps is not None:
+        if len(letrec_caps) != len(df._ctx.letrec_caps):
+            raise ValueError(f"{len(letrec_caps)} LetRec tiers for a plan with "
+                             f"{len(df._ctx.letrec_caps)} LetRec sites")
+        df._ctx.letrec_caps[:] = [int(c) for c in letrec_caps]
     df.output = spine_from_numpy(output, df.out_schema, df.device)
     df.err_output = arrangement_from_numpy(err_output, ERR_SCHEMA, df.device)
     df._time = int(time)

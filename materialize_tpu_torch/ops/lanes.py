@@ -47,9 +47,44 @@ def _shr(h: torch.Tensor, k: int) -> torch.Tensor:
     return (h >> k) & ((1 << (64 - k)) - 1)
 
 
+def _f64_lanes(arr: torch.Tensor) -> tuple:
+    """The reference's order-preserving (class and exponent, mantissa)
+    lane pair of a FLOAT64 column, in stored form.
+
+    The reference reaches it with ~24 greedy power-of-two ``where``
+    rungs (a TPU cannot bitcast 64 bits); the port reads the IEEE fields
+    off a bit view, ~15 eager ops for the same lanes:
+
+    - lane 1: NaN 5001, +inf 5000, -inf 0, the zero bucket 2201, a
+      positive value ``2201 + (biased exponent + 52)``, a negative one
+      ``2201 - (biased exponent + 52)``;
+    - lane 2: the 52 mantissa bits of a nonzero finite value (flipped
+      for negatives), else 0.
+
+    -0.0 and 0.0 share the zero bucket, and so do the subnormals: the
+    reference's arithmetic runs with denormals flushed to zero on its
+    CPU and TPU backends, and its eager function gives them the lanes
+    of 0.0. A card does not flush doubles, so the port assigns them by
+    their exponent field (0) instead. Every NaN, whatever its sign and
+    payload, gets one lane pair."""
+    bits = arr.to(torch.float64).contiguous().view(torch.int64)
+    expf = _shr(bits, 52) & 0x7FF
+    mant = bits & ((1 << 52) - 1)
+    neg = bits < 0
+    special = expf == 0x7FF
+    isnan = special & (mant != 0)
+    normal = (expf != 0) & ~special
+    biased = expf + 52
+    lane1 = torch.where(neg, 2201 - biased, 2201 + biased)
+    lane1 = torch.where(normal, lane1, 2201)
+    lane1 = torch.where(special, torch.where(isnan, 5001, torch.where(neg, 0, 5000)), lane1)
+    lane2 = torch.where(normal, torch.where(neg, ((1 << 52) - 1) - mant, mant), 0)
+    return lane1 ^ SIGN, lane2 ^ SIGN
+
+
 def column_lanes(arr: torch.Tensor, ctype: ColumnType) -> tuple:
-    """One column as stored-form lane(s). FLOAT64 lanes are not ported
-    yet (the lineitem slice has no float column)."""
+    """One column as stored-form lane(s): one lane, or two for FLOAT64
+    (``_f64_lanes``)."""
     if ctype is ColumnType.BOOL:
         return (arr.to(torch.int64) + SIGN,)
     if ctype in (
@@ -62,6 +97,8 @@ def column_lanes(arr: torch.Tensor, ctype: ColumnType) -> tuple:
     ):
         # reference lane: int64(v) ^ SIGN as u64; stored: that ^ SIGN = v
         return (arr.to(torch.int64),)
+    if ctype is ColumnType.FLOAT64:
+        return _f64_lanes(arr)
     raise NotImplementedError(f"lanes for {ctype}")
 
 
@@ -197,22 +234,36 @@ def hash_pair_host(cols_u64: list) -> tuple:
     return mix(_GOLDEN), mix(_HASH2_SEED)
 
 
+def _f64_lanes_host(col) -> list:
+    """Numpy replica of ``_f64_lanes`` in the reference's u64 form."""
+    bits = np.ascontiguousarray(np.asarray(col, dtype=np.float64)).view(np.uint64)
+    expf = ((bits >> np.uint64(52)) & np.uint64(0x7FF)).astype(np.int64)
+    mant = (bits & np.uint64((1 << 52) - 1)).astype(np.int64)
+    neg = (bits >> np.uint64(63)) != 0
+    special = expf == 0x7FF
+    normal = (expf != 0) & ~special
+    biased = expf + 52
+    lane1 = np.where(normal, np.where(neg, 2201 - biased, 2201 + biased), 2201)
+    lane1 = np.where(special, np.where(mant != 0, 5001, np.where(neg, 0, 5000)), lane1)
+    lane2 = np.where(normal, np.where(neg, ((1 << 52) - 1) - mant, mant), 0)
+    return [lane1.astype(np.uint64), lane2.astype(np.uint64)]
+
+
 def host_lane_encode(col, column: Column, nulls=None) -> list:
     """Numpy replica of key_lanes' per-column encoding, in the
-    reference's u64 form (FLOAT64 unsupported)."""
+    reference's u64 form."""
     ctype = column.ctype
     if ctype is ColumnType.FLOAT64:
-        raise NotImplementedError("host lane encode: float64")
-    if ctype is ColumnType.BOOL:
-        v = col.astype(np.uint64)
+        vals = _f64_lanes_host(col)
+    elif ctype is ColumnType.BOOL:
+        vals = [col.astype(np.uint64)]
     else:
-        v = col.astype(np.int64).astype(np.uint64) ^ np.uint64(1 << 63)
+        vals = [col.astype(np.int64).astype(np.uint64) ^ np.uint64(1 << 63)]
     if not column.nullable:
-        return [v]
+        return vals
     if nulls is None:
-        return [np.ones(len(col), dtype=np.uint64), v]
+        return [np.ones(len(col), dtype=np.uint64)] + vals
     nl = nulls.astype(bool)
-    return [
-        np.where(nl, np.uint64(0), np.uint64(1)),
-        np.where(nl, np.uint64(0), v),
+    return [np.where(nl, np.uint64(0), np.uint64(1))] + [
+        np.where(nl, np.uint64(0), v) for v in vals
     ]

@@ -13,15 +13,22 @@ emit the retraction of the old output row and the insertion of the new
 one, (5) merge the per-group deltas into the state, summing on key
 collision and dropping groups whose ``__rows__`` reaches 0.
 
-Every accumulator is int64, so the per-group sums (``index_add_`` on
-the card) are exact in any order. Accumulable aggregates: COUNT,
-SUM_INT, ANY, ALL. Hierarchical ones (MIN, MAX) keep one more part each:
-the sorted multiset of (group key, non-NULL value), queried before and
-after the step's insert (the group's first row is its MIN, its last row
-its MAX); part 0 still runs and its ``__rows__`` decides whether a group
-is alive. SUM_FLOAT and the basic collection aggregates raise
-``NotImplementedError``: they need FLOAT64 lanes and read-time
-finalizers (ROADMAP Queue 1).
+Accumulable aggregates: COUNT, SUM_INT, SUM_FLOAT, ANY, ALL. The int64
+accumulators are summed per group with one ``index_add_`` (exact in any
+order). SUM_FLOAT's float64 sum is not associative, and ``index_add_``
+on the card adds in no fixed order, so each group's float sum runs
+sequentially in row order from 0.0 (``_run_sums``): the order of the
+reference's scatter-add on its CPU backend, so both packages give the
+same bits, and two card runs give the same bits. Its cost: one lockstep
+pass of a few launches per row of the step's largest group, and one
+readback of that group's size per step (a power-law graph's hub makes
+pagerank pay its in-degree in passes each evaluation; ROADMAP Queue 2).
+Hierarchical ones (MIN, MAX) keep one more part each: the sorted
+multiset of (group key, non-NULL value), queried before and after the
+step's insert (the group's first row is its MIN, its last row its MAX);
+part 0 still runs and its ``__rows__`` decides whether a group is alive.
+The basic collection aggregates raise ``NotImplementedError``: they need
+read-time finalizers (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -57,13 +64,15 @@ def _accum_cols(j: int, agg: AggregateExpr) -> list:
     if agg.func is AggregateFunc.SUM_INT:
         return [Column(f"__a{j}_sum__", ColumnType.INT64),
                 Column(f"__a{j}_nn__", ColumnType.INT64)]
+    if agg.func is AggregateFunc.SUM_FLOAT:
+        return [Column(f"__a{j}_sum__", ColumnType.FLOAT64),
+                Column(f"__a{j}_nn__", ColumnType.INT64)]
     if agg.func in (AggregateFunc.ANY, AggregateFunc.ALL):
         return [Column(f"__a{j}_cnt__", ColumnType.INT64),
                 Column(f"__a{j}_nn__", ColumnType.INT64)]
     raise NotImplementedError(
-        f"aggregate {agg.func.value} is not ported (SUM_FLOAT needs FLOAT64 "
-        "lanes; the collection aggregates need read-time finalizers: "
-        "ROADMAP Queue 1)"
+        f"aggregate {agg.func.value} is not ported (the collection "
+        "aggregates need read-time finalizers: ROADMAP Queue 1)"
     )
 
 
@@ -114,6 +123,9 @@ def delta_contributions(batch: Batch, group_key, aggregates, state_schema: Schem
             new = [nn_i]
         elif agg.func is AggregateFunc.SUM_INT:
             new = [torch.where(nn, ev.values.to(torch.int64), 0) * diff, nn_i]
+        elif agg.func is AggregateFunc.SUM_FLOAT:
+            new = [torch.where(nn, ev.values.to(torch.float64), 0.0)
+                   * diff.to(torch.float64), nn_i]
         elif agg.func is AggregateFunc.ANY:
             new = [(ev.values & nn).to(torch.int64) * diff, nn_i]
         elif agg.func is AggregateFunc.ALL:
@@ -134,16 +146,56 @@ def delta_contributions(batch: Batch, group_key, aggregates, state_schema: Schem
     )
 
 
-def sum_by_key(batch: Batch, n_key: int, presorted: bool = False) -> Batch:
+# Device->host readbacks of a float sum's longest run (``_run_sums``).
+RUN_READBACKS = 0
+
+
+def _run_lengths(starts: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Per run's first row (``starts``; rows sorted by run), its row
+    count; 0 elsewhere."""
+    n = starts.shape[0]
+    j = torch.arange(n, dtype=torch.int64, device=starts.device)
+    # A run ends before the next start or the first padding row.
+    bound = starts | ~valid
+    nxt = torch.full_like(j, n)
+    nxt[:-1] = torch.where(bound[1:], j[1:], n)
+    end = torch.flip(torch.cummin(torch.flip(nxt, (0,)), 0).values, (0,))
+    return torch.where(starts, end - j, 0)
+
+
+def _run_sums(vals: torch.Tensor, starts: torch.Tensor, length: torch.Tensor,
+              max_run: int) -> torch.Tensor:
+    """Per row, the float sum of its run (rows sorted by run, ``starts``
+    marking each run's first valid row, ``length`` its row count),
+    added in row order from 0.0: ``((0.0 + v0) + v1) + ...``, the
+    reference's scatter-add order. One pass per row of the longest run
+    (``max_run``), every run in lockstep: a key holding many rows (a
+    skewed graph's hub) costs as many passes."""
+    n = vals.shape[0]
+    j = torch.arange(n, dtype=torch.int64, device=vals.device)
+    acc = torch.zeros_like(vals)
+    for k in range(max_run):
+        take = length > k
+        acc = torch.where(take, acc + vals[torch.clamp(j + k, max=n - 1)], acc)
+    lead = torch.cummax(torch.where(starts, j, 0), 0).values
+    return acc[lead]
+
+
+def sum_by_key(batch: Batch, n_key: int, presorted: bool = False,
+               max_run: int | None = None) -> Batch:
     """Sort by the first ``n_key`` columns and sum every remaining
     (accumulator) column per key; one row per key survives, diff 1.
     ``presorted`` skips the sort for key-sorted input (a merge of two
-    key-sorted runs).
+    key-sorted runs); ``max_run`` bounds the rows a key can have there
+    (else the longest run is read back: one sync, counted in
+    ``RUN_READBACKS``).
 
     The reference's ``.at[seg].add(vals, mode="drop")`` becomes one
-    int64 ``index_add_`` of the stacked accumulator columns into a
+    int64 ``index_add_`` of the stacked int64 accumulator columns into a
     buffer with one spare row: padding rows (whose segment id may be -1)
-    add into the spare row, which is sliced off."""
+    add into the spare row, which is sliced off. Float64 columns are
+    summed in row order (``_run_sums``)."""
+    global RUN_READBACKS
     cap = batch.capacity
     lanes = key_lanes(batch, range(n_key))
     if presorted:
@@ -155,14 +207,28 @@ def sum_by_key(batch: Batch, n_key: int, presorted: bool = False) -> Batch:
     starts = segment_starts(lanes, s.count, cap)
     valid = s.valid_mask()
     dest = torch.where(valid, segment_ids(starts), cap)
-    acc = torch.stack(s.cols[n_key:], dim=1)
-    sums = acc.new_zeros((cap + 1, acc.shape[1]))
-    sums.index_add_(0, dest, torch.where(valid[:, None], acc, 0))
-    # Each row takes its segment's total; padding rows read the spare
-    # row (compact below drops them).
-    per_row = sums[dest]
+    acc_cols = list(s.cols[n_key:])
+    ints = [i for i, c in enumerate(acc_cols) if c.dtype != torch.float64]
+    out_cols = list(acc_cols)
+    if ints:
+        acc = torch.stack([acc_cols[i] for i in ints], dim=1)
+        sums = acc.new_zeros((cap + 1, acc.shape[1]))
+        sums.index_add_(0, dest, torch.where(valid[:, None], acc, 0))
+        # Each row takes its segment's total; padding rows read the
+        # spare row (compact below drops them).
+        for i, col in zip(ints, sums[dest].unbind(1)):
+            out_cols[i] = col
+    floats = [i for i, c in enumerate(acc_cols) if c.dtype == torch.float64]
+    if floats:
+        length = _run_lengths(starts, valid)
+        if max_run is None:
+            # The longest run, read back once for every float column.
+            RUN_READBACKS += 1
+            max_run = int(length.max()) if cap else 0
+        for i in floats:
+            out_cols[i] = _run_sums(acc_cols[i], starts, length, max_run)
     out = s.replace(
-        cols=tuple(s.cols[:n_key]) + tuple(per_row.unbind(1)),
+        cols=tuple(s.cols[:n_key]) + tuple(out_cols),
         diff=starts.to(s.diff.dtype),
     )
     return compact(out, starts)
@@ -179,7 +245,8 @@ def merge_accum_state(state: Arrangement, groups: Batch, out_capacity: int):
         groups, key_lanes(groups, range(n_key)),
         out_capacity,
     )
-    summed = sum_by_key(merged, n_key, presorted=True)
+    # Both sides are key-unique: a key has at most 2 rows.
+    summed = sum_by_key(merged, n_key, presorted=True, max_run=2)
     alive = summed.cols[n_key] != 0  # __rows__ > 0 (cannot go negative)
     return Arrangement(compact(summed, alive), state.key), overflow
 
@@ -192,8 +259,16 @@ def gather_old_accums(state: Arrangement, probe: Batch) -> tuple:
     found = hi > lo
     # The reference's gather clamps; torch's raises: clamp by hand.
     idx = torch.clamp(lo, 0, max(state.capacity - 1, 0)).to(torch.int64)
-    acc = torch.stack(state.batch.cols[n_key:], dim=1)[idx]
-    return list(torch.where(found[:, None], acc, 0).unbind(1)), found
+    # One row gather per dtype (the float sums sit beside int64 ones).
+    cols = state.batch.cols[n_key:]
+    gathered = list(cols)
+    for dtype in dict.fromkeys(c.dtype for c in cols):
+        pos = [i for i, c in enumerate(cols) if c.dtype == dtype]
+        acc = torch.stack([cols[i] for i in pos], dim=1)[idx]
+        acc = torch.where(found[:, None], acc, torch.zeros_like(acc))
+        for i, g in zip(pos, acc.unbind(1)):
+            gathered[i] = g
+    return gathered, found
 
 
 def accums_to_output(key_cols, key_nulls, accum_cols, aggregates) -> tuple:
@@ -209,7 +284,7 @@ def accums_to_output(key_cols, key_nulls, accum_cols, aggregates) -> tuple:
             i += 1
             continue
         v, nn = accum_cols[i], accum_cols[i + 1]
-        if agg.func is AggregateFunc.SUM_INT:
+        if agg.func in (AggregateFunc.SUM_INT, AggregateFunc.SUM_FLOAT):
             cols.append(v)
         elif agg.func is AggregateFunc.ANY:
             cols.append(v > 0)

@@ -1,14 +1,17 @@
 """The plan decisions the port's slices need (the port's copy of part of
 ``materialize_tpu/plan/decisions.py`` and of ``plan/lir.py:ReducePlan``):
 the capacity quantization menu, the ingest modes of the output index and
-of operator-state spines, the Reduce plan and the join implementation. Capacities must match the reference's tier for tier, so
-overflow, rollback and replay land on the same ticks in both packages."""
+of operator-state spines, the Reduce and TopK plans, the join
+implementation and the linear join's stage keys. Capacities must match
+the reference's tier for tier, so overflow, rollback and replay land on
+the same ticks in both packages."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 from ..expr import relation as mir
+from ..expr.scalar import ColumnRef
 
 # Append-slot ring length (tracks the default compaction cadence).
 INGEST_RING_SLOTS = 8
@@ -81,3 +84,54 @@ def join_implementation(expr: mir.Join) -> str:
     if impl == "auto":
         impl = "delta" if len(expr.inputs) >= DELTA_JOIN_MIN_INPUTS else "linear"
     return impl
+
+
+@dataclass(frozen=True)
+class TopKPlan:
+    """How a TopK executes. One sorted arrangement serves every kind;
+    ``kind`` records whether the input is monotonic (MonotonicTop1,
+    MonotonicTopK) or may retract (Basic)."""
+
+    kind: str
+    group_key: tuple = ()
+    limit: int | None = None
+    offset: int = 0
+
+
+def plan_topk(expr: mir.TopK, input_monotonic: bool) -> TopKPlan:
+    if input_monotonic and expr.limit == 1 and not expr.offset:
+        kind = "MonotonicTop1"
+    elif input_monotonic:
+        kind = "MonotonicTopK"
+    else:
+        kind = "Basic"
+    return TopKPlan(kind, tuple(expr.group_key), expr.limit, expr.offset)
+
+
+def join_stage_keys(expr: mir.Join, offsets: list, stage: int):
+    """Join keys of the linear-join stage that brings in input
+    ``stage``: pairs (accumulated column, column of the input) from the
+    equivalence classes with a member on each side. Returns (left key,
+    right key, indices of the classes consumed)."""
+    lo, hi = offsets[stage], offsets[stage + 1]
+    left_key, right_key, consumed = [], [], []
+    for ci, cls in enumerate(expr.equivalences):
+        cols = []
+        for e in cls:
+            if not isinstance(e, ColumnRef):
+                raise NotImplementedError(
+                    "join equivalences must be column references "
+                    "(pre-map complex exprs)"
+                )
+            cols.append(e.index)
+        lefts = [c for c in cols if c < lo]
+        rights = [c for c in cols if lo <= c < hi]
+        if lefts and rights:
+            left_key.append(lefts[0])
+            right_key.append(rights[0] - lo)
+            consumed.append(ci)
+            if len(lefts) > 1 or len(rights) > 1:
+                raise NotImplementedError(
+                    ">2-member equivalence classes need residual filters"
+                )
+    return tuple(left_key), tuple(right_key), consumed

@@ -1,7 +1,8 @@
 """Render a MIR expression into a maintained dataflow with an output index
 (the port of ``materialize_tpu/render/dataflow.py`` for ``Get``, ``Let``,
-``Project``, ``Map``, non-temporal ``Filter``, the delta ``Join`` and the
-``Reduce`` with accumulable and MIN/MAX aggregates).
+``LetRec``, ``Project``, ``Map``, non-temporal ``Filter``, ``Union``, the
+delta and the linear ``Join``, ``TopK`` and the ``Reduce`` with
+accumulable and MIN/MAX aggregates).
 
 The reference compiles one XLA step program and runs a span of steps
 as one ``lax.scan``; PyTorch runs eagerly, so here a span is a host
@@ -10,14 +11,17 @@ loop over ticks, with the due spine levels folded after every
 
 - the output index is a hash-ordered ``Spine`` (every column the key),
   fed by ``insert_tail`` and folded on the geometric schedule;
-- operator state lives in state slots: a Reduce's arrangements (overflow
-  key ``("state", slot, part)``) and a delta join's exact-order spines
-  (``("state", slot, (part, run))``, folded on the output's schedule);
+- operator state lives in state slots: a Reduce's or a TopK's
+  arrangements (overflow key ``("state", slot, part)``) and a join's
+  exact-order spines (``("state", slot, (part, run))``, folded on the
+  output's schedule; a linear join takes one slot per stage);
 - a ``Let`` binding's delta is computed once per tick and shared by
   every ``Get`` of it;
 - each join site has an output-capacity tier (default 1024, overflow
   key ``("join", site)``), read from the render context at every tick,
   so the replay after a doubling runs at the new tier;
+- a LetRec site has a binding-delta tier (default 2048, overflow key
+  ``("lr", site, binding)``) and iterates as ``_build_letrec`` says;
 - the err collection: scalar-evaluation and sum-overflow errors are
   kept in a second arrangement beside the output (``err_output``,
   overflow key ``("errout",)``), read by ``peek_errors``;
@@ -31,8 +35,8 @@ loop over ticks, with the due spine levels folded after every
   rollback and replay happen on the same ticks.
 
 Left out: donation, the compile ledger, the program bank, SPMD (the
-exchanges are the identity on one device), the linear join, and every
-other MIR node (``_build`` raises ``NotImplementedError`` naming it).
+exchanges are the identity on one device), and every other MIR node
+(``_build`` raises ``NotImplementedError`` naming it).
 """
 
 from __future__ import annotations
@@ -51,13 +55,17 @@ from ..arrangement.spine import (
 from ..expr import relation as mir
 from ..expr.linear import MapFilterProject, apply_mfp
 from ..ops.consolidate import consolidate
+from ..expr import errors as _errors
 from ..ops.delta_join import DeltaJoinOp
+from ..ops.join import JoinOp
 from ..ops.reduce import ReduceOp
 from ..ops.sort import concat_batches, shrink
+from ..ops.topk import TopKOp
 from ..plan.decisions import (
     INGEST_RING_SLOTS,
     ingest_mode,
     join_implementation,
+    join_stage_keys,
     quantize_cap,
     state_ingest_mode,
 )
@@ -83,6 +91,18 @@ class _RenderContext:
         )
         self.join_caps: list = []
         self.default_join_cap = quantize_cap(join_cap)
+        # Per-LetRec-site binding-delta tier, doubled on overflow.
+        self.letrec_caps: list = []
+        self.default_letrec_cap = 2048
+        # Census of the LetRec sites: the value evaluations of each run
+        # (one entry per site and tick, replays included) and the
+        # device->host readbacks of the pending-row count.
+        self.letrec_evals: list = []
+        self.letrec_readbacks = 0
+        # While a LetRec's values are built: its binding names. While its
+        # evaluations after the first run: True (their sources are empty).
+        self.letrec_names: frozenset = frozenset()
+        self.sources_quiet = False
 
     def new_slot(self, init: tuple) -> int:
         self.slots.append(init)
@@ -93,10 +113,49 @@ class _RenderContext:
         return len(self.join_caps) - 1
 
 
+def _gets(expr: mir.RelationExpr) -> set:
+    """Names of every collection a subtree reads."""
+    if isinstance(expr, mir.Get):
+        return {expr.name}
+    out = set()
+    for c in expr.children():
+        out |= _gets(c)
+    return out
+
+
+def _source_only(expr: mir.RelationExpr, ctx: _RenderContext):
+    """A subtree of a LetRec value that reads no binding. After the first
+    evaluation of a tick its sources are empty, and a stateful operator
+    stepped on an empty delta keeps its state and emits nothing, so the
+    subtree is not run then: it yields an empty batch and false flags
+    under the keys of its first run, and a linear join taking it as a
+    side skips that side's insert and probe (the closure's
+    ``source_only``). The reference runs it on count-0 deltas to the
+    same states and rows."""
+    names, ctx.letrec_names = ctx.letrec_names, frozenset()
+    inner = _build(expr, ctx)
+    ctx.letrec_names = names
+    schema = expr.schema()
+    keys: list = []
+
+    def run(states, inputs, time, errs):
+        if not ctx.sources_quiet:
+            b, upd, ovf = inner(states, inputs, time, errs)
+            keys[:] = list(ovf)
+            return b, upd, ovf
+        false = torch.zeros((), dtype=torch.bool, device=ctx.device)
+        return Batch.empty(schema, 256, device=ctx.device), {}, {k: false for k in keys}
+
+    run.source_only = True
+    return run
+
+
 def _build(expr: mir.RelationExpr, ctx: _RenderContext):
     """A closure (states, inputs, time, errs) -> (delta batch,
     {slot: new state}, {overflow key: device flag}); ``errs`` is the
     step's err sink (``expr/errors.py``)."""
+    if ctx.letrec_names and not (_gets(expr) & ctx.letrec_names):
+        return _source_only(expr, ctx)
     if isinstance(expr, mir.Get):
         name = expr.name
 
@@ -154,13 +213,46 @@ def _build(expr: mir.RelationExpr, ctx: _RenderContext):
 
         return run
 
+    if isinstance(expr, mir.Union):
+        inners = [_build(i, ctx) for i in expr.inputs]
+
+        def run(states, inputs, time, errs):
+            parts, upd, ovf = [], {}, {}
+            for f in inners:
+                b, u, o = f(states, inputs, time, errs)
+                parts.append(b)
+                upd.update(u)
+                ovf.update(o)
+            return concat_batches(parts), upd, ovf
+
+        return run
+
+    if isinstance(expr, mir.TopK):
+        op = TopKOp(expr.input.schema(), expr.group_key, expr.order_by, expr.limit,
+                    expr.offset)
+        slot = ctx.new_slot(op.init_state(ctx.state_cap, ctx.device))
+        inner = _build(expr.input, ctx)
+
+        def run(states, inputs, time, errs):
+            # The exchange on the group key is the identity on one device.
+            b, upd, ovf = inner(states, inputs, time, errs)
+            new_state, out, overflow = op.step(states[slot], b, time)
+            upd = dict(upd)
+            upd[slot] = new_state
+            ovf = dict(ovf)
+            for part, flag in overflow.items():
+                ovf[("state", slot, part)] = flag
+            return out, upd, ovf
+
+        return run
+
     if isinstance(expr, mir.Join):
-        if join_implementation(expr) != "delta":
-            raise NotImplementedError(
-                "the linear join is not ported (ROADMAP Queue 1); a join of "
-                "3 or more inputs, or implementation='delta', renders"
-            )
-        return _build_join_delta(expr, ctx)
+        if join_implementation(expr) == "delta":
+            return _build_join_delta(expr, ctx)
+        return _build_join_linear(expr, ctx)
+
+    if isinstance(expr, mir.LetRec):
+        return _build_letrec(expr, ctx)
 
     raise NotImplementedError(f"render of {type(expr).__name__} is not ported")
 
@@ -189,6 +281,198 @@ def _build_join_delta(expr: mir.Join, ctx: _RenderContext):
             ovf[("state", slot, part)] = flag
         ovf[("join", jsite)] = j_ovf
         return out, upd, ovf
+
+    return run
+
+
+def _build_join_linear(expr: mir.Join, ctx: _RenderContext):
+    """Left-fold binary ``JoinOp`` stages. The inputs are built first,
+    then each stage takes its state slot and join site, as the
+    reference takes them."""
+    schemas = [i.schema() for i in expr.inputs]
+    offsets = [0]
+    for sch in schemas:
+        offsets.append(offsets[-1] + sch.arity)
+    inners = [_build(i, ctx) for i in expr.inputs]
+    stages = []
+    acc_schema = schemas[0]
+    consumed_all: set = set()
+    for i in range(1, len(expr.inputs)):
+        left_key, right_key, consumed = join_stage_keys(expr, offsets, i)
+        consumed_all.update(consumed)
+        op = JoinOp(acc_schema, schemas[i], left_key, right_key)
+        slot = ctx.new_slot(op.init_state(ctx.state_cap, ingest_slots=ctx.ingest_slots,
+                                          device=ctx.device))
+        stages.append((op, slot, ctx.new_join_site()))
+        acc_schema = op.out_schema
+    if len(consumed_all) != len(expr.equivalences):
+        # An equality inside one input would go unenforced.
+        raise NotImplementedError(
+            "equivalence class not consumable as a join key "
+            "(intra-input equality: rewrite as Filter)"
+        )
+
+    # Inputs that are a LetRec's source-only subtrees: empty once the
+    # LetRec's sources are (``_source_only``).
+    source_only = [getattr(f, "source_only", False) for f in inners]
+
+    def run(states, inputs, time, errs):
+        deltas, upd, ovf = [], {}, {}
+        for f in inners:
+            b, u, o = f(states, inputs, time, errs)
+            deltas.append(b)
+            upd.update(u)
+            ovf.update(o)
+        quiet = [q and ctx.sources_quiet for q in source_only]
+        acc, acc_quiet = deltas[0], quiet[0]
+        for (op, slot, jsite), d_right, r_quiet in zip(stages, deltas[1:], quiet[1:]):
+            new_state, acc, st_ovf, j_ovf = op.step(states[slot], acc, d_right, time,
+                                                   ctx.join_caps[jsite],
+                                                   quiet=(acc_quiet, r_quiet))
+            acc_quiet = acc_quiet and r_quiet
+            upd[slot] = new_state
+            for part, flag in st_ovf.items():
+                ovf[("state", slot, part)] = flag
+            ovf[("join", jsite)] = j_ovf
+        return acc, upd, ovf
+
+    return run
+
+
+def _err_counts(err_batches: list, device) -> torch.Tensor:
+    """An iteration's err batches as a per-code count vector."""
+    counts = torch.zeros(_errors.N_CODES, dtype=torch.int64, device=device)
+    for eb in err_batches:
+        code = torch.clamp(eb.cols[0].to(torch.int64), 0, _errors.N_CODES - 1)
+        counts.index_add_(0, code, torch.where(eb.valid_mask(), eb.diff, 0))
+    return counts
+
+
+def _build_letrec(expr: mir.LetRec, ctx: _RenderContext):
+    """WITH MUTUALLY RECURSIVE as semi-naive fixpoint iteration, the
+    reference's ``jax.lax.while_loop`` run as a host loop:
+
+    - evaluation 0 sees the tick's source deltas and empty binding
+      deltas; evaluation k sees empty source deltas and evaluation k-1's
+      binding deltas. Stateful operators inside the values carry their
+      state through the iterations;
+    - the values are evaluated again while fewer than ``max_iters``
+      evaluations have run (None: the reference's cap of 100,000) and
+      some binding delta is non-empty: the port evaluates them exactly
+      as often as the reference, and when a float fixpoint is not
+      reached that count decides the answer (RETURN AT RECURSION LIMIT);
+    - stopping rule: the pending-row count (the binding deltas' counts,
+      summed on the device) is read back once per iteration, before the
+      next evaluation, and never once ``max_iters`` is reached. An
+      iteration is hundreds of eager launches over the bindings' tiers,
+      so one readback each drains little, and reading less often would
+      run empty evaluations; they would change no state, but would cost
+      a full iteration each. The readbacks are counted in
+      ``ctx.letrec_readbacks`` apart from the span's one overflow-flags
+      readback, which they leave as it is: every flag of the loop is
+      OR-ed on the device;
+    - binding deltas and the per-tick totals the body reads are shrunk
+      to the site's tier (overflow key ``("lr", site, binding)``);
+    - errors raised inside the loop ride it as a per-code count vector
+      and reach the step's err sink once, after the loop;
+    - the subtrees of the values that read no binding run only in the
+      first evaluation (``_source_only``);
+    - the spines of the joins inside the values take merge ingest, never
+      a slot ring: a ring of 8 slots cannot hold the inserts of up to
+      ``max_iters`` evaluations in one tick, and the reference's ring
+      overwrites its unflushed slots when its cursor wraps there. With
+      merge ingest a spine's tail grows, rolls back and replays instead.
+    """
+    names = expr.names
+    schemas = expr.value_schemas
+    ring, outer = ctx.ingest_slots, ctx.letrec_names
+    # A subtree reading an enclosing LetRec's binding is no source either.
+    ctx.ingest_slots, ctx.letrec_names = 0, outer | frozenset(names)
+    value_fns = [_build(v, ctx) for v in expr.values]
+    ctx.ingest_slots, ctx.letrec_names = ring, outer
+    body_fn = _build(expr.body, ctx)
+    site = len(ctx.letrec_caps)
+    ctx.letrec_caps.append(ctx.default_letrec_cap)
+    max_iters = expr.max_iters if expr.max_iters is not None else 100_000
+
+    def run(states, inputs, time, errs):
+        cap = ctx.letrec_caps[site]
+        dev = ctx.device
+
+        def run_values(states_l, it_inputs):
+            """One evaluation: (states, binding deltas, flags, err counts)."""
+            states_l = list(states_l)
+            ovf, deltas, it_errs = {}, [], []
+            for i, fn in enumerate(value_fns):
+                d, upd, o = fn(states_l, it_inputs, time, it_errs)
+                for k, v in upd.items():
+                    states_l[k] = v
+                ovf.update(o)
+                d = consolidate(d, include_time=False)
+                d, so = shrink(d, cap)
+                if d.capacity != cap:
+                    d = d.with_capacity(cap)
+                ovf[("lr", site, i)] = so
+                deltas.append(d.replace(schema=schemas[i]).canonicalize_nulls())
+            return states_l, deltas, ovf, _err_counts(it_errs, dev)
+
+        it0_inputs = dict(inputs)
+        for nm, sch in zip(names, schemas):
+            it0_inputs[nm] = Batch.empty(sch, cap, device=dev)
+        states_l, deltas, ovf, err_counts = run_values(states, it0_inputs)
+        accums = list(deltas)
+        ovf_keys = sorted(ovf)
+
+        def pack(o):
+            return torch.stack([o[k].reshape(()).to(torch.bool) for k in ovf_keys])
+
+        flags = pack(ovf)
+        # The sources are empty from here on; ``_source_only`` subtrees
+        # do not even run.
+        empty_inputs = {k: b.replace(count=torch.zeros_like(b.count))
+                        for k, b in inputs.items()}
+        it = 1
+        while it < max_iters:
+            ctx.letrec_readbacks += 1
+            if int(sum(d.count.to(torch.int64) for d in deltas)) == 0:
+                break
+            it_inputs = dict(empty_inputs)
+            it_inputs.update(zip(names, deltas))
+            quiet, ctx.sources_quiet = ctx.sources_quiet, True
+            states_l, deltas, o, errs_n = run_values(states_l, it_inputs)
+            ctx.sources_quiet = quiet
+            new_accums = []
+            for i, (a, d) in enumerate(zip(accums, deltas)):
+                m = consolidate(concat_batches([a, d]), include_time=False)
+                m, so = shrink(m, cap)
+                o[("lr", site, i)] = o[("lr", site, i)] | so
+                new_accums.append(m.canonicalize_nulls())
+            if sorted(o) != ovf_keys:
+                raise AssertionError("LetRec overflow keys drifted")
+            accums = new_accums
+            flags = flags | pack(o)
+            err_counts = err_counts + errs_n
+            it += 1
+        ctx.letrec_evals.append(it)
+        if errs is not None:
+            # Zero-count codes consolidate away downstream.
+            errs.append(Batch(
+                cols=(torch.arange(_errors.N_CODES, dtype=torch.int64, device=dev),),
+                nulls=(None,),
+                time=torch.full((_errors.N_CODES,), time, dtype=torch.int64, device=dev),
+                diff=err_counts,
+                count=torch.tensor(_errors.N_CODES, dtype=torch.int32, device=dev),
+                schema=ERR_SCHEMA,
+            ))
+        # The body reads the real inputs and the tick's total binding deltas.
+        body_inputs = dict(inputs)
+        body_inputs.update(zip(names, accums))
+        out, upd_b, ovf_b = body_fn(states_l, body_inputs, time, errs)
+        upd = dict(enumerate(states_l))
+        upd.update(upd_b)
+        ovf_out = {k: flags[i] for i, k in enumerate(ovf_keys)}
+        ovf_out.update(ovf_b)
+        return out, upd, ovf_out
 
     return run
 
@@ -243,6 +527,8 @@ class Dataflow:
         # fold is at least one merge, i.e. one merge-search launch).
         self._readbacks = 0
         self._folds = 0
+        # Every tier key grown on overflow, in order (replays included).
+        self._grown: list = []
         self._defer_ck = None
         self._defer_log: list = []
         self._defer_flags = None
@@ -313,6 +599,8 @@ class Dataflow:
         or straight to ``target`` (snapped to the pow2 menu)."""
         if target is not None:
             target = quantize_cap(target)
+        else:
+            self._grown.append(key)
 
         def grow(b):
             return self._grow_batch(b, target)
@@ -332,6 +620,8 @@ class Dataflow:
             # Read by the join's closure at every tick: the replay runs
             # at the doubled tier.
             self._ctx.join_caps[key[1]] *= 2
+        elif key[0] == "lr":
+            self._ctx.letrec_caps[key[1]] *= 2
         elif key[0] == "outd":
             self.out_delta_cap *= 2
         elif key[0] == "errout":

@@ -338,17 +338,16 @@ def apply_tiers(df, tiers: dict) -> None:
     """Grow a dataflow's tiers to ``tiers`` before it runs (the port of
     ``bench.py:apply_tiers``; the same dict drives both packages): each
     ``grow`` entry ``[key, capacity]`` grows that run, slot ring or
-    arrangement in one step (never shrinks it); the join tiers and the
-    output delta tier are raised to theirs. Overflow, rollback and
+    arrangement in one step (never shrinks it); the join, LetRec and
+    output delta tiers are raised to theirs. Overflow, rollback and
     replay stay live beyond them. The exchange tier (``slot_cap``) has
     no counterpart on one device."""
-    if tiers.get("letrec_caps"):
-        raise NotImplementedError("LetRec tiers: LetRec is not ported")
     for key, want in tiers["grow"]:
         key = tuple(tuple(k) if isinstance(k, list) else k for k in key)
         if _tier_capacity(df, key) < want:
             df._grow_for(key, target=want)
     df.out_delta_cap = max(df.out_delta_cap, tiers["out_delta_cap"])
-    caps = df._ctx.join_caps
-    for i, c in enumerate(tiers["join_caps"]):
-        caps[i] = max(caps[i], quantize_cap(c))
+    for caps, want in ((df._ctx.join_caps, tiers["join_caps"]),
+                       (df._ctx.letrec_caps, tiers.get("letrec_caps", []))):
+        for i, c in enumerate(want):
+            caps[i] = max(caps[i], quantize_cap(c))

@@ -20,6 +20,7 @@ from collections import Counter
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 import bench
@@ -31,6 +32,16 @@ from materialize_tpu_torch import interop
 from materialize_tpu_torch.coord import peek as tpeek
 from materialize_tpu_torch.storage.generator.tpch import LINEITEM_SCHEMA
 from materialize_tpu_torch.workloads.index import build_index_dataflow
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's eager ops here are small: one intra-op thread runs them
+    about as fast, and does not contend with other test processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 SF, ORDERS_PER_TICK, CE = 0.002, 16, 4
 LAYOUT = dict(n_orders_per_tick=ORDERS_PER_TICK, state_cap=1 << 12,

@@ -61,6 +61,16 @@ from tests.test_delta_join import _oracle_join
 from tests.test_torch_dataflow import _jspine_dict
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's eager ops here are small: one intra-op thread runs them
+    about as fast, and does not contend with other test processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _find_join(x):
     if isinstance(x, jmir.Join):
         return x

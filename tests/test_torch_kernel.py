@@ -7,9 +7,10 @@ on a machine with a card and no JAX; there, skip the suite's conftest
 
     python -m pytest tests/test_torch_kernel.py --noconftest -q
 
-Tests marked ``cuda`` skip without a card. The CPU tests pin the
-wrapper's refusal of CPU tensors (no silent fallback) and the build
-layout."""
+Tests marked ``cuda`` skip without a card; besides the kernel, they hold
+the FLOAT64 lanes on the card against the CPU's and a SUM_FLOAT reduce's
+determinism. The CPU tests pin the wrapper's refusal of CPU tensors (no
+silent fallback) and the build layout."""
 
 from __future__ import annotations
 
@@ -26,6 +27,16 @@ from materialize_tpu_torch.ops.merge import (
     merge_source_map_torch,
     search_right_torch,
 )
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's eager ops here are small: one intra-op thread runs them
+    about as fast, and does not contend with other test processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 ROOT = Path(__file__).resolve().parents[1]
 _POOL = np.array(
@@ -433,6 +444,77 @@ def test_q9_forced_overflows_agree_on_card():
         assert spines[5].slots[0].capacity == spines[6].slots[0].capacity
         assert spines[6].runs_b[0].capacity == spines[5].runs_b[0].capacity
     _same_dataflow_state(kdf, tdf, min_rows=50)
+
+
+def _f64_values():
+    rng = np.random.default_rng(3)
+    vals = rng.standard_normal(4000) * 10.0 ** rng.integers(-323, 308, 4000).astype(np.float64)
+    edges = [0.0, -0.0, np.inf, -np.inf, np.nan, -np.nan, 5e-324, -5e-324, 1e-310,
+             2.0**-1022, 2.0**-1023, 2.0**1023, -(2.0**1023), np.finfo(np.float64).max]
+    return np.concatenate([vals, np.array(edges)])
+
+
+@pytest.mark.cuda
+def test_f64_lanes_on_card_equal_cpu():
+    """FLOAT64 lanes on the card equal those on the CPU bit for bit: the
+    card does not flush double subnormals, and the lanes put them in
+    the zero bucket by their exponent field on both."""
+    _need_card()
+    from materialize_tpu_torch.ops.lanes import column_lanes
+    from materialize_tpu_torch.repr.schema import ColumnType
+
+    vals = torch.from_numpy(_f64_values())
+    cpu = column_lanes(vals, ColumnType.FLOAT64)
+    card = column_lanes(vals.cuda(), ColumnType.FLOAT64)
+    for a, b in zip(cpu, card):
+        assert torch.equal(a, b.cpu())
+
+
+def _sum_float_run(device):
+    """Five SUM_FLOAT reduce steps (inserts, retractions) over 64 groups
+    of up to ~60 rows of mixed magnitudes; returns every state and
+    output batch on the host."""
+    from materialize_tpu_torch.expr.relation import AggregateExpr, AggregateFunc
+    from materialize_tpu_torch.expr.scalar import col, lit
+    from materialize_tpu_torch.ops.reduce import ReduceOp
+    from materialize_tpu_torch.repr.batch import Batch
+    from materialize_tpu_torch.repr.schema import Column, ColumnType, Schema
+
+    schema = Schema([Column("k", ColumnType.INT64), Column("v", ColumnType.FLOAT64, True)])
+    op = ReduceOp(schema, (0,), (AggregateExpr(AggregateFunc.SUM_FLOAT, col(1) * lit(0.85)),
+                                 AggregateExpr(AggregateFunc.COUNT, col(1))))
+    rng = np.random.default_rng(9)
+    n = 4000
+    k = rng.integers(0, 64, n)
+    v = rng.standard_normal(n) * 10.0 ** rng.integers(-12, 13, n)
+    vn = rng.random(n) < 0.1
+    state = op.init_state(4096, device=device)
+    got = []
+    for t, (lo, hi, d) in enumerate([(0, 2000, 1), (2000, 4000, 1), (500, 1500, -1),
+                                     (600, 900, 1), (3000, 4000, -1)], start=1):
+        idx = np.arange(lo, hi)
+        b = Batch.from_numpy(schema, [k[idx], v[idx]], np.full(len(idx), t, np.uint64),
+                             np.full(len(idx), d, np.int64), capacity=4096,
+                             nulls=[None, vn[idx]], device=device)
+        state, out, ovf = op.step(state, b, t)
+        assert not bool(ovf[0])
+        for batch in (state[0].batch, out):
+            m = int(batch.count)
+            got.append([c[:m].cpu() for c in batch.cols + (batch.diff,)])
+    return got
+
+
+@pytest.mark.cuda
+def test_sum_float_reduce_is_deterministic_on_card():
+    """A SUM_FLOAT reduce gives bit-equal states and outputs in two runs
+    on the card, and equal to the CPU's: every group's float sum runs in
+    row order (``ops/reduce.py:_run_sums``), never through an atomic
+    ``index_add_``."""
+    _need_card()
+    first, second, cpu = _sum_float_run("cuda"), _sum_float_run("cuda"), _sum_float_run("cpu")
+    for a, b, c in zip(first, second, cpu):
+        for x, y, z in zip(a, b, c):
+            assert torch.equal(x, y) and torch.equal(x, z)
 
 
 def test_index_reads_decode_against_numpy_oracle():

@@ -23,6 +23,16 @@ from materialize_tpu_torch.repr.schema import Column as TColumn
 from materialize_tpu_torch.repr.schema import ColumnType as TType
 from materialize_tpu_torch.repr.schema import Schema as TSchema
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's eager ops here are small: one intra-op thread runs them
+    about as fast, and does not contend with other test processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 # The lineitem column types (INT64, INT32, DECIMAL, STRING codes, DATE)
 # plus BOOL, each nullable and not.
 _SPEC = [

@@ -31,6 +31,16 @@ from materialize_tpu_torch.ops.lanes import from_u64, to_u64
 from materialize_tpu_torch.ops.merge import merge_source_map_torch, search_right_torch
 from materialize_tpu_torch.ops.search import lex_less_rows
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's eager ops here are small: one intra-op thread runs them
+    about as fast, and does not contend with other test processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 _POOL = np.array(
     [0, 1, 2, (1 << 63) - 1, 1 << 63, (1 << 63) + 1, (1 << 64) - 1], dtype=np.uint64
 )

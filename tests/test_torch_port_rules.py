@@ -19,6 +19,16 @@ from pathlib import Path
 import pytest
 import torch
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's eager ops here are small: one intra-op thread runs them
+    about as fast, and does not contend with other test processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "materialize_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "materialize_tpu")
@@ -48,6 +58,10 @@ SLICE_MODULES = [
     "materialize_tpu_torch.coord.peek",
     "materialize_tpu_torch.workloads.index",
     "materialize_tpu_torch.workloads.tpch",
+    "materialize_tpu_torch.ops.topk",
+    "materialize_tpu_torch.storage.generator.auction",
+    "materialize_tpu_torch.workloads.auction",
+    "materialize_tpu_torch.workloads.pagerank",
     "materialize_tpu_torch.interop",
 ]
 
@@ -92,6 +106,9 @@ def test_entry_points_default_to_cuda():
     from materialize_tpu_torch.render.dataflow import Dataflow
     from materialize_tpu_torch.storage.generator.tpch import LINEITEM_SCHEMA
     from materialize_tpu_torch.workloads.index import index_config
+    from materialize_tpu_torch.storage.generator.auction import AuctionGenerator
+    from materialize_tpu_torch.workloads.auction import auction_config
+    from materialize_tpu_torch.workloads.pagerank import pagerank_config
     from materialize_tpu_torch.workloads.tpch import q1_config, q9_config, q15_config
 
     assert default_device() == "cuda"
@@ -108,6 +125,12 @@ def test_entry_points_default_to_cuda():
         q15_config(sf=0.001)
     with pytest.raises(RuntimeError, match="cuda"):
         q9_config(sf=0.001)
+    with pytest.raises(RuntimeError, match="cuda"):
+        auction_config()
+    with pytest.raises(RuntimeError, match="cuda"):
+        AuctionGenerator().tick(0, 0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        pagerank_config()
     cpu = Dataflow(Get("lineitem", LINEITEM_SCHEMA), device="cpu")
     assert cpu.device.type == "cpu"
 

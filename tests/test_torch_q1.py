@@ -20,6 +20,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import pytest
+import torch
 
 import bench
 from materialize_tpu.expr import relation as jmir
@@ -34,6 +36,16 @@ from materialize_tpu_torch.repr import schema as tschema
 from materialize_tpu_torch.storage.generator.tpch import LINEITEM_SCHEMA
 from materialize_tpu_torch.workloads.tpch import build_q1_dataflow, q1_plan
 from tests.test_torch_dataflow import _jbatch_dict, _jspine_dict
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's eager ops here are small: one intra-op thread runs them
+    about as fast, and does not contend with other test processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 SF, ORDERS_PER_TICK, SPAN = 0.002, 16, 4
 

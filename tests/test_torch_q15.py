@@ -28,6 +28,9 @@ from __future__ import annotations
 
 from collections import Counter
 
+import pytest
+import torch
+
 import bench
 from materialize_tpu.arrangement.spine import Spine as JSpine
 from materialize_tpu.storage.generator.tpch import TpchGenerator as JGen
@@ -40,6 +43,16 @@ from materialize_tpu_torch.workloads.tpch import build_q15_dataflow, q15_plan
 from tests.test_q15 import q15_oracle
 from tests.test_torch_dataflow import _jbatch_dict, _jspine_dict
 from tests.test_torch_q1 import _convert, _jdict_arrangement
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's eager ops here are small: one intra-op thread runs them
+    about as fast, and does not contend with other test processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 SF, ORDERS_PER_TICK, SPAN, PORT_JOIN_CAP = 0.002, 16, 4, 16
 

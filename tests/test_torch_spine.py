@@ -13,6 +13,7 @@ from __future__ import annotations
 import jax
 import numpy as np
 import pytest
+import torch
 
 from materialize_tpu.arrangement import spine as js
 from materialize_tpu.repr.batch import Batch as JBatch
@@ -23,6 +24,16 @@ from materialize_tpu_torch.arrangement import spine as ts
 from materialize_tpu_torch.ops.lanes import to_u64
 from materialize_tpu_torch.repr.batch import Batch as TBatch
 from materialize_tpu_torch.repr.schema import Column, ColumnType, Schema
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's eager ops here are small: one intra-op thread runs them
+    about as fast, and does not contend with other test processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 JNSCH = JSchema(
     (JColumn("k", JType.INT64), JColumn("v", JType.INT64, nullable=True))
