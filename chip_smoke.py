@@ -11,7 +11,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    nvcc for sm_90a (seconds, ptxas report);
 2. kernel against its plain torch versions, exactly: insertion points
    (``pos``) against ``search_right_torch`` for L in {1, 2, 3, 4, 5, 8,
-   13}, random ``a_count`` (0 and m included), heavy duplicates, lanes on
+   13, 25, 29}, random ``a_count`` (0 and m included), heavy duplicates, lanes on
    both sides of 2^63; the merged run (``src``, merged lanes, ``pos``)
    against ``merge_source_map_torch`` with ``b_count < n`` and unsorted
    padding, overflow, ``cap_a = 0``, empty sides and tie runs longer
@@ -99,11 +99,36 @@ Phases, each printing one JSON line (any failure exits non-zero):
     2^19): 1 hydrate tick, 2 churn ticks (not 8: the script's time
     limit, PERF.md §6), a profiled tick;
 17. the kernel at each merge shape the pagerank paths launched, and a
-    small pagerank in both merge modes (every state part equal).
+    small pagerank in both merge modes (every state part equal);
+18. TPC-H Q21 (``workloads/tpch.py:q21_plan``: EXISTS as a semijoin, NOT
+    EXISTS as ``Threshold(Union(cse13, Negate(...)))``) at SF 0.5 in
+    Q9's layout and stream: supplier, nation and every order on the
+    first hydrate tick, lineitem in ticks of 16,384 orders with every
+    tier pre-sized (``q21_tiers``, join tiers per site), 32 churn ticks
+    as spans of 16 with one flags readback each; kernel launches by merge
+    shape (25-lane merges of the Threshold and the cse3 spines among
+    them), device operations per tick from 2 profiled ticks, peak device
+    memory, the Threshold's state rows, ``peek()`` against a numpy Q21
+    oracle over every batch fed and ``peek_errors()`` empty; then the
+    kernel at each merge shape Q21 launched, and Q21 at SF 0.002 in both
+    merge modes (every state part equal);
+19. the auction under a temporal window at both auction sizes
+    (``workloads/auction.py:auction_window_plan``: the insert-only bids
+    behind ``mz_now() < bid_time + 4``): the auction's ticks and seed,
+    updates counted as the inserts plus the retractions the filter
+    releases, the final ``peek()`` equal to the retract-mode run's and
+    to the oracle over the bids in the window, the temporal buffer's
+    rows; and the kernel at each merge shape these launched;
+20. ``arms_small``: Union, Constant, FlatMap (``generate_series``, its
+    tier overflowing once, growing and replaying), ArrangeBy, Negate and
+    Threshold in one plan over 3 ticks of a few hundred seeded rows,
+    against numpy.
 
 ``{"phase": "kernel_table", ...}`` gives one row per merge shape of each
 main path; ``{"phase": "done", ...}`` gives the script's wall seconds and
-each phase group's. The line before the last is ``{"kernels": [...]}``;
+each phase group's. The line before the last is ``{"kernels": [...]}``
+(``library_ms``: ``torch.searchsorted`` at L = 1 on the level-2 fold's
+shape, which computes the kernel's ``search_right``, timed beside it);
 the last is ``{"ok": true, "device": {...}}``. Without a CUDA card it
 exits non-zero and prints no result.
 """
@@ -308,9 +333,14 @@ def _err(torch, got, want) -> float:
     return float((got.double() - want.double()).abs().max())
 
 
+# Lane counts of kernel_random: the templated widths (1-4, 8), the
+# generic kernel's (5, 13), and the ~25-30-lane rows of Q21's Threshold.
+RANDOM_LANES = (1, 2, 3, 4, 5, 8, 13, 25, 29)
+
+
 def _merge_cases(rng):
     """(cap_a, a_count, cap_b, b_count, out_capacity, L, pool)."""
-    for L in (1, 2, 3, 4, 5, 8, 13):
+    for L in RANDOM_LANES:
         yield 5000, 4000, 2000, 1500, 8192, L, _POOL       # b_count < n, padding slots
         yield 5000, 4000, 2000, 1500, 5000, L, _POOL       # overflow
         yield 5000, 0, 2000, 1500, 4096, L, _POOL          # a_count 0
@@ -359,7 +389,7 @@ def phase_kernel(torch, merge_kernel, card) -> dict:
         cases["merge"] += 1
         check(err == 0, f"merge != plain at {(cap_a, ac, cap_b, bc, out, a.shape[1])}")
 
-    for L in (1, 2, 3, 4, 5, 8, 13):
+    for L in RANDOM_LANES:
         for m, n in ((5000, 700), (700, 5000), (4096, 4096), (0, 300)):
             a = on_card(_pool_lanes(rng, m, L))
             b = on_card(_pool_lanes(rng, n, L))
@@ -369,7 +399,7 @@ def phase_kernel(torch, merge_kernel, card) -> dict:
         compare_merge(on_card(_pool_lanes(rng, cap_a, L, ac, pool)), ac,
                       on_card(_pool_lanes(rng, cap_b, L, bc, pool)), bc, out)
     torch.cuda.synchronize()
-    emit({"phase": "kernel_random", "pos_cases": cases["pos"],
+    emit({"phase": "kernel_random", "lanes": list(RANDOM_LANES), "pos_cases": cases["pos"],
           "merge_cases": cases["merge"], "max_abs_err": max_err})
 
     rows = []
@@ -1047,6 +1077,142 @@ def phase_q9(torch, merge_kernel, card, sf: float = 1.0) -> dict:
     return out
 
 
+# -- TPC-H Q21 ------------------------------------------------------------------
+
+Q21_COLS = (0, 2, 11, 12)  # orderkey, suppkey, commitdate, receiptdate
+# Q21's scale. At SF 1 its phase took 347.1 s and the script 1,230.8 s
+# of its 1,200 s limit; at SF 0.5, 172.5 s and 939.1 s (an NVIDIA H100
+# 80GB HBM3 at 700 W, PERF.md §4).
+Q21_SF = 0.5
+
+
+def q21_oracle(li: tuple, orders, supplier, nation, f_code: int, saudi_code: int) -> dict:
+    """TPC-H Q21 in numpy int64, independent of the port
+    (``tests/test_decorrelate.py``'s Q21 oracle, vectorised): {s_name
+    code: numwait}. ``li`` = (orderkey, suppkey, commitdate,
+    receiptdate, diff) of every lineitem update fed. Per order and per
+    (order, supplier), the rows and the late rows, weighted by diff; a
+    row counts when it is late, its order is 'F' and its supplier Saudi,
+    another supplier has a row of the order (EXISTS), and no other
+    supplier has a late one (NOT EXISTS)."""
+    okey, skey, commit, receipt, diff = li
+    late = (receipt > commit).astype(np.int64)
+
+    def by(keys, vals):
+        _, inv = np.unique(keys, return_inverse=True)
+        inv = inv.reshape(-1)
+        sums = np.zeros(inv.max() + 1 if len(inv) else 0, np.int64)
+        np.add.at(sums, inv, vals)
+        return sums[inv]
+
+    pair = okey * (int(max(skey.max(), supplier[0].max())) + 1) + skey
+    exists = by(okey, diff) - by(pair, diff) > 0
+    not_exists = by(okey, diff * late) - by(pair, diff * late) == 0
+    hit_o, status = _lookup(orders[0], orders[2], okey)
+    hit_s, nkey = _lookup(supplier[0], supplier[1], skey)
+    _, name = _lookup(supplier[0], supplier[2], skey)
+    hit_n, nname = _lookup(nation[0], nation[2], nkey)
+    keep = ((late == 1) & hit_o & (status == f_code) & hit_s & hit_n
+            & (nname == saudi_code) & exists & not_exists)
+    groups, inv = np.unique(name[keep], return_inverse=True)
+    counts = np.zeros(len(groups), np.int64)
+    np.add.at(counts, inv.reshape(-1), diff[keep])
+    return {int(g): int(c) for g, c in zip(groups, counts) if c != 0}
+
+
+def q21_presized(sf: float, churn_ticks: int, hydrate_orders: int = 896, **kw):
+    """``q21_config`` with every tier pre-sized (``q21_tiers``, from the
+    hydrate inputs) for its hydration and ``churn_ticks`` churn ticks of
+    ``n_orders_per_tick`` orders. Returns (df, hydrate, churn), with
+    ``hydrate()`` giving the inputs the tiers were sized from."""
+    from materialize_tpu_torch.workloads.tpch import apply_tiers, q21_config, q21_tiers
+
+    df, hydrate, churn = q21_config(sf=sf, hydrate_orders=hydrate_orders, **kw)
+    h_inputs = hydrate()
+    apply_tiers(df, q21_tiers(df, h_inputs, kw["n_orders_per_tick"], churn_ticks))
+    return df, lambda: h_inputs, churn
+
+
+def _threshold_state(df):
+    """The Threshold's arrangement: the one keyed by 25 columns."""
+    return next(p for parts in df.states for p in parts
+                if not hasattr(p, "runs_b") and p.schema.arity == 25)
+
+
+def phase_q21(torch, merge_kernel, card, sf: float) -> dict:
+    from materialize_tpu_torch.repr.schema import GLOBAL_DICT
+    from materialize_tpu_torch.workloads.index import rows_per_tick
+    from materialize_tpu_torch.workloads.tpch import set_join_tiers
+
+    hydrate_orders, ticks_churn, span_churn, profile_ticks = 16384, 32, 16, 2
+    n_ticks = ticks_churn + profile_ticks
+    t0 = time.perf_counter()
+    df, hydrate, churn = q21_presized(sf, n_ticks, hydrate_orders, n_orders_per_tick=1024,
+                                      seed=42, device="cuda")
+    h_inputs = hydrate()
+    gen_s = time.perf_counter() - t0
+    t_c = time.perf_counter()
+    c_inputs, c_rows = [], []
+    for i in range(n_ticks):
+        inp, n = churn(i, len(h_inputs) + i)
+        c_inputs.append(inp)
+        c_rows.append(n)
+    churn_gen_s = time.perf_counter() - t_c
+    tiers_before = _state_tiers(df)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # Pre-sized: no hydrate span may overflow; churn runs at a churn
+    # tick's join tier (``set_join_tiers``), as Q9's does.
+    run = _drive(torch, merge_kernel, df, h_inputs, c_inputs, "Q21", span_churn=span_churn,
+                 ticks_churn=ticks_churn,
+                 after_hydrate=lambda df: set_join_tiers(df, rows_per_tick(1024)))
+    peak = int(torch.cuda.max_memory_allocated())
+    ops = _profiled_ticks(torch, df, c_inputs[ticks_churn:], "Q21")
+
+    first = h_inputs[0]
+    tables = {n: _table_cols(torch, first[n]) for n in ("orders", "supplier", "nation")}
+    fed = [inp["lineitem"] for inp in h_inputs + c_inputs]
+    t_o = time.perf_counter()
+    want = q21_oracle(_host_cols(torch, fed, Q21_COLS), **tables,
+                      f_code=GLOBAL_DICT.encode("F"),
+                      saudi_code=GLOBAL_DICT.encode("SAUDI ARABIA"))
+    oracle_s = time.perf_counter() - t_o
+    t = time.perf_counter()
+    rows = df.peek()
+    peek_ms = (time.perf_counter() - t) * 1e3
+    got = {r[0]: r[1] for r in rows}
+    check(len(rows) == len(got) and all(r[-1] == 1 for r in rows), "Q21 peek rows not unique")
+    check(got == want, f"Q21 peek != numpy oracle ({len(got)} vs {len(want)} suppliers)")
+    check(len(got) >= 100 * sf, f"Q21 peek holds {len(got)} suppliers")
+    errors = df.peek_errors()
+    check(errors == [], f"Q21 err collection not empty: {errors}")
+    wide = sorted(k for k in run["by_shape"] if k[3] >= 25)
+    check(wide, "Q21 launched no merge of 25 lanes")
+    out = {
+        "phase": "q21", "sf": sf, "card": card, "suppliers_waiting": len(got),
+        "numwait": sum(got.values()), "orders": int(first["orders"]._host_count),
+        "suppliers": int(first["supplier"]._host_count),
+        "lineitem_rows": int(sum(b._host_count for b in fed[:len(h_inputs)])),
+        "hydrate_orders_per_tick": hydrate_orders, "hydrate_ticks": len(h_inputs),
+        "hydrate_gen_s": gen_s, "churn_gen_s": churn_gen_s,
+        **_path_summary(run, c_rows[:ticks_churn]),
+        "device_ops_per_tick": ops, "profiled_ticks": profile_ticks, "peek_ms": peek_ms,
+        "oracle_s": oracle_s, "peek_errors": errors,
+        "threshold_state_rows": int(_threshold_state(df).batch.count),
+        "threshold_state_capacity": _threshold_state(df).capacity,
+        "wide_shapes": [list(k) for k in wide],
+        "state_tiers_before": tiers_before, "state_tiers": _state_tiers(df),
+        "join_tiers": list(df._ctx.join_caps),
+        "output_ladder": [b.capacity for b in df.output.runs_b],
+        "max_memory_allocated": peak,
+    }
+    emit(out)
+    out["by_shape"] = run["by_shape"]
+    del df, h_inputs, c_inputs, fed
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_path_kernel(torch, merge_kernel, card, shapes, phase: str, counts) -> list:
     """The kernel at each merge shape a path launched, against its plain
     chain; ``counts(cap_a, cap_b, out)`` gives the valid rows of each
@@ -1154,19 +1320,34 @@ def auction_oracle(ids, buyers, auctions, amounts, diff, k: int = 3) -> set:
     return {int(x) for x in b[rank < k]}
 
 
-def phase_auction(torch, merge_kernel, card, name: str, state_cap: int, **gen) -> dict:
+def phase_auction(torch, merge_kernel, card, name: str, state_cap: int,
+                  window: int | None = None, same_as: dict | None = None, **gen) -> dict:
     """The auction (TopK feeding Distinct) on the bid stream of
     ``AuctionGenerator(seed=42, **gen)``, the output's base pre-sized to
     2 rows a user (the bench's recorded tier, ``bench_tiers.json``: 1,024
     for 512 users): 8 hydrate ticks, a warm span of 16 churn ticks, 32
     timed churn ticks as 2 spans of 16, 16 profiled ticks; ``peek()``
-    against the numpy oracle over every bid fed."""
-    from materialize_tpu_torch.workloads.auction import auction_config
+    against the numpy oracle over every bid fed.
+
+    With ``window``, the auction under a temporal window
+    (``auction_window_config``): the insert-only stream, each bid
+    retracted by the filter ``mz_now() < bid_time + window``. Its
+    updates are those reaching the TopK, the inserts fed plus the
+    retractions the filter releases (the inserts of ``window`` ticks
+    before), so they compare with the retract-mode auction's; its final
+    peek must equal ``same_as``'s (the retract-mode run of the same seed
+    and ticks) as well as the oracle over the bids still in the
+    window."""
+    from materialize_tpu_torch.workloads.auction import auction_config, auction_window_config
     from materialize_tpu_torch.workloads.tpch import apply_tiers
 
     warm, ticks_churn, span_churn, profile_ticks = 16, 32, 16, 16
     t0 = time.perf_counter()
-    df, hydrate, churn = auction_config(seed=42, state_cap=state_cap, device="cuda", **gen)
+    if window is None:
+        df, hydrate, churn = auction_config(seed=42, state_cap=state_cap, device="cuda", **gen)
+    else:
+        df, hydrate, churn = auction_window_config(seed=42, state_cap=state_cap,
+                                                   window=window, device="cuda", **gen)
     apply_tiers(df, {"grow": [[("out", df.output.levels - 1), 2 * gen["n_users"]]],
                      "join_caps": [], "out_delta_cap": df.out_delta_cap})
     h_inputs = hydrate()
@@ -1175,13 +1356,25 @@ def phase_auction(torch, merge_kernel, card, name: str, state_cap: int, **gen) -
         inp, n = churn(i, len(h_inputs) + i)
         c_inputs.append(inp)
         c_rows.append(n)
+    if window is not None:
+        inserts = [inp["bids"]._host_count for inp in h_inputs] + c_rows
+        c_rows = [n + (inserts[t - window] if t >= window else 0)
+                  for t, n in zip(range(len(h_inputs), len(inserts)), c_rows)]
     gen_s = time.perf_counter() - t0
     run = _drive(torch, merge_kernel, df, h_inputs, c_inputs, name, warm=warm,
                  span_hydrate=8, span_churn=span_churn, ticks_churn=ticks_churn)
     ops = _profiled_ticks(torch, df, c_inputs[warm + ticks_churn:], name)
     fed = [inp["bids"] for inp in h_inputs + c_inputs]
     t_o = time.perf_counter()
-    want = auction_oracle(*_host_cols(torch, fed, (0, 1, 2, 3)))
+    ids, buyers, auctions, amounts, diff = _host_cols(torch, fed, (0, 1, 2, 3))
+    if window is not None:
+        # The bids still in the window at the last tick's time.
+        last = df.time - 1
+        bid_time = _host_cols(torch, fed, (4,))[0]
+        live = bid_time > last - window
+        ids, buyers, auctions, amounts, diff = (x[live] for x in (ids, buyers, auctions,
+                                                                  amounts, diff))
+    want = auction_oracle(ids, buyers, auctions, amounts, diff)
     oracle_s = time.perf_counter() - t_o
     t = time.perf_counter()
     rows = df.peek()
@@ -1191,6 +1384,8 @@ def phase_auction(torch, merge_kernel, card, name: str, state_cap: int, **gen) -
           f"{name} peek rows not unique")
     check(got == want and len(want) > 0,
           f"{name} peek != numpy oracle ({len(got)} vs {len(want)} buyers)")
+    if same_as is not None:
+        check(rows == same_as["peek"], f"{name} peek != {same_as['phase']}'s")
     errors = df.peek_errors()
     check(errors == [], f"{name} err collection not empty: {errors}")
     out = {
@@ -1202,10 +1397,129 @@ def phase_auction(torch, merge_kernel, card, name: str, state_cap: int, **gen) -
         "oracle_s": oracle_s, "peek_errors": errors, "state_tiers": _state_tiers(df),
         "output_ladder": [b.capacity for b in df.output.runs_b],
     }
+    if window is not None:
+        # The temporal Filter renders last: its buffer is the last slot.
+        buf = df.states[-1][0]
+        out.update(window=window, peek_equals=same_as["phase"],
+                   temporal_buffer_rows=int(buf.batch.count),
+                   temporal_buffer_capacity=buf.capacity,
+                   join_tiers=list(df._ctx.join_caps))
     emit(out)
     out["by_shape"] = run["by_shape"]
+    out["peek"] = rows
     del df, h_inputs, c_inputs, fed
     torch.cuda.empty_cache()
+    return out
+
+
+# -- the small arms ---------------------------------------------------------------
+
+ARMS_CONSTANT = (((7, 70), 2), ((8, 80), 1), ((9, 90), -1))
+
+
+def arms_plan():
+    """Union(Threshold(a - b) arranged by k, a Constant, generate_series
+    over s's bounds): every arm the Q21 and window paths leave out, and
+    Negate and Threshold again, in one plan."""
+    from materialize_tpu_torch.expr import relation as mir
+    from materialize_tpu_torch.expr.scalar import col
+    from materialize_tpu_torch.repr.schema import Column, ColumnType, Schema
+
+    kv = Schema([Column("k", ColumnType.INT64), Column("v", ColumnType.INT64)])
+    bounds = Schema([Column("k", ColumnType.INT64), Column("lo", ColumnType.INT64, True),
+                     Column("hi", ColumnType.INT64, True)])
+    pos = mir.Union((mir.Get("a", kv), mir.Negate(mir.Get("b", kv)))).threshold()
+    series = mir.FlatMap(mir.Get("s", bounds), "generate_series", (col(1), col(2)),
+                         (Column("x", ColumnType.INT64),)).project((0, 3))
+    return mir.Union((pos.arrange_by((0,)), mir.Constant(ARMS_CONSTANT, kv), series)), kv, bounds
+
+
+def arms_oracle(ticks) -> dict:
+    """The arms plan in numpy: the positive part of a - b, the
+    constant's rows once, and (k, x) for every x in [lo, hi] of each s
+    row whose bounds are both set, weighted by its diff."""
+    acc: dict = {}
+
+    def add(key, d):
+        acc[key] = acc.get(key, 0) + int(d)
+
+    ab: dict = {}
+    for t in ticks:
+        for name, sign in (("a", 1), ("b", -1)):
+            k, v, d = t[name]
+            for kk, vv, dd in zip(k, v, d):
+                ab[(int(kk), int(vv))] = ab.get((int(kk), int(vv)), 0) + sign * int(dd)
+        k, lo, hi, lo_null, hi_null, d = t["s"]
+        ok = ~(lo_null | hi_null)
+        for kk, a, b, dd in zip(k[ok], lo[ok], hi[ok], d[ok]):
+            for x in range(int(a), int(b) + 1):
+                add((int(kk), x), dd)
+    for key, m in ab.items():
+        if m > 0:
+            add(key, m)
+    for row, d in ARMS_CONSTANT:
+        add(row, d)
+    return {k: v for k, v in acc.items() if v}
+
+
+def phase_arms_small(torch, merge_kernel, card) -> dict:
+    """The arms plan on the card over 3 ticks of a few hundred seeded
+    rows: the first tick's fan-out (~2,000 rows) overflows the
+    FlatMap's tier of 1,024, which grows and replays; the Threshold's
+    input retracts more than it inserts for some rows. ``peek()``
+    against ``arms_oracle``."""
+    from materialize_tpu_torch.render.dataflow import Dataflow
+    from materialize_tpu_torch.repr.batch import Batch
+
+    expr, kv, bounds = arms_plan()
+    rng = np.random.default_rng(5)
+    ticks = []
+    for t in range(3):
+        n = 300
+        tick = {name: (rng.integers(0, 20, n), rng.integers(0, 6, n),
+                       rng.integers(1, 3, n) * rng.choice([-1, 1], n, p=[0.3, 0.7]))
+                for name in ("a", "b")}
+        m = 200 if t == 0 else 40
+        lo = rng.integers(-5, 5, m)
+        tick["s"] = (rng.integers(0, 50, m), lo, lo + rng.integers(-2, 20, m),
+                     rng.random(m) < 0.1, rng.random(m) < 0.1, rng.integers(1, 3, m))
+        ticks.append(tick)
+
+    def inputs(t, tick):
+        time = lambda n: np.full(n, t, np.uint64)  # noqa: E731
+        out = {name: Batch.from_numpy(kv, [k, v], time(len(d)), d, device="cuda")
+               for name, (k, v, d) in ((x, tick[x]) for x in ("a", "b"))}
+        k, lo, hi, ln, hn, d = tick["s"]
+        out["s"] = Batch.from_numpy(bounds, [k, lo, hi], time(len(d)), d,
+                                    nulls=[None, ln, hn], device="cuda")
+        return out
+
+    df = Dataflow(expr, device="cuda")
+    fed = [inputs(t, tick) for t, tick in enumerate(ticks)]
+    torch.cuda.synchronize()
+    merge_kernel.LAUNCHES = 0
+    merge_kernel.LAUNCHES_BY_SHAPE.clear()
+    # -- main path --------------------------------------------------------------
+    for inp in fed:
+        df.run_steps([inp])
+    torch.cuda.synchronize()
+    launches = merge_kernel.LAUNCHES
+    by_shape = dict(merge_kernel.LAUNCHES_BY_SHAPE)
+    # -- end of the main path ----------------------------------------------------
+    check(launches > 0, "the arms path launched no merge-path kernel")
+    check(("join", 0) in df._grown, f"the FlatMap's tier never grew: {df._grown}")
+    got: dict = {}
+    for r in df.peek():
+        got[r[:-2]] = got.get(r[:-2], 0) + r[-1]
+    want = arms_oracle(ticks)
+    check(got == want, f"arms peek != numpy oracle ({len(got)} vs {len(want)} rows)")
+    check(df.peek_errors() == [], "arms err collection not empty")
+    out = {"phase": "arms_small", "card": card, "ticks": len(ticks), "rows": len(got),
+           "grown_keys": [str(k) for k in df._grown], "join_tiers": list(df._ctx.join_caps),
+           "launches": launches,
+           "launches_by_shape": {",".join(map(str, k)): v for k, v in sorted(by_shape.items())}}
+    emit(out)
+    out["by_shape"] = by_shape
     return out
 
 
@@ -1426,9 +1740,10 @@ def main() -> int:
     mark("build+kernel")
     paths, rows_by_path, by_path = {}, {}, {}
 
-    # Q15's, Q9's and pagerank's runs fill up to their tier (Q15's join
-    # spines and MAX multiset hold one row per supplier, Q9's its
-    # tables, pagerank's a row per node or edge): time them half full.
+    # Q15's, Q9's, Q21's and pagerank's runs fill up to their tier (Q15's
+    # join spines and MAX multiset hold one row per supplier, Q9's and
+    # Q21's their tables, pagerank's a row per node or edge): time them
+    # half full.
     def half_full(ca, cb, out):
         return ca // 2, min(cb // 2, max(out - ca // 2, 0))
 
@@ -1491,8 +1806,34 @@ def main() -> int:
     phase_new_path_modes(torch, merge_kernel, card, "pagerank_vs_plain_path",
                          _small_pagerank)
     mark("pagerank_kernel_shape+vs_plain")
+    paths["q21"] = phase_q21(torch, merge_kernel, card, sf=Q21_SF)
+    mark("q21")
+    rows_by_path["q21"] = phase_path_kernel(torch, merge_kernel, card,
+                                            paths["q21"]["by_shape"], "q21_kernel_shape",
+                                            half_full)
+    phase_path_modes(torch, merge_kernel, card, "q21_vs_plain_path",
+                     lambda **kw: q21_presized(churn_ticks=8, **kw), sf=0.002,
+                     span_ticks=8)
+    mark("q21_kernel_shape+vs_plain")
+    paths["auction_window"] = phase_auction(
+        torch, merge_kernel, card, "auction_window", state_cap=1 << 13, window=4,
+        same_as=paths["auction"], n_users=512, auctions_per_tick=128,
+        bids_per_auction=8)
+    paths["auction_window_x16"] = phase_auction(
+        torch, merge_kernel, card, "auction_window_x16", state_cap=1 << 17, window=4,
+        same_as=paths["auction_x16"], n_users=8192, auctions_per_tick=2048,
+        bids_per_auction=8)
+    by_path["auction_window"] = _merged_shapes(paths["auction_window"],
+                                               paths["auction_window_x16"])
+    rows_by_path["auction_window"] = phase_path_kernel(
+        torch, merge_kernel, card, by_path["auction_window"],
+        "auction_window_kernel_shape", half_full)
+    mark("auction_window")
+    paths["arms_small"] = phase_arms_small(torch, merge_kernel, card)
+    mark("arms_small")
     for name, out in paths.items():
         shapes = out.pop("by_shape")
+        out.pop("peek", None)
         by_path.setdefault(name, shapes)
     keys = ("cap_a", "cap_b", "out", "L", "a_count", "b_count", "ms", "graph_ms",
             "bound_ms", "bound_share", "plain_ms")
@@ -1511,8 +1852,12 @@ def main() -> int:
         for r in rows
     ]
     emit({"phase": "kernel_table", "card": card, "rows": table})
-    big = next(r for r in kern["rows"]
-               if (r["cap_a"], r["cap_b"], r["out"]) == KERNEL_SHAPE and r["L"] == 4)
+
+    def fold_row(L):
+        return next(r for r in kern["rows"]
+                    if (r["cap_a"], r["cap_b"], r["out"]) == KERNEL_SHAPE and r["L"] == L)
+
+    big, one = fold_row(4), fold_row(1)
     emit({"kernels": [{
         "name": "merge_path",
         "route": "cuda",
@@ -1527,7 +1872,14 @@ def main() -> int:
         "plain_ms": big["plain_ms"],
         "bound_ms": big["bound_ms"],
         "bound_by": "bytes",
-        "library_ms": None,
+        # torch.searchsorted computes the kernel's ``search_right`` (not
+        # the merge) at L = 1: timed at the level-2 fold's shape beside
+        # the kernel's own ``pos`` there.
+        "library_ms": one["library_ms"],
+        "library_graph_ms": one["library_graph_ms"],
+        "library_vs_ms": one["pos_ms"],
+        "library_vs_graph_ms": one["pos_graph_ms"],
+        "library_shape": [*KERNEL_SHAPE, 1],
     }]})
     emit({"phase": "done", "wall_s": time.perf_counter() - t0, "card": card,
           "phase_s": {name: t - prev for (_, prev), (name, t) in zip(marks, marks[1:])}})

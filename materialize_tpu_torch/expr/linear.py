@@ -4,7 +4,9 @@
 Scalar expressions appended as new columns (map), predicates that drop
 rows (filter), and a final column selection (project), evaluated over a
 whole batch and ending in one compaction for the filter. Temporal
-predicates (``mz_now()``) are not ported.
+predicates (comparisons with ``mz_now()``) are split out of a Filter by
+the render layer into ``ops/temporal.py``; any other ``mz_now()``
+evaluates here to the step's ``time``.
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
 """Relation expressions (MIR) and the aggregate vocabulary: the copy of
 ``materialize_tpu/expr/relation.py`` that the port renders.
 
-Here: ``Get``, ``Let``, ``LetRec``, ``Project``, ``Map``, ``Filter``,
-``Join``, ``Reduce`` (``distinct()`` is a Reduce without aggregates),
-``TopK`` and ``Union``, with the chaining helpers and
-``AggregateFunc``/``AggregateExpr``. Negate, Threshold, FlatMap,
-Constant and ArrangeBy come with a later slice (ROADMAP Queue 1).
+All fifteen variants of the reference: ``Constant``, ``Get``, ``Let``,
+``LetRec``, ``Project``, ``Map``, ``FlatMap``, ``Filter``, ``Join``,
+``Reduce`` (``distinct()`` is a Reduce without aggregates), ``TopK``,
+``Negate``, ``Threshold``, ``Union`` and ``ArrangeBy``, with the
+chaining helpers and ``AggregateFunc``/``AggregateExpr``.
 """
 
 from __future__ import annotations
@@ -108,6 +108,29 @@ class RelationExpr:
     def distinct(self) -> "Reduce":
         return Reduce(self, tuple(range(self.schema().arity)), ())
 
+    def negate(self) -> "Negate":
+        return Negate(self)
+
+    def threshold(self) -> "Threshold":
+        return Threshold(self)
+
+    def union(self, *others) -> "Union":
+        return Union((self, *others))
+
+    def arrange_by(self, key) -> "ArrangeBy":
+        return ArrangeBy(self, tuple(key))
+
+
+@dataclass(frozen=True)
+class Constant(RelationExpr):
+    """A literal collection: ``rows`` holds (row tuple, diff) pairs."""
+
+    rows: tuple
+    _schema: Schema
+
+    def schema(self) -> Schema:
+        return self._schema
+
 
 @dataclass(frozen=True)
 class Get(RelationExpr):
@@ -183,6 +206,23 @@ class Map(RelationExpr):
 
 
 @dataclass(frozen=True)
+class FlatMap(RelationExpr):
+    """A table function (``generate_series``) applied to every row; its
+    ``output_cols`` are appended to the input's columns."""
+
+    input: RelationExpr
+    func: str
+    exprs: tuple
+    output_cols: tuple
+
+    def schema(self):
+        return Schema(tuple(self.input.schema().columns) + tuple(self.output_cols))
+
+    def children(self):
+        return [self.input]
+
+
+@dataclass(frozen=True)
 class Filter(RelationExpr):
     input: RelationExpr
     predicates: tuple
@@ -252,6 +292,32 @@ class TopK(RelationExpr):
 
 
 @dataclass(frozen=True)
+class Negate(RelationExpr):
+    """Every diff negated."""
+
+    input: RelationExpr
+
+    def schema(self):
+        return self.input.schema()
+
+    def children(self):
+        return [self.input]
+
+
+@dataclass(frozen=True)
+class Threshold(RelationExpr):
+    """Rows with positive multiplicity, at that multiplicity."""
+
+    input: RelationExpr
+
+    def schema(self):
+        return self.input.schema()
+
+    def children(self):
+        return [self.input]
+
+
+@dataclass(frozen=True)
 class Union(RelationExpr):
     """Multiset union. Names, types and scales come from the first
     input; a column is nullable when it is in any input."""
@@ -269,3 +335,18 @@ class Union(RelationExpr):
 
     def children(self):
         return list(self.inputs)
+
+
+@dataclass(frozen=True)
+class ArrangeBy(RelationExpr):
+    """Asserts an arrangement by ``key`` (column indices): a planner hint
+    that renders as the identity."""
+
+    input: RelationExpr
+    key: tuple
+
+    def schema(self):
+        return self.input.schema()
+
+    def children(self):
+        return [self.input]

@@ -1,6 +1,6 @@
 """Scalar expressions and their evaluation over a batch's columns (the
 port of the part of ``materialize_tpu/expr/scalar.py`` that TPC-H Q1,
-Q15 and Q9 reach).
+Q15, Q9 and Q21 and the temporal filters reach).
 
 Where the reference builds one fused XLA computation per expression at
 trace time, ``eval_expr`` here runs eager torch ops over whole columns.
@@ -14,11 +14,13 @@ MILLENNIUM, CENTURY, DECADE, and the FLOAT64 EPOCH and SECOND), and
 ``CallBinary`` for the six comparisons, for integer, DECIMAL and FLOAT64
 ``add``/``sub``/``mul``/``div``/``mod`` (with their division-by-zero
 masks; an INT64 or DECIMAL operand of a float operation is coerced as
-the reference's ``_as_float`` does) and for ``power``/``log_base``.
-Everything else raises ``NotImplementedError`` naming the missing
-piece: the other unary functions and casts, ``AND``/``OR`` and the other
-variadic functions, ``If``, date_trunc and the string families,
-``round_to``/``cast_decimal`` and ``mz_now()`` (ROADMAP Queue 1).
+the reference's ``_as_float`` does) and for ``power``/``log_base``, and
+``mz_now()`` (the step's time; a comparison with it in a Filter is a
+temporal filter, ``ops/temporal.py``). Everything else raises
+``NotImplementedError`` naming the missing piece: the other unary
+functions and casts, ``AND``/``OR`` and the other variadic functions,
+``If``, date_trunc and the string families and
+``round_to``/``cast_decimal`` (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -75,6 +77,29 @@ def _lift(x) -> "ScalarExpr":
     if isinstance(x, float):
         return Literal(x, ColumnType.FLOAT64)
     raise TypeError(x)
+
+
+@dataclass(frozen=True)
+class MzNow(ScalarExpr):
+    """The current virtual timestamp: evaluates to the step's time.
+    Predicates over it are temporal filters (``ops/temporal.py``)."""
+
+    def typ(self, schema: Schema) -> Column:
+        return Column("mz_now", ColumnType.TIMESTAMP)
+
+
+def contains_mz_now(expr: ScalarExpr) -> bool:
+    if isinstance(expr, MzNow):
+        return True
+    for f in getattr(expr, "__dataclass_fields__", {}):
+        v = getattr(expr, f)
+        if isinstance(v, ScalarExpr) and contains_mz_now(v):
+            return True
+        if isinstance(v, tuple) and any(
+            isinstance(x, ScalarExpr) and contains_mz_now(x) for x in v
+        ):
+            return True
+    return False
 
 
 @dataclass(frozen=True)
@@ -407,11 +432,17 @@ def _trunc_quotient(li: torch.Tensor, ri: torch.Tensor) -> torch.Tensor:
 def eval_expr(expr: ScalarExpr, batch: Batch, time=None, masks=None) -> Evaled:
     """Evaluate ``expr`` over every row (padding included) of ``batch``.
     Division-by-zero masks go to ``masks`` (see ``expr/errors.py``);
-    ``time`` is the step's timestamp (kept for the reference's
-    signature: ``mz_now()`` is not ported)."""
+    ``time`` is the step's timestamp, the value of ``mz_now()`` (None
+    outside a timed step, where ``mz_now()`` raises)."""
     schema = batch.schema
     cap = batch.capacity
     dev = batch.device
+
+    if isinstance(expr, MzNow):
+        if time is None:
+            raise ValueError("mz_now() evaluated outside a timed dataflow step")
+        return Evaled(torch.full((cap,), int(time), dtype=torch.int64, device=dev), None,
+                      expr.typ(schema))
 
     if isinstance(expr, ColumnRef):
         return Evaled(

@@ -17,8 +17,10 @@ Arrangement dict: ``batch`` (a batch dict), ``key`` and ``order``.
 
 ``install_state`` puts a reference dataflow's whole state into a port
 ``Dataflow`` of the same plan: its operator states (arrangements, and
-the spines of a join), output spine, err arrangement, frontier, and
-join and LetRec tiers.
+the spines of a join, a Threshold's arrangement, a temporal Filter's
+buffer of future updates with their release times in its u64 time
+column), output spine, err arrangement, frontier, first processed time,
+and join and LetRec tiers.
 """
 
 from __future__ import annotations
@@ -129,9 +131,11 @@ def install_state(df, states: list, output: dict, err_output: dict, time: int,
     spine's dict, ``err_output`` the err arrangement's, ``time`` the
     frontier, ``compact_tick`` the fold schedule's tick, ``join_caps``
     the join sites' output tiers and ``letrec_caps`` the LetRec sites'
-    binding-delta tiers (None keeps the port's). A TopK's arrangement, a
-    linear join's spines and the states inside a LetRec are parts like
-    any other.
+    binding-delta tiers (None keeps the port's). The first processed
+    time, where a Constant emits, becomes 0, the reference's. A TopK's
+    or a Threshold's arrangement, a temporal Filter's buffer, a linear
+    join's spines and the states inside a LetRec are parts like any
+    other.
     ``peek_errors`` reads the carried errors once the port has stepped
     (whether the plan has err sites is learnt at the first step)."""
     if len(states) != len(df.states):
@@ -154,3 +158,4 @@ def install_state(df, states: list, output: dict, err_output: dict, time: int,
     df.err_output = arrangement_from_numpy(err_output, ERR_SCHEMA, df.device)
     df._time = int(time)
     df._compact_tick = int(compact_tick)
+    df._ctx.first_time = 0

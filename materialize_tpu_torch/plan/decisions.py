@@ -1,7 +1,7 @@
 """The plan decisions the port's slices need (the port's copy of part of
 ``materialize_tpu/plan/decisions.py`` and of ``plan/lir.py:ReducePlan``):
 the capacity quantization menu, the ingest modes of the output index and
-of operator-state spines, the Reduce and TopK plans, the join
+of operator-state spines, the Reduce, TopK and Threshold plans, the join
 implementation and the linear join's stage keys. Capacities must match
 the reference's tier for tier, so overflow, rollback and replay land on
 the same ticks in both packages."""
@@ -106,6 +106,18 @@ def plan_topk(expr: mir.TopK, input_monotonic: bool) -> TopKPlan:
     else:
         kind = "Basic"
     return TopKPlan(kind, tuple(expr.group_key), expr.limit, expr.offset)
+
+
+@dataclass(frozen=True)
+class ThresholdPlan:
+    """How a Threshold executes: through an arrangement on all columns
+    (the one kind, "Basic")."""
+
+    kind: str = "Basic"
+
+
+def plan_threshold(expr: mir.Threshold) -> ThresholdPlan:
+    return ThresholdPlan()
 
 
 def join_stage_keys(expr: mir.Join, offsets: list, stage: int):

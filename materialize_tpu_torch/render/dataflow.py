@@ -1,8 +1,10 @@
 """Render a MIR expression into a maintained dataflow with an output index
-(the port of ``materialize_tpu/render/dataflow.py`` for ``Get``, ``Let``,
-``LetRec``, ``Project``, ``Map``, non-temporal ``Filter``, ``Union``, the
-delta and the linear ``Join``, ``TopK`` and the ``Reduce`` with
-accumulable and MIN/MAX aggregates).
+(the port of ``materialize_tpu/render/dataflow.py`` for every MIR node:
+``Constant``, ``Get``, ``Let``, ``LetRec``, ``Project``, ``Map``,
+``FlatMap``, ``Filter`` (temporal predicates included), ``Union``,
+``Negate``, ``Threshold``, ``ArrangeBy``, the delta and the linear
+``Join``, ``TopK`` and the ``Reduce`` with accumulable, MIN/MAX and
+float-sum aggregates).
 
 The reference compiles one XLA step program and runs a span of steps
 as one ``lax.scan``; PyTorch runs eagerly, so here a span is a host
@@ -20,6 +22,12 @@ loop over ticks, with the due spine levels folded after every
 - each join site has an output-capacity tier (default 1024, overflow
   key ``("join", site)``), read from the render context at every tick,
   so the replay after a doubling runs at the new tier;
+- a temporal Filter and a FlatMap take a join site too, for their
+  output tier, in the reference's order (after their input's sites);
+  a temporal Filter's buffer and a Threshold's arrangement are state
+  slots (overflow key ``("state", slot, 0)``);
+- a ``Constant`` emits its rows once, at the dataflow's first processed
+  time (``_RenderContext.first_time``, set by the first dispatch);
 - a LetRec site has a binding-delta tier (default 2048, overflow key
   ``("lr", site, binding)``) and iterates as ``_build_letrec`` says;
 - the err collection: scalar-evaluation and sum-overflow errors are
@@ -35,12 +43,13 @@ loop over ticks, with the due spine levels folded after every
   rollback and replay happen on the same ticks.
 
 Left out: donation, the compile ledger, the program bank, SPMD (the
-exchanges are the identity on one device), and every other MIR node
-(``_build`` raises ``NotImplementedError`` naming it).
+exchanges are the identity on one device), and the dyncfg gate of
+temporal filters (they are always on).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import resolve_device
@@ -56,21 +65,26 @@ from ..expr import relation as mir
 from ..expr.linear import MapFilterProject, apply_mfp
 from ..ops.consolidate import consolidate
 from ..expr import errors as _errors
+from ..expr.scalar import contains_mz_now
 from ..ops.delta_join import DeltaJoinOp
+from ..ops.flat_map import flat_map
 from ..ops.join import JoinOp
 from ..ops.reduce import ReduceOp
 from ..ops.sort import concat_batches, shrink
+from ..ops.temporal import TemporalFilterOp, canonicalize_temporal
+from ..ops.threshold import ThresholdOp
 from ..ops.topk import TopKOp
 from ..plan.decisions import (
     INGEST_RING_SLOTS,
     ingest_mode,
     join_implementation,
     join_stage_keys,
+    plan_threshold,
     quantize_cap,
     state_ingest_mode,
 )
-from ..repr.batch import Batch
-from ..repr.schema import ERR_SCHEMA
+from ..repr.batch import Batch, capacity_tier
+from ..repr.schema import DIFF_DTYPE, ERR_SCHEMA
 
 # Error deltas are shrunk to this tier before the err arrangement insert.
 ERR_DELTA_CAP = 2048
@@ -103,6 +117,9 @@ class _RenderContext:
         # evaluations after the first run: True (their sources are empty).
         self.letrec_names: frozenset = frozenset()
         self.sources_quiet = False
+        # The dataflow's first processed time (its as_of), where a
+        # Constant emits its rows; set by the first dispatch.
+        self.first_time: int | None = None
 
     def new_slot(self, init: tuple) -> int:
         self.slots.append(init)
@@ -164,6 +181,12 @@ def _build(expr: mir.RelationExpr, ctx: _RenderContext):
 
         return run
 
+    if isinstance(expr, mir.Constant):
+        return _build_constant(expr, ctx)
+
+    if isinstance(expr, mir.Filter) and any(contains_mz_now(p) for p in expr.predicates):
+        return _build_temporal_filter(expr, ctx)
+
     if isinstance(expr, (mir.Project, mir.Map, mir.Filter)):
         inner = _build(expr.input, ctx)
         arity = expr.input.schema().arity
@@ -180,6 +203,55 @@ def _build(expr: mir.RelationExpr, ctx: _RenderContext):
             b, upd, ovf = inner(states, inputs, time, errs)
             out = apply_mfp(mfp, b, time, errs)
             return (out if out_schema is None else out.replace(schema=out_schema)), upd, ovf
+
+        return run
+
+    if isinstance(expr, mir.Negate):
+        inner = _build(expr.input, ctx)
+
+        def run(states, inputs, time, errs):
+            b, upd, ovf = inner(states, inputs, time, errs)
+            return b.replace(diff=-b.diff), upd, ovf
+
+        return run
+
+    if isinstance(expr, mir.ArrangeBy):
+        # Arrangements are shared implicitly (a Let's delta is computed
+        # once): ArrangeBy is a planner hint.
+        return _build(expr.input, ctx)
+
+    if isinstance(expr, mir.Threshold):
+        if plan_threshold(expr).kind != "Basic":
+            raise NotImplementedError(f"threshold plan {plan_threshold(expr).kind}")
+        op = ThresholdOp(expr.input.schema())
+        slot = ctx.new_slot(op.init_state(ctx.state_cap, ctx.device))
+        inner = _build(expr.input, ctx)
+
+        def run(states, inputs, time, errs):
+            # The exchange on every column is the identity on one device.
+            b, upd, ovf = inner(states, inputs, time, errs)
+            new_state, out, overflow = op.step(states[slot], b, time)
+            upd = dict(upd)
+            upd[slot] = new_state
+            ovf = dict(ovf)
+            for part, flag in overflow.items():
+                ovf[("state", slot, part)] = flag
+            return out, upd, ovf
+
+        return run
+
+    if isinstance(expr, mir.FlatMap):
+        inner = _build(expr.input, ctx)
+        fsite = ctx.new_join_site()  # the fan-out's tier, like a join's
+        out_schema = expr.schema()
+
+        def run(states, inputs, time, errs):
+            b, upd, ovf = inner(states, inputs, time, errs)
+            out, overflow = flat_map(b, expr.func, expr.exprs, out_schema, time,
+                                     ctx.join_caps[fsite])
+            ovf = dict(ovf)
+            ovf[("join", fsite)] = overflow
+            return out, upd, ovf
 
         return run
 
@@ -255,6 +327,57 @@ def _build(expr: mir.RelationExpr, ctx: _RenderContext):
         return _build_letrec(expr, ctx)
 
     raise NotImplementedError(f"render of {type(expr).__name__} is not ported")
+
+
+def _build_constant(expr: mir.Constant, ctx: _RenderContext):
+    """The literal rows, emitted once: at the dataflow's first processed
+    time (a hydrated dataflow never processes time 0), nothing after."""
+    schema = expr.schema()
+    rows = expr.rows
+    n = len(rows)
+    full = Batch.from_numpy(
+        schema,
+        [np.asarray([r[0][j] for r in rows], dtype=c.dtype) if n
+         else np.zeros(0, dtype=c.dtype) for j, c in enumerate(schema.columns)],
+        np.zeros(n, np.uint64), np.asarray([r[1] for r in rows], dtype=DIFF_DTYPE),
+        capacity=capacity_tier(max(n, 1)), device=ctx.device,
+    )
+    none = full.replace(count=torch.zeros_like(full.count))
+
+    def run(states, inputs, time, errs):
+        b = full if time == ctx.first_time else none
+        return b.replace(time=torch.full_like(b.time, time)), {}, {}
+
+    return run
+
+
+def _build_temporal_filter(expr: mir.Filter, ctx: _RenderContext):
+    """The plain predicates first, then the window operator over the
+    temporal ones. Its buffer is a state slot, its output tier a join
+    site, both taken after the input's."""
+    temporal = [p for p in expr.predicates if contains_mz_now(p)]
+    plain = [p for p in expr.predicates if not contains_mz_now(p)]
+    inner = _build(expr.input, ctx)
+    mfp = MapFilterProject(expr.input.schema().arity, predicates=plain)
+    lo_exprs, hi_exprs = canonicalize_temporal(temporal)
+    op = TemporalFilterOp(expr.input.schema(), tuple(lo_exprs), tuple(hi_exprs))
+    slot = ctx.new_slot(op.init_state(ctx.state_cap, ctx.device))
+    osite = ctx.new_join_site()
+
+    def run(states, inputs, time, errs):
+        b, upd, ovf = inner(states, inputs, time, errs)
+        b = apply_mfp(mfp, b, time, errs)
+        new_state, out, overflow, out_ovf = op.step(states[slot], b, time,
+                                                    ctx.join_caps[osite])
+        upd = dict(upd)
+        upd[slot] = new_state
+        ovf = dict(ovf)
+        for part, flag in overflow.items():
+            ovf[("state", slot, part)] = flag
+        ovf[("join", osite)] = out_ovf
+        return out, upd, ovf
+
+    return run
 
 
 def _build_join_delta(expr: mir.Join, ctx: _RenderContext):
@@ -740,6 +863,8 @@ class Dataflow:
         """Run ticks with the scheduled folds, issuing no device->host
         transfer: flags stay on the device, OR-accumulated. Returns
         (deltas, step-flag OR, compaction-flag OR)."""
+        if self._ctx.first_time is None:
+            self._ctx.first_time = self._time
         sfl, cfl = None, None
         if flush_first and self._compact_tick % self._compact_every:
             # Flush (full cascade) so the span's schedule starts clean.

@@ -1,28 +1,30 @@
-"""TPC-H Q1, Q15 and Q9 as maintained dataflows: the port's counterparts
-of the reference bench's ``config_q1``, ``config_q15`` and ``config_q9``
-(``bench.py:268-313``) over the lineitem stream of
-``workloads/index.py``, and ``apply_tiers``, the port of the bench's
-tier pre-sizing (``bench.py:apply_tiers``).
+"""TPC-H Q1, Q15, Q9 and Q21 as maintained dataflows: the port's
+counterparts of the reference bench's ``config_q1``, ``config_q15`` and
+``config_q9`` (``bench.py:268-313``), and Q21 in Q9's layout, over the
+lineitem stream of ``workloads/index.py``, and ``apply_tiers``, the
+port of the bench's tier pre-sizing (``bench.py:apply_tiers``).
 
 ``q1_plan``, ``q15_plan`` and ``q9_plan`` are the optimized plans the
 reference renders (``materialize_tpu.transform.optimizer.optimize`` of
-its ``q1_mir()``, ``q15_mir()`` and ``q9_mir()``), built directly with
-the port's MIR classes; the port does not carry the optimizer. Tests
-convert the reference's optimizer output and assert the trees equal, so
-a change there shows.
+its ``q1_mir()``, ``q15_mir()`` and ``q9_mir()``), and ``q21_plan`` its
+optimizer's plan of the Q21 text (``Q21_SQL``), built directly with the
+port's MIR classes; the port does not carry the optimizer nor the SQL
+planner. Tests convert the reference's optimizer output and assert the
+trees equal, so a change there shows.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..arrangement.spine import Spine
 from ..expr import relation as mir
 from ..expr.relation import AggregateExpr, AggregateFunc
-from ..expr.scalar import CallUnary, UnaryFunc, col, lit
+from ..expr.scalar import BinaryFunc, CallBinary, CallUnary, UnaryFunc, col, lit
 from ..plan.decisions import quantize_cap
 from ..repr.batch import Batch
-from ..repr.schema import ColumnType
+from ..repr.schema import GLOBAL_DICT, ColumnType
 from ..storage.generator.tpch import (
     LINEITEM_SCHEMA,
     NATION_SCHEMA,
@@ -226,18 +228,27 @@ def build_q9_dataflow(n_orders_per_tick: int = 1024, device=None):
                                    **Q9_LAYOUT)
 
 
+def _static_tables(gen, names, device=None) -> dict:
+    """The named static tables as insert batches; ``orders`` holds every
+    order (``bench.py:config_q9``: the orders table rides the first
+    tick; only lineitem churns)."""
+    out = {}
+    for name in names:
+        if name == "orders":
+            okeys = np.arange(1, gen.n_orders + 1, dtype=np.int64)
+            n = len(okeys)
+            out[name] = Batch.from_numpy(ORDERS_SCHEMA, gen.orders_rows(okeys),
+                                         np.zeros(n, np.uint64), np.ones(n, np.int64),
+                                         device=device)
+        else:
+            out[name] = gen.table_batch(name, device=device)
+    return out
+
+
 def q9_tables(gen, device=None) -> dict:
     """Q9's static inputs as insert batches: part, supplier, partsupp,
-    nation and every order (``bench.py:config_q9``: the orders table
-    rides the first tick; only lineitem churns)."""
-    okeys = np.arange(1, gen.n_orders + 1, dtype=np.int64)
-    n = len(okeys)
-    out = {name: gen.table_batch(name, device=device)
-           for name in ("part", "supplier", "partsupp", "nation")}
-    out["orders"] = Batch.from_numpy(ORDERS_SCHEMA, gen.orders_rows(okeys),
-                                     np.zeros(n, np.uint64), np.ones(n, np.int64),
-                                     device=device)
-    return out
+    nation and every order."""
+    return _static_tables(gen, Q9_TABLES, device)
 
 
 def q9_config(sf: float = 1.0, n_orders_per_tick: int = 1024, seed: int = 42,
@@ -303,6 +314,261 @@ def q9_tiers(df, gen, hydrate_orders: int, n_orders_per_tick: int,
     grow.append([("out", df.output.levels - 1), out0 + 175])  # 25 nations x 7 years
     return {"grow": [[k, quantize_cap(n)] for k, n in grow],
             "join_caps": [quantize_cap(tick_li)] * len(df._ctx.join_caps),
+            "out_delta_cap": df.out_delta_cap, "slot_cap": 256, "letrec_caps": []}
+
+
+# TPC-H Q21 (clause 2.4.21) as written, with 'F' and 'SAUDI ARABIA', less
+# ORDER BY and LIMIT (a maintained view of <= 1 row per supplier is
+# ordered and cut at read time).
+Q21_SQL = """select s_name, count(*) as numwait
+from supplier, lineitem l1, orders, nation
+where s_suppkey = l1.l_suppkey
+  and o_orderkey = l1.l_orderkey
+  and o_orderstatus = 'F'
+  and l1.l_receiptdate > l1.l_commitdate
+  and exists (select * from lineitem l2 where l2.l_orderkey = l1.l_orderkey
+              and l2.l_suppkey <> l1.l_suppkey)
+  and not exists (select * from lineitem l3 where l3.l_orderkey = l1.l_orderkey
+                  and l3.l_suppkey <> l1.l_suppkey
+                  and l3.l_receiptdate > l3.l_commitdate)
+  and s_nationkey = n_nationkey
+  and n_name = 'SAUDI ARABIA'
+group by s_name"""
+
+# The static tables Q21 joins beside the lineitem stream.
+Q21_TABLES = ("supplier", "nation", "orders")
+
+
+def _semijoin_keys(outer: mir.RelationExpr, inner: mir.RelationExpr) -> mir.RelationExpr:
+    """The distinct (l_orderkey, l_suppkey) of ``outer`` (a 25-column
+    cse3-shaped collection) that have a row of ``inner`` (lineitem-shaped)
+    of the same order and another supplier: the decorrelated subquery
+    of an EXISTS or NOT EXISTS."""
+    keys = outer.project([3, 5]).distinct()
+    joined = mir.Join((keys, inner), equivalences=((col(0), col(2)),),
+                      implementation="linear")
+    return (
+        joined.project([0, 1, 4])
+        .filter([CallBinary(BinaryFunc.NEQ, col(2), col(1))])
+        .project([0, 1, 2])
+        .project([0, 1])
+        .distinct()
+    )
+
+
+def _semijoin(outer_name: str, outer_schema, inner: mir.RelationExpr) -> mir.RelationExpr:
+    """The rows of ``Get outer_name`` whose (l_orderkey, l_suppkey) is in
+    ``_semijoin_keys``: a linear join on both, projected back."""
+    outer = mir.Get(outer_name, outer_schema)
+    return mir.Join(
+        (outer, _semijoin_keys(outer, inner)),
+        equivalences=((col(3), col(25)), (col(5), col(26))),
+        implementation="linear",
+    ).project(range(25))
+
+
+def q21_plan(dictionary=GLOBAL_DICT) -> mir.RelationExpr:
+    """TPC-H Q21 (suppliers who kept orders waiting), optimized:
+
+    - ``cse0``: the late lineitems (``l_receiptdate > l_commitdate``);
+    - ``cse3``: a 4-input delta join of the 'F' orders, cse0, supplier
+      and the nation 'SAUDI ARABIA', as (supplier, lineitem, orders,
+      nation) columns;
+    - ``cse13``: the EXISTS, a semijoin of cse3 with the keys of another
+      supplier's lineitem of the same order;
+    - the body: the NOT EXISTS as an antijoin,
+      ``Threshold(Union(cse13, Negate(semijoin of cse13 with cse0)))``,
+      then ``count(*)`` by ``s_name``.
+
+    The string literals are codes of ``dictionary``, the one that codes
+    the data (the port's own by default)."""
+    def string(s: str):
+        return lit(dictionary.encode(s), ColumnType.STRING)
+
+    li = mir.Get("lineitem", LINEITEM_SCHEMA)
+    late = li.filter([col(12).gt(col(11))])
+    cse0 = mir.Get("cse0", LINEITEM_SCHEMA)
+    # global columns: orders [0, 6), cse0 [6, 19), supplier [19, 22),
+    # nation [22, 25)
+    joined = mir.Join(
+        (
+            mir.Get("orders", ORDERS_SCHEMA).filter([col(2).eq(string("F"))]),
+            cse0,
+            mir.Get("supplier", SUPPLIER_SCHEMA),
+            mir.Get("nation", NATION_SCHEMA).filter([col(2).eq(string("SAUDI ARABIA"))]),
+        ),
+        equivalences=(
+            (col(19), col(8)),  # s_suppkey = l_suppkey
+            (col(6), col(0)),  # l_orderkey = o_orderkey
+            (col(20), col(22)),  # s_nationkey = n_nationkey
+        ),
+        implementation="delta",
+    )
+    cse3_value = joined.project([19, 20, 21, *range(6, 19), *range(6), 22, 23, 24])
+    cse3_schema = cse3_value.schema()
+    cse13_value = _semijoin("cse3", cse3_schema, li)
+    cse13 = mir.Get("cse13", cse13_value.schema())
+    body = (
+        mir.Union((cse13, mir.Negate(_semijoin("cse13", cse13_value.schema(), cse0))))
+        .threshold()
+        .project([2])
+        .reduce((0,), (AggregateExpr(AggregateFunc.COUNT, lit(True)),))
+    )
+    return mir.Let("cse0", late,
+                   mir.Let("cse3", cse3_value, mir.Let("cse13", cse13_value, body)))
+
+
+def build_q21_dataflow(n_orders_per_tick: int = 1024, device=None):
+    """The Q21 dataflow in Q9's layout. Returns (df, hydrate_batch_orders,
+    churn_capacity)."""
+    return build_lineitem_dataflow(q21_plan(), n_orders_per_tick, device=device,
+                                   **Q9_LAYOUT)
+
+
+def q21_tables(gen, device=None) -> dict:
+    """Q21's static inputs as insert batches: supplier, nation and every
+    order (they ride the first tick, as Q9's do)."""
+    return _static_tables(gen, Q21_TABLES, device)
+
+
+def q21_config(sf: float = 1.0, n_orders_per_tick: int = 1024, seed: int = 42,
+               device=None, hydrate_orders: int | None = None):
+    """Returns (df, hydrate, churn) as ``q9_config`` does, for Q21 over
+    Q9's stream and layout: supplier, nation and all orders ride the
+    first hydrate tick, only lineitem hydrates and churns.
+    ``apply_tiers(df, q21_tiers(...))`` pre-sizes the tiers from the
+    hydrate inputs."""
+    df, h_orders, churn_cap = build_q21_dataflow(n_orders_per_tick, device)
+    return lineitem_config(
+        df, hydrate_orders or h_orders, churn_cap, sf, n_orders_per_tick, seed,
+        extra_inputs_fn=lambda gen: q21_tables(gen, device),
+    )
+
+
+def _q21_counts(h_inputs: list, dictionary) -> dict:
+    """Row counts of Q21's collections over the hydrate inputs (one
+    readback): every lineitem row, the late ones (cse0), the 'F' orders,
+    cse3's rows (late, of an 'F' order, from a Saudi supplier), the
+    suppliers, the largest tick's lineitem rows, and two per-tick
+    maxima: the late rows (``late_tick``) and, for the semijoins, the
+    larger of cse3's rows and its keys' lines (``semi_tick``: each key
+    (l_orderkey, l_suppkey) of the tick's cse3 meets the tick's rows of
+    its order; a hydrate tick holds each of its orders whole). The
+    strings are codes of ``dictionary``."""
+    first = h_inputs[0]
+    orders, supplier, nation = first["orders"], first["supplier"], first["nation"]
+    dev = orders.device
+    o_key, o_status = orders.cols[0], orders.cols[2]
+    o_valid = orders.valid_mask()
+    is_f = torch.zeros(int(o_key.max()) + 2, dtype=torch.bool, device=dev)
+    is_f[o_key] = o_valid & (o_status == dictionary.encode("F"))
+    n_valid = nation.valid_mask() & (nation.cols[2] == dictionary.encode("SAUDI ARABIA"))
+    saudi_nations = nation.cols[0][n_valid]
+    s_key = supplier.cols[0]
+    is_saudi = torch.zeros(int(s_key.max()) + 2, dtype=torch.bool, device=dev)
+    is_saudi[s_key] = supplier.valid_mask() & torch.isin(supplier.cols[1], saudi_nations)
+    width = is_saudi.shape[0]
+    per_tick = []
+    for inp in h_inputs:
+        b = inp["lineitem"]
+        valid = b.valid_mask()
+        okey = torch.clamp(b.cols[0], 0, is_f.shape[0] - 1)
+        skey = torch.clamp(b.cols[2], 0, width - 1)
+        late = valid & (b.cols[12] > b.cols[11])
+        cse3 = late & is_f[okey] & is_saudi[skey]
+        orders_t, lines = torch.unique(okey[valid], return_counts=True)
+        keys = torch.unique(okey[cse3] * width + skey[cse3])
+        key_lines = lines[torch.searchsorted(orders_t, torch.div(keys, width,
+                                                                 rounding_mode="floor"))]
+        per_tick.append(torch.stack([late.sum(), cse3.sum(), key_lines.sum()]))
+    ticks = torch.stack(per_tick)
+    (late_n, cse3_n, _), (late_t, cse3_t, lines_t) = ticks.sum(0).tolist(), \
+        ticks.max(0).values.tolist()
+    return {"lineitem": sum(inp["lineitem"]._host_count for inp in h_inputs),
+            "late": int(late_n), "orders_f": int(is_f.sum()), "cse3": int(cse3_n),
+            "supplier": supplier._host_count,
+            "tick_lineitem": max(inp["lineitem"]._host_count for inp in h_inputs),
+            "late_tick": int(late_t), "semi_tick": int(max(cse3_t, lines_t))}
+
+
+def _q21_collection(sp: Spine) -> str:
+    """What a Q21 join spine arranges, by its schema: a table, cse3 or
+    cse13 (25 columns), the distinct keys (2), or lineitem-shaped rows
+    (13: all of lineitem or cse0, told apart by the caller)."""
+    if sp.schema.arity == 25:
+        return "cse3"
+    if sp.schema.arity == 2:
+        return "keys"
+    return _spine_table(sp)
+
+
+def _q21_lineitem_stage(df) -> int:
+    """The state slot of the EXISTS's inner stage, (distinct keys) ⋈
+    lineitem. The NOT EXISTS's inner stage, (distinct keys) ⋈ cse0, has
+    the same shape; ``cse13``'s value renders before the body, so the
+    EXISTS's takes the lower slot."""
+    return min(slot for slot, parts in enumerate(df.states)
+               if len(parts) == 2 and all(isinstance(p, Spine) for p in parts)
+               and (parts[0].schema.arity, parts[1].schema.arity) == (2, 13))
+
+
+def q21_tiers(df, h_inputs: list, n_orders_per_tick: int, churn_ticks: int,
+              dictionary=GLOBAL_DICT) -> dict:
+    """The tiers a Q21 run needs, in ``apply_tiers``'s form, from the
+    collections' sizes over the hydrate inputs (``_q21_counts``) and the
+    fold schedule, as ``q9_tiers`` sizes Q9's:
+
+    - each join spine's base and run 0 hold its whole collection (a
+      lineitem-fed one: its snapshot rows plus ``churn_ticks`` churn
+      ticks): the 'F' orders, the suppliers, the nations, all of
+      lineitem for the EXISTS's inner stage (the only stage whose right
+      input is ``Get lineitem``), cse0 for every other lineitem-shaped
+      spine, and cse3's rows for the 25-column spines and the distinct
+      keys;
+    - its slots hold one tick: a hydrate or churn tick's lineitem rows,
+      the whole table for the static ones;
+    - each Reduce's and the Threshold's arrangement hold cse3's rows
+      (the distinct keys, the antijoin's multiset; the count by s_name
+      holds fewer);
+    - the join tiers hold one tick's matches of one run: the delta
+      join's (site 0), a tick's late rows (each meets one order, one
+      supplier, one nation); the four linear stages' (sites 1-4, the
+      EXISTS's then the NOT EXISTS's inner and outer stage), a tick's
+      ``semi_tick`` (a tick's cse3 rows meet one key each, its keys the
+      lines of their orders). Sizing them by a tick's lineitem rows, as
+      Q9's, ran the card out of memory at SF 1: a stage's output holds
+      (runs + slots) x 2 tiers of 25-column rows;
+    - the output's base holds its run 0 and a row per supplier.
+
+    ``dictionary`` codes the inputs' strings, as ``q21_plan``'s."""
+    c = _q21_counts(h_inputs, dictionary)
+    churn_li = rows_per_tick(n_orders_per_tick)
+    tick_li = max(c["tick_lineitem"], churn_li)
+    grown = churn_ticks * churn_li
+    rows = {"lineitem": c["lineitem"] + grown, "late": c["late"] + grown,
+            "orders": c["orders_f"], "supplier": c["supplier"], "nation": 25,
+            "cse3": c["cse3"] + grown, "keys": c["cse3"] + grown}
+    lineitem_slot = _q21_lineitem_stage(df)
+    grow = []
+    for slot, parts in enumerate(df.states):
+        for p, sp in enumerate(parts):
+            if not isinstance(sp, Spine):
+                grow.append([("state", slot, p), rows["cse3"]])
+                continue
+            what = _q21_collection(sp)
+            if what == "lineitem" and (slot, p) != (lineitem_slot, 1):
+                what = "late"
+            n = rows[what]
+            grow += [[("state", slot, (p, ri)), n] for ri in range(sp.levels)]
+            if sp.slots:
+                static = what in ("orders", "supplier", "nation")
+                grow.append([("state", slot, (p, "tail")), n if static else tick_li])
+    out0 = df.output.runs_b[0].capacity
+    grow.append([("out", df.output.levels - 1), out0 + c["supplier"]])
+    n_sites = len(df._ctx.join_caps)
+    return {"grow": [[k, quantize_cap(n)] for k, n in grow],
+            "join_caps": [quantize_cap(c["late_tick"])]
+            + [quantize_cap(c["semi_tick"])] * (n_sites - 1),
             "out_delta_cap": df.out_delta_cap, "slot_cap": 256, "letrec_caps": []}
 
 

@@ -53,14 +53,23 @@ _CLASSES = {
     jmir.Get: tmir.Get, jmir.Project: tmir.Project, jmir.Map: tmir.Map,
     jmir.Filter: tmir.Filter, jmir.Reduce: tmir.Reduce, jmir.Let: tmir.Let,
     jmir.Join: tmir.Join, jmir.AggregateExpr: tmir.AggregateExpr,
+    jmir.TopK: tmir.TopK, jmir.Union: tmir.Union, jmir.Negate: tmir.Negate,
+    jmir.Threshold: tmir.Threshold, jmir.Constant: tmir.Constant,
+    jmir.FlatMap: tmir.FlatMap, jmir.ArrangeBy: tmir.ArrangeBy,
     js.ColumnRef: ts.ColumnRef, js.Literal: ts.Literal, js.CallBinary: ts.CallBinary,
-    js.CallUnary: ts.CallUnary,
+    js.CallUnary: ts.CallUnary, js.MzNow: ts.MzNow,
 }
 
 
 def _convert(x):
     """A reference plan (MIR, scalars, schemas, enums) as the port's
-    objects, field by field; a class the port lacks fails the test."""
+    objects, field by field; a class the port lacks fails the test. A
+    STRING literal's code is carried by its string: each package codes
+    strings in its own dictionary."""
+    if isinstance(x, js.Literal) and x.ctype is jschema.ColumnType.STRING \
+            and x.value is not None:
+        code = tschema.GLOBAL_DICT.encode(jschema.GLOBAL_DICT.decode(x.value))
+        return ts.Literal(code, tschema.ColumnType.STRING, x.scale)
     if isinstance(x, tuple):
         return tuple(_convert(v) for v in x)
     if isinstance(x, jschema.Schema):
