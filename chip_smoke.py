@@ -8,7 +8,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
 
 1. card and build: the card's name and power limit (``nvidia-smi``),
    then the merge-path kernel built from ``csrc/merge_path.cu`` with
-   nvcc for sm_90a (seconds, ptxas report);
+   nvcc for sm_90a (seconds, ptxas report); then ``sql_plans``: TPC-H
+   Q21 and Q7 planned from their text by the port's SQL frontend and
+   optimizer on this machine (no JAX), Q21's plan equal to
+   ``q21_plan()``, node counts and planning ms;
 2. kernel against its plain torch versions, exactly: insertion points
    (``pos``) against ``search_right_torch`` for L in {1, 2, 3, 4, 5, 8,
    13, 25, 29}, random ``a_count`` (0 and m included), heavy duplicates, lanes on
@@ -58,19 +61,20 @@ Phases, each printing one JSON line (any failure exits non-zero):
 10. Q15 at SF 0.01 in both merge modes: equal peeks, revenue
     accumulators, join spines, MAX multiset, output runs and err
     arrangements;
-11. TPC-H Q9 at SF 1 (``workloads/tpch.py``, the reference bench's Q9
-    layout: a 6-input delta join over ten spines with a ring of 8
-    append slots each, EXTRACT(YEAR), profit summed by (n_name,
-    o_year)): part, supplier, partsupp, nation and all 1.5M orders ride
-    the first hydrate tick, lineitem hydrates in ticks of 16,384 orders
-    with every tier pre-sized (``q9_tiers``; no hydrate span may
-    overflow), no warm span, the join tier set back to a churn tick's
+11. TPC-H Q9 at SF 0.5 (``Q9_SF``; SF 1 until Q7 took its time;
+    ``workloads/tpch.py``, the reference bench's Q9 layout: a 6-input
+    delta join over ten spines with a ring of 8 append slots each,
+    EXTRACT(YEAR), profit summed by (n_name, o_year)): part, supplier,
+    partsupp, nation and every order ride the first hydrate tick,
+    lineitem hydrates in ticks of 16,384 orders with every tier
+    pre-sized (``q9_tiers``; no hydrate span may overflow), no warm
+    span, the join tier set back to a churn tick's
     (``set_join_tiers``), then 32 churn ticks as spans of 16 with one
-    flags readback each; kernel
-    launches by merge shape (2^23 rows at L = 6 among them), device
-    operations per tick from 2 profiled ticks, peak device memory,
-    ``peek()`` against a numpy Q9 oracle over every batch fed and
-    ``peek_errors()`` empty;
+    flags readback each; kernel launches by merge shape (2^22 rows at
+    L = 6 among them; 2^23 at SF 1), device operations per tick from 2
+    profiled ticks, peak device memory,
+    ``peek()`` against a numpy Q9 oracle over every batch fed (175
+    groups) and ``peek_errors()`` empty;
 12. the kernel at each merge shape the Q9 path launched, against its
     plain chain;
 13. Q9 at SF 0.002 in both merge modes: equal peeks, accumulators, join
@@ -122,7 +126,28 @@ Phases, each printing one JSON line (any failure exits non-zero):
 20. ``arms_small``: Union, Constant, FlatMap (``generate_series``, its
     tier overflowing once, growing and replaying), ArrangeBy, Negate and
     Threshold in one plan over 3 ticks of a few hundred seeded rows,
-    against numpy.
+    against numpy;
+21. TPC-H Q7 (``Q7_SQL``, clause 2.4.7 less ORDER BY) planned from its
+    text on this machine by the port's frontend and optimizer
+    (``workloads/tpch.py:q7_expr``: a 6-input delta join with nation
+    twice, the BETWEEN inside the lineitem input, the OR of the nation
+    pairs after the join) at SF 0.5 (``Q7_SF``: the script's time
+    limit) in Q9's layout: nation and supplier on the first hydrate
+    tick, customer on the second, every order on the third with the
+    first of the lineitem ticks of 32,768 orders (``q7_stagger``: on one
+    tick, customer would meet every order in one probe), every tier pre-sized
+    (``q7_tiers``), 32 churn ticks as spans of 16 with one flags
+    readback each, 2 profiled ticks; launches by merge shape, peak
+    memory, ``peek()`` against a numpy Q7 oracle (4 groups) and
+    ``peek_errors()`` empty; then the kernel at each merge shape Q7
+    launched, and Q7 at SF 0.002 in both merge modes (every state part
+    equal);
+22. ``scalars_small``: every scalar function outside the TPC-H paths
+    (math, casts with their overflow errors, date_trunc, rounding,
+    AND/OR, COALESCE, GREATEST/LEAST, ADD_INTERVAL, ``If``) and four
+    string functions, in six small dataflows over 2 ticks of 256 seeded
+    rows with NULLs, against numpy (floats within rel 1e-14), the err
+    collection against numpy's count of out-of-range casts.
 
 ``{"phase": "kernel_table", ...}`` gives one row per merge shape of each
 main path; ``{"phase": "done", ...}`` gives the script's wall seconds and
@@ -1002,6 +1027,12 @@ def q9_presized(sf: float, churn_ticks: int, hydrate_orders: int = 896, **kw):
     return df, hydrate, churn
 
 
+# Q9's scale: SF 0.5 makes room for Q7. At SF 1 its phase took 420.5 s
+# of the script's 939.1 s, at SF 0.5 228.6 s (an NVIDIA H100 80GB HBM3
+# at 700 W, PERF.md §4).
+Q9_SF = 0.5
+
+
 def phase_q9(torch, merge_kernel, card, sf: float = 1.0) -> dict:
     from materialize_tpu_torch.workloads.index import rows_per_tick
     from materialize_tpu_torch.workloads.tpch import set_join_tiers
@@ -1046,11 +1077,15 @@ def phase_q9(torch, merge_kernel, card, sf: float = 1.0) -> dict:
     got = {(r[0], r[1]): r[2] for r in rows}
     check(len(rows) == len(got) and all(r[-1] == 1 for r in rows), "Q9 peek rows not unique")
     check(got == want, f"Q9 peek != numpy oracle ({len(got)} vs {len(want)} groups)")
-    check(sf < 1 or len(got) >= 100, f"Q9 peek holds {len(got)} groups")
+    # every (nation, order year): 25 nations x 7 years
+    check(len(got) == 175, f"Q9 peek holds {len(got)} groups, not 175")
     errors = df.peek_errors()
     check(errors == [], f"Q9 err collection not empty: {errors}")
-    wide = sorted(k for k in run["by_shape"] if k[3] == 6 and max(k[:3]) >= 1 << 23)
-    check(sf < 1 or wide, "Q9 launched no merge of 2^23 rows at L = 6")
+    # the largest merge at L = 6 grows with the scale: 2^23 rows at SF 1,
+    # 2^22 at SF 0.5
+    wide_rows = int((1 << 23) * sf)
+    wide = sorted(k for k in run["by_shape"] if k[3] == 6 and max(k[:3]) >= wide_rows)
+    check(wide, f"Q9 launched no merge of {wide_rows} rows at L = 6")
     out = {
         "phase": "q9", "sf": sf, "card": card, "groups": len(got),
         "orders": int(first["orders"]._host_count), "parts": int(first["part"]._host_count),
@@ -1210,6 +1245,493 @@ def phase_q21(torch, merge_kernel, card, sf: float) -> dict:
     out["by_shape"] = run["by_shape"]
     del df, h_inputs, c_inputs, fed
     torch.cuda.empty_cache()
+    return out
+
+
+# -- TPC-H Q7, planned from its text --------------------------------------------
+
+Q7_COLS = (0, 2, 5, 6, 10)  # orderkey, suppkey, extendedprice, discount, shipdate
+# Q7's scale and hydrate tick, the cuts the time limit forced: at SF 1
+# in ticks of 16,384 orders the script took 1,149.6 s, its Q7 phase
+# 247.1 s (an NVIDIA H100 80GB HBM3 at 700 W, PERF.md §4).
+Q7_SF = 0.5
+Q7_HYDRATE_ORDERS = 32768
+
+
+def q7_oracle(li: tuple, supplier, customer, orders, nation, fr_code: int, de_code: int,
+              lo: int, hi: int) -> dict:
+    """TPC-H Q7 in numpy int64, independent of the port: {(supp_nation
+    code, cust_nation code, l_year): revenue (scale 4)} over the live
+    rows, each weighted by its diff. ``li`` = (orderkey, suppkey,
+    extendedprice, discount, shipdate, diff); the tables are column
+    lists. A row counts when it shipped in [lo, hi] and its supplier's
+    and its order's customer's nations are FRANCE and GERMANY, either
+    way round. Joins by searchsorted; the year from ``datetime64``."""
+    okey, skey, ext, disc, ship, diff = li
+    hit_s, s_nat = _lookup(supplier[0], supplier[1], skey)
+    hit_o, cust = _lookup(orders[0], orders[1], okey)
+    hit_c, c_nat = _lookup(customer[0], customer[1], cust)
+    _, n1 = _lookup(nation[0], nation[2], s_nat)
+    _, n2 = _lookup(nation[0], nation[2], c_nat)
+    pair = ((n1 == fr_code) & (n2 == de_code)) | ((n1 == de_code) & (n2 == fr_code))
+    keep = (ship >= lo) & (ship <= hi) & hit_s & hit_o & hit_c & pair
+    year = ship[keep].astype("datetime64[D]").astype("datetime64[Y]").astype(np.int64) + 1970
+    volume = ext[keep] * (100 - disc[keep]) * diff[keep]
+    groups, inv = np.unique(np.stack([n1[keep], n2[keep], year], 1), axis=0,
+                            return_inverse=True)
+    sums = np.zeros(len(groups), np.int64)
+    np.add.at(sums, inv.reshape(-1), volume)
+    return {tuple(int(x) for x in g): int(v) for g, v in zip(groups, sums) if v != 0}
+
+
+def q7_presized(sf: float, churn_ticks: int, hydrate_orders: int = 896, **kw):
+    """``q7_config`` (the dataflow planned from ``Q7_SQL`` by the port's
+    frontend and optimizer) with every tier pre-sized (``q7_tiers``, from
+    the hydrate inputs). Returns (df, hydrate, churn), with ``hydrate()``
+    giving the inputs the tiers were sized from."""
+    from materialize_tpu_torch.workloads.tpch import apply_tiers, q7_config, q7_tiers
+
+    df, hydrate, churn = q7_config(sf=sf, hydrate_orders=hydrate_orders, **kw)
+    h_inputs = hydrate()
+    apply_tiers(df, q7_tiers(df, h_inputs, kw["n_orders_per_tick"], churn_ticks))
+    return df, lambda: h_inputs, churn
+
+
+def phase_q7(torch, merge_kernel, card, sf: float) -> dict:
+    """TPC-H Q7 at ``sf`` in Q9's layout, its dataflow planned on the
+    card's machine from ``Q7_SQL`` by the port's SQL frontend and
+    optimizer: nation and supplier ride the first hydrate tick, customer
+    the second, every order the third with the first of the lineitem
+    ticks of ``Q7_HYDRATE_ORDERS`` orders (``q7_stagger``), every tier pre-sized
+    (``q7_tiers``: no hydrate span may overflow); then the join tier is
+    set to a churn tick's and 32 churn ticks run as spans of 16, one
+    flags readback each, and 2 more are profiled."""
+    from materialize_tpu_torch.repr.schema import GLOBAL_DICT
+    from materialize_tpu_torch.workloads.index import rows_per_tick
+    from materialize_tpu_torch.workloads.tpch import Q7_HI, Q7_LO, set_join_tiers
+
+    hydrate_orders, ticks_churn, span_churn, profile_ticks = Q7_HYDRATE_ORDERS, 32, 16, 2
+    n_ticks = ticks_churn + profile_ticks
+    t0 = time.perf_counter()
+    df, hydrate, churn = q7_presized(sf, n_ticks, hydrate_orders, n_orders_per_tick=1024,
+                                     seed=42, device="cuda")
+    h_inputs = hydrate()
+    gen_s = time.perf_counter() - t0
+    t_c = time.perf_counter()
+    c_inputs, c_rows = [], []
+    for i in range(n_ticks):
+        inp, n = churn(i, len(h_inputs) + i)
+        c_inputs.append(inp)
+        c_rows.append(n)
+    churn_gen_s = time.perf_counter() - t_c
+    tiers_before = _state_tiers(df)
+    join_before = list(df._ctx.join_caps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = _drive(torch, merge_kernel, df, h_inputs, c_inputs, "Q7", span_churn=span_churn,
+                 ticks_churn=ticks_churn,
+                 after_hydrate=lambda df: set_join_tiers(df, rows_per_tick(1024)))
+    peak = int(torch.cuda.max_memory_allocated())
+    ops = _profiled_ticks(torch, df, c_inputs[ticks_churn:], "Q7")
+
+    tables = {n: _table_cols(torch, next(inp[n] for inp in h_inputs if inp[n]._host_count))
+              for n in ("supplier", "customer", "orders", "nation")}
+    fed = [inp["lineitem"] for inp in h_inputs + c_inputs]
+    t_o = time.perf_counter()
+    want = q7_oracle(_host_cols(torch, fed, Q7_COLS), **tables,
+                     fr_code=GLOBAL_DICT.encode("FRANCE"),
+                     de_code=GLOBAL_DICT.encode("GERMANY"), lo=Q7_LO, hi=Q7_HI)
+    oracle_s = time.perf_counter() - t_o
+    t = time.perf_counter()
+    rows = df.peek()
+    peek_ms = (time.perf_counter() - t) * 1e3
+    got = {r[:3]: r[3] for r in rows}
+    check(len(rows) == len(got) and all(r[-1] == 1 for r in rows), "Q7 peek rows not unique")
+    check(got == want, f"Q7 peek != numpy oracle ({len(got)} vs {len(want)} groups)")
+    check(len(got) == 4, f"Q7 peek holds {len(got)} groups, not 4")
+    errors = df.peek_errors()
+    check(errors == [], f"Q7 err collection not empty: {errors}")
+    out = {
+        "phase": "q7", "sf": sf, "card": card, "groups": len(got),
+        "view": [[GLOBAL_DICT.decode(k[0]), GLOBAL_DICT.decode(k[1]), k[2], v]
+                 for k, v in sorted(got.items())],
+        "orders": len(tables["orders"][0]), "customers": len(tables["customer"][0]),
+        "suppliers": len(tables["supplier"][0]),
+        "lineitem_rows": int(sum(b._host_count for b in fed[:len(h_inputs)])),
+        "hydrate_orders_per_tick": hydrate_orders, "hydrate_ticks": len(h_inputs),
+        "hydrate_gen_s": gen_s, "churn_gen_s": churn_gen_s,
+        **_path_summary(run, c_rows[:ticks_churn]),
+        "device_ops_per_tick": ops, "profiled_ticks": profile_ticks, "peek_ms": peek_ms,
+        "oracle_s": oracle_s, "peek_errors": errors,
+        "state_tiers_before": tiers_before, "state_tiers": _state_tiers(df),
+        "join_tiers_before": join_before, "join_tiers": list(df._ctx.join_caps),
+        "output_ladder": [b.capacity for b in df.output.runs_b],
+        "max_memory_allocated": peak,
+    }
+    emit(out)
+    out["by_shape"] = run["by_shape"]
+    del df, h_inputs, c_inputs, fed
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- the SQL frontend on the card's machine ---------------------------------------
+
+
+def _count_nodes(expr) -> int:
+    return 1 + sum(_count_nodes(c) for c in expr.children())
+
+
+def phase_sql_plans(card) -> dict:
+    """Q21 and Q7 planned from their text by the port's SQL frontend and
+    optimizer on this machine (host Python; no JAX here): the Q21 plan
+    must equal ``q21_plan()``, and Q7's must be one 6-input delta join.
+    Planning ms are the best of 5."""
+    from materialize_tpu_torch.expr import relation as mir
+    from materialize_tpu_torch.sql.plan import plan_statement
+    from materialize_tpu_torch.transform.optimizer import optimize
+    from materialize_tpu_torch.workloads.tpch import Q7_SQL, Q21_SQL, q21_plan, tpch_catalog
+
+    check("jax" not in sys.modules and "materialize_tpu" not in sys.modules,
+          "the port imported JAX or the reference")
+    out = {"phase": "sql_plans", "card": card}
+    for name, sql in (("q21", Q21_SQL), ("q7", Q7_SQL)):
+        times = []
+        for _ in range(5):
+            t = time.perf_counter()
+            plan = optimize(plan_statement(sql, tpch_catalog()).expr)
+            times.append((time.perf_counter() - t) * 1e3)
+        out[f"{name}_nodes"] = _count_nodes(plan)
+        out[f"{name}_plan_ms"] = min(times)
+        if name == "q21":
+            check(plan == q21_plan(), "the port's plan of Q21_SQL != q21_plan()")
+        else:
+            joins = [e for e in _walk(plan) if isinstance(e, mir.Join)]
+            check(len(joins) == 1 and joins[0].implementation == "delta"
+                  and len(joins[0].inputs) == 6, "Q7 is not one 6-input delta join")
+    emit(out)
+    return out
+
+
+def _walk(expr):
+    yield expr
+    for c in expr.children():
+        yield from _walk(c)
+
+
+# -- the rest of scalar evaluation, on the card -----------------------------------
+
+SCALAR_ROWS = 256
+SCALAR_STRINGS = ("", "a", "Abc", "banana", "hello world", "HELLO", "x_y%z", "zeta")
+DAY_MS = 86_400_000
+SCALAR_FLOAT_RTOL = 1e-14
+
+
+def _scalar_data(rng):
+    """Seeded columns (id, f, d, i, day, ts, b1, b2, s) with NULLs: floats
+    with the int32 and int64 cast edges and half-way rows, decimals of
+    scale 2 with half-way rows, int64 with the int32 edges."""
+    n = SCALAR_ROWS
+    f = rng.uniform(-4, 4, n)
+    f[:12] = [2.0**31 + 0.5, -(2.0**31) - 2.0, 1e19, -1e19, 0.5, 2.5, -2.5, 1.5, -0.5,
+              0.0, 1.0, -1.0]
+    i = rng.integers(-10**6, 10**6, n)
+    i[:6] = [2**31, -(2**31) - 1, 2**31 - 1, -(2**31), 0, 7]
+    d = rng.integers(-10**5, 10**5, n) * rng.choice([1, 5, 50], n)
+    cols = [np.arange(n, dtype=np.int64), f, d, i,
+            rng.integers(-30000, 30000, n).astype(np.int32),
+            rng.integers(-(1 << 41), 1 << 41, n), rng.random(n) < 0.5, rng.random(n) < 0.5,
+            rng.integers(0, len(SCALAR_STRINGS), n)]
+    nulls = [None] + [rng.random(n) < 0.15 for _ in range(8)]
+    return cols, nulls
+
+
+def _civil(days):
+    """(year, month, day) numpy arrays of day numbers."""
+    d = np.asarray(days, dtype="datetime64[D]")
+    y = d.astype("datetime64[Y]").astype(np.int64) + 1970
+    m = d.astype("datetime64[M]").astype(np.int64) % 12 + 1
+    return y, m, (d - d.astype("datetime64[M]")).astype(np.int64) + 1
+
+
+def _ymd_days(y, m, dd=1):
+    return ((np.asarray(y) - 1970) * 12 + np.asarray(m) - 1).astype("datetime64[M]") \
+        .astype("datetime64[D]").astype(np.int64) + np.asarray(dd) - 1
+
+
+def _add_months(days, months):
+    y, m, d = _civil(days)
+    m0 = m - 1 + months
+    y2, m2 = y + m0 // 12, m0 % 12 + 1
+    length = _ymd_days(y2 + (m2 == 12), np.where(m2 == 12, 1, m2 + 1)) - _ymd_days(y2, m2)
+    return _ymd_days(y2, m2, np.minimum(d, length))
+
+
+def _half_away(v, step):
+    return np.sign(v) * ((np.abs(v) + step // 2) // step)
+
+
+def _saturate(x):
+    out = np.where(np.isnan(x) | (np.abs(x) >= 2.0**63), 0.0, x).astype(np.int64)
+    return np.where(x >= 2.0**63, np.iinfo(np.int64).max,
+                    np.where(x < -(2.0**63), np.iinfo(np.int64).min, out))
+
+
+def scalar_groups(ms, text):
+    """Groups of (name, expression over (id, f, d, i, day, ts, b1, b2, s),
+    numpy oracle (cols, NULL masks) -> (values, NULL mask, the rows that
+    raise a numeric out-of-range error or None)): every function of the
+    port's ``expr/scalar.py`` that the TPC-H paths do not run, and a few
+    string functions (``text`` makes a string literal)."""
+    c, U, B, V = ms.col, ms.UnaryFunc, ms.BinaryFunc, ms.VariadicFunc
+    lit = ms.lit
+
+    def un(f, i):
+        return ms.CallUnary(f, c(i))
+
+    def plain(fn, i):
+        return lambda cols, nulls: (fn(cols[i]), nulls[i], None)
+
+    def domain(fn, bad, i):
+        def go(cols, nulls):
+            with np.errstate(all="ignore"):
+                return fn(cols[i]), nulls[i] | bad(cols[i]), None
+        return go
+
+    f32_bad = lambda x: np.isnan(x) | (x >= 2.0**31) | (x < -(2.0**31))  # noqa: E731
+    f64_bad = lambda x: np.isnan(x) | (x >= 2.0**63) | (x < -(2.0**63))  # noqa: E731
+    i32_bad = lambda x: (x >= 2**31) | (x < -(2**31))  # noqa: E731
+
+    def cast_err(bad, i, dtype):
+        def go(cols, nulls):
+            x = cols[i]
+            b = bad(x)
+            return np.where(b, 0, x).astype(dtype), nulls[i] | b, b & ~nulls[i]
+        return go
+
+    def trunc_ts(kind):
+        def go(cols, nulls):
+            ms_ = cols[5]
+            days, msod = ms_ // DAY_MS, ms_ % DAY_MS
+            y, m, _ = _civil(days)
+            step = {"hour": 3_600_000, "minute": 60_000, "second": 1000}.get(kind)
+            if step:
+                return days * DAY_MS + msod - msod % step, nulls[5], None
+            t = {"year": _ymd_days(y, 1), "quarter": _ymd_days(y, 3 * ((m - 1) // 3) + 1),
+                 "month": _ymd_days(y, m), "week": days - (days + 3) % 7, "day": days}[kind]
+            return t * DAY_MS, nulls[5], None
+        return go
+
+    def tri(op):
+        """SQL three-valued AND/OR of b1, b2: (values, NULLs)."""
+        def go(cols, nulls):
+            a, b, an, bn = cols[6], cols[7], nulls[6], nulls[7]
+            if op == "and":
+                false = (~a & ~an) | (~b & ~bn)
+                return a & b & ~false, (an | bn) & ~false, None
+            true = (a & ~an) | (b & ~bn)
+            return a | b, (an | bn) & ~true, None
+        return go
+
+    def greatest(cols, nulls):  # GREATEST(i, d) at scale 2; NULLs skipped
+        i, d = cols[3] * 100, cols[2]
+        inn, dn = nulls[3], nulls[2]
+        v = np.where(inn, d, np.where(dn, i, np.maximum(i, d)))
+        return v, inn & dn, None
+
+    def least_f(cols, nulls):
+        f, i = cols[1], cols[3].astype(np.float64)
+        fn, inn = nulls[1], nulls[3]
+        return np.where(fn, i, np.where(inn, f, np.minimum(f, i))), fn & inn, None
+
+    def add_interval_day(cols, nulls):
+        return _add_months(cols[4], 1) + 3, nulls[4], None
+
+    def add_interval_ts(cols, nulls):
+        days, msod = cols[5] // DAY_MS, cols[5] % DAY_MS
+        return _add_months(days, -13) * DAY_MS + msod + 5000, nulls[5], None
+
+    def if_(cols, nulls):
+        take = cols[6] & ~nulls[6]
+        return np.where(take, cols[3], 0), take & nulls[3], None
+
+    def strings(fn):
+        def go(cols, nulls):
+            return [fn(SCALAR_STRINGS[k]) for k in cols[8]], nulls[8], None
+        return go
+
+    math_fns = {"sqrt": (np.sqrt, lambda x: x < 0), "ln": (np.log, lambda x: x <= 0),
+                "log10": (np.log10, lambda x: x <= 0), "log2": (np.log2, lambda x: x <= 0),
+                "asin": (np.arcsin, lambda x: np.abs(x) > 1),
+                "acos": (np.arccos, lambda x: np.abs(x) > 1)}
+    plain_fns = {"cbrt": np.cbrt, "exp": np.exp, "sin": np.sin, "cos": np.cos,
+                 "tan": np.tan, "atan": np.arctan, "radians": np.radians,
+                 "degrees": np.degrees, "floor": np.floor, "ceil": np.ceil,
+                 "round": np.round, "trunc": np.trunc}
+    groups = {
+        "math": [(f"{k}_f", un(k, 1), domain(fn, bad, 1)) for k, (fn, bad) in math_fns.items()]
+        + [(f"{k}_f", un(k, 1), plain(fn, 1)) for k, fn in plain_fns.items()]
+        + [("sign_f", un(U.SIGN, 1), plain(lambda x: np.sign(x).astype(np.int64), 1)),
+           ("sign_i", un(U.SIGN, 3), plain(np.sign, 3)),
+           ("neg_i", un(U.NEG, 3), plain(np.negative, 3)),
+           ("abs_d", un(U.ABS, 2), plain(np.abs, 2))],
+        "rounding": [
+            ("floor_d", un(U.FLOOR, 2), plain(lambda v: v // 100 * 100, 2)),
+            ("ceil_d", un(U.CEIL, 2), plain(lambda v: -((-v) // 100) * 100, 2)),
+            ("trunc_d", un(U.TRUNC, 2), plain(lambda v: np.sign(v) * (np.abs(v) // 100) * 100, 2)),
+            ("round_d", un(U.ROUND, 2), plain(lambda v: _half_away(v, 100) * 100, 2)),
+            ("round_to_f_2", ms.CallBinary(B.ROUND_TO, c(1), lit(2)),
+             plain(lambda x: np.round(x * 100.0) / 100.0, 1)),
+            ("round_to_d_1", ms.CallBinary(B.ROUND_TO, c(2), lit(1)),
+             plain(lambda v: _half_away(v, 10) * 10, 2)),
+            ("round_to_i_m2", ms.CallBinary(B.ROUND_TO, c(3), lit(-2)),
+             plain(lambda v: _half_away(v, 100) * 100, 3)),
+            ("cast_decimal_f_2", ms.CallBinary(B.CAST_DECIMAL, c(1), lit(2)),
+             plain(lambda x: _saturate(np.round(x * 100.0)), 1)),
+            ("cast_decimal_d_1", ms.CallBinary(B.CAST_DECIMAL, c(2), lit(1)),
+             plain(lambda v: _half_away(v, 10), 2)),
+            ("cast_decimal_i_2", ms.CallBinary(B.CAST_DECIMAL, c(3), lit(2)),
+             plain(lambda v: v * 100, 3)),
+        ],
+        "casts": [
+            ("cast_int64_f", un(U.CAST_INT64, 1), cast_err(f64_bad, 1, np.int64)),
+            ("cast_int32_f", un(U.CAST_INT32, 1), cast_err(f32_bad, 1, np.int32)),
+            ("cast_int32_i", un(U.CAST_INT32, 3), cast_err(i32_bad, 3, np.int32)),
+            ("cast_int64_d", un(U.CAST_INT64, 2), plain(lambda v: v // 100, 2)),
+            ("cast_float64_d", un(U.CAST_FLOAT64, 2), plain(lambda v: v / 100.0, 2)),
+            ("cast_float64_i", un(U.CAST_FLOAT64, 3), plain(lambda v: v.astype(float), 3)),
+            ("cast_bool_i", un(U.CAST_BOOL, 3), plain(lambda v: v != 0, 3)),
+            ("cast_date_ts", un(U.CAST_DATE, 5), plain(lambda v: v // DAY_MS, 5)),
+            ("cast_timestamp_day", un(U.CAST_TIMESTAMP, 4),
+             plain(lambda v: v.astype(np.int64) * DAY_MS, 4)),
+        ],
+        "dates": [(f"date_trunc_{k}_ts", un(f, 5), trunc_ts(k))
+                  for k, f in U.DATE_TRUNCS.items()]
+        + [("date_trunc_month_day", un(U.DATE_TRUNC_MONTH, 4),
+            plain(lambda v: _ymd_days(*_civil(v)[:2]), 4)),
+           ("add_interval_day", ms.CallVariadic(V.ADD_INTERVAL, (c(4), lit(1), lit(3), lit(0))),
+            add_interval_day),
+           ("add_interval_ts",
+            ms.CallVariadic(V.ADD_INTERVAL, (c(5), lit(-13), lit(0), lit(5000))),
+            add_interval_ts)],
+        "variadic": [
+            ("and", ms.and_(c(6), c(7)), tri("and")),
+            ("or", ms.or_(c(6), c(7)), tri("or")),
+            ("coalesce", ms.CallVariadic(V.COALESCE, (c(3), lit(7))),
+             lambda cols, nulls: (np.where(nulls[3], 7, cols[3]), np.zeros(len(cols[3]), bool),
+                                  None)),
+            ("greatest_i_d", ms.CallVariadic(V.GREATEST, (c(3), c(2))), greatest),
+            ("least_f_i", ms.CallVariadic(V.LEAST, (c(1), c(3))), least_f),
+            ("if_b1_i_0", ms.If(c(6), c(3), lit(0)), if_),
+        ],
+        "strings": [
+            ("upper", ms.string_call("upper", c(8)), strings(str.upper)),
+            ("length", ms.string_call("length", c(8)), strings(len)),
+            ("like", ms.string_call("like", c(8), text("%a%")), strings(lambda s: "a" in s)),
+            ("substr", ms.string_call("substr", c(8), lit(2), lit(3)),
+             strings(lambda s: s[1:4])),
+        ],
+    }
+    return groups
+
+
+def phase_scalars_small(torch, merge_kernel, card) -> dict:
+    """Every function of the port's scalar evaluation outside the TPC-H
+    paths, and four string functions, in six small dataflows (one Map a
+    group, the row id kept) over 2 ticks of 256 seeded rows with NULLs on
+    the card (the second retracts 64 rows): each output column against
+    numpy, exactly, floats within rel 1e-14; the err collection against
+    the out-of-range casts numpy counts."""
+    from materialize_tpu_torch.expr import relation as mir
+    from materialize_tpu_torch.expr import scalar as ms
+    from materialize_tpu_torch.render.dataflow import Dataflow
+    from materialize_tpu_torch.repr.batch import Batch
+    from materialize_tpu_torch.repr.schema import GLOBAL_DICT, Column, ColumnType, Schema
+
+    T = ColumnType
+    schema = Schema([Column("id", T.INT64), Column("f", T.FLOAT64, True),
+                     Column("d", T.DECIMAL, True, 2), Column("i", T.INT64, True),
+                     Column("day", T.DATE, True), Column("ts", T.TIMESTAMP, True),
+                     Column("b1", T.BOOL, True), Column("b2", T.BOOL, True),
+                     Column("s", T.STRING, True)])
+    rng = np.random.default_rng(8)
+    cols, nulls = _scalar_data(rng)
+    masks = [np.zeros(SCALAR_ROWS, bool) if m is None else m for m in nulls]
+    codes = GLOBAL_DICT.encode_many(SCALAR_STRINGS)
+    dev_cols = cols[:8] + [codes[cols[8]]]
+    n = SCALAR_ROWS
+    gone = rng.choice(n, 64, replace=False)
+    ticks = [
+        Batch.from_numpy(schema, dev_cols, np.zeros(n, np.uint64), np.ones(n, np.int64),
+                         nulls=nulls, device="cuda"),
+        Batch.from_numpy(schema, [c[gone] for c in dev_cols], np.ones(64, np.uint64),
+                         -np.ones(64, np.int64), nulls=[None if m is None else m[gone]
+                                                        for m in nulls], device="cuda"),
+    ]
+    live = np.ones(n, bool)
+    live[gone] = False
+    groups = scalar_groups(ms, lambda v: ms.lit(GLOBAL_DICT.encode(v), T.STRING))
+    dfs = {g: Dataflow(mir.Get("t", schema).map([e for _, e, _ in items])
+                       .project([0, *range(9, 9 + len(items))]), device="cuda")
+           for g, items in groups.items()}
+    torch.cuda.synchronize()
+    merge_kernel.LAUNCHES = 0
+    merge_kernel.LAUNCHES_BY_SHAPE.clear()
+    # -- main path --------------------------------------------------------------
+    for df in dfs.values():
+        df.run_steps([{"t": b} for b in ticks])
+    torch.cuda.synchronize()
+    launches = merge_kernel.LAUNCHES
+    by_shape = dict(merge_kernel.LAUNCHES_BY_SHAPE)
+    # -- end of the main path ----------------------------------------------------
+    check(launches > 0, "the scalars path launched no merge-path kernel")
+    checked, worst = 0, 0.0
+    for g, items in groups.items():
+        b = dfs[g].output_batch()
+        m = int(b.count)
+        ids = b.cols[0][:m].cpu().numpy()
+        check(m == live.sum() and np.array_equal(np.sort(ids), np.flatnonzero(live)),
+              f"scalars {g}: rows {m}")
+        order = np.argsort(ids)
+        want_errs = 0
+        for k, (name, _, oracle) in enumerate(items):
+            vals = b.cols[k + 1][:m].cpu().numpy()[order]
+            nl = b.nulls[k + 1]
+            got_null = (nl[:m].cpu().numpy()[order] if nl is not None
+                        else np.zeros(m, bool))
+            with np.errstate(all="ignore"):
+                want, want_null, err_rows = oracle(cols, masks)
+            if err_rows is not None:
+                want_errs += int((err_rows & live).sum())
+            want_null = want_null[live]
+            check(np.array_equal(got_null, want_null), f"scalars {name}: NULLs differ")
+            ok = ~want_null
+            if isinstance(want, list):
+                want = np.array(want, dtype=object)[live]
+                got = ([GLOBAL_DICT.decode(int(x)) for x in vals] if isinstance(want[0], str)
+                       else vals.tolist())
+                check(all(a == w for a, w, o in zip(got, want, ok) if o),
+                      f"scalars {name}: strings differ")
+            elif np.asarray(want).dtype.kind == "f":
+                w, v = np.asarray(want)[live][ok], vals[ok]
+                with np.errstate(all="ignore"):
+                    err = np.where(v == w, 0.0, np.abs(v - w) / np.maximum(np.abs(w), 1e-300))
+                worst = max(worst, float(err.max(initial=0.0)))
+                check(bool((err <= SCALAR_FLOAT_RTOL).all()), f"scalars {name}: floats differ")
+            else:
+                check(np.array_equal(vals[ok].astype(np.int64),
+                                     np.asarray(want)[live][ok].astype(np.int64)),
+                      f"scalars {name}: values differ")
+            checked += 1
+        errs = dfs[g].peek_errors()
+        check(errs == ([(2, want_errs)] if want_errs else []),
+              f"scalars {g}: err collection {errs}, want {want_errs} overflow rows")
+    out = {"phase": "scalars_small", "card": card, "functions": checked,
+           "groups": list(groups), "rows": int(live.sum()), "max_float_rel_err": worst,
+           "launches": launches,
+           "launches_by_shape": {",".join(map(str, k)): v for k, v in sorted(by_shape.items())}}
+    emit(out)
+    out["by_shape"] = by_shape
     return out
 
 
@@ -1738,6 +2260,8 @@ def main() -> int:
     card = phase_card_and_build(torch, merge_kernel)
     kern = phase_kernel(torch, merge_kernel, card)
     mark("build+kernel")
+    phase_sql_plans(card)
+    mark("sql_plans")
     paths, rows_by_path, by_path = {}, {}, {}
 
     # Q15's, Q9's, Q21's and pagerank's runs fill up to their tier (Q15's
@@ -1763,7 +2287,7 @@ def main() -> int:
                                             "q15_kernel_shape", half_full)
     phase_path_modes(torch, merge_kernel, card, "q15_vs_plain_path", q15_config)
     mark("q15")
-    paths["q9"] = phase_q9(torch, merge_kernel, card)
+    paths["q9"] = phase_q9(torch, merge_kernel, card, sf=Q9_SF)
     mark("q9")
     rows_by_path["q9"] = phase_path_kernel(torch, merge_kernel, card,
                                            paths["q9"]["by_shape"], "q9_kernel_shape",
@@ -1815,6 +2339,16 @@ def main() -> int:
                      lambda **kw: q21_presized(churn_ticks=8, **kw), sf=0.002,
                      span_ticks=8)
     mark("q21_kernel_shape+vs_plain")
+    paths["q7"] = phase_q7(torch, merge_kernel, card, sf=Q7_SF)
+    mark("q7")
+    rows_by_path["q7"] = phase_path_kernel(torch, merge_kernel, card,
+                                           paths["q7"]["by_shape"], "q7_kernel_shape",
+                                           half_full)
+    # One lineitem hydrate tick (4,096 orders hold SF 0.002's 3,000).
+    phase_path_modes(torch, merge_kernel, card, "q7_vs_plain_path",
+                     lambda **kw: q7_presized(churn_ticks=8, hydrate_orders=4096, **kw),
+                     sf=0.002, span_ticks=8)
+    mark("q7_kernel_shape+vs_plain")
     paths["auction_window"] = phase_auction(
         torch, merge_kernel, card, "auction_window", state_cap=1 << 13, window=4,
         same_as=paths["auction"], n_users=512, auctions_per_tick=128,
@@ -1831,6 +2365,8 @@ def main() -> int:
     mark("auction_window")
     paths["arms_small"] = phase_arms_small(torch, merge_kernel, card)
     mark("arms_small")
+    paths["scalars_small"] = phase_scalars_small(torch, merge_kernel, card)
+    mark("scalars_small")
     for name, out in paths.items():
         shapes = out.pop("by_shape")
         out.pop("peek", None)

@@ -28,7 +28,7 @@ multiset of (group key, non-NULL value), queried before and after the
 step's insert (the group's first row is its MIN, its last row its MAX);
 part 0 still runs and its ``__rows__`` decides whether a group is alive.
 The basic collection aggregates raise ``NotImplementedError``: they need
-read-time finalizers (ROADMAP Queue 1).
+read-time finalizers (ROADMAP Queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -72,7 +72,7 @@ def _accum_cols(j: int, agg: AggregateExpr) -> list:
                 Column(f"__a{j}_nn__", ColumnType.INT64)]
     raise NotImplementedError(
         f"aggregate {agg.func.value} is not ported (the collection "
-        "aggregates need read-time finalizers: ROADMAP Queue 1)"
+        "aggregates need read-time finalizers: ROADMAP Queue 1 item 15)"
     )
 
 
@@ -367,7 +367,7 @@ class ReduceOp:
             raise NotImplementedError(
                 "the collection aggregates (STRING_AGG, ARRAY_AGG, LIST_AGG) "
                 "are not ported: they need read-time finalizers (ROADMAP "
-                "Queue 1)"
+                "Queue 1 item 15)"
             )
         self.acc_aggs = tuple(self.aggregates[j] for j in self.plan.accumulable)
         self.hier_aggs = tuple(self.aggregates[j] for j in self.plan.hierarchical)

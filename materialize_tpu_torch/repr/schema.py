@@ -110,9 +110,24 @@ class Schema:
     def project(self, indices) -> "Schema":
         return Schema([self.columns[i] for i in indices])
 
+    def concat(self, other: "Schema") -> "Schema":
+        return Schema(self.columns + other.columns)
+
+    def rename(self, names) -> "Schema":
+        assert len(names) == len(self.columns)
+        return Schema(
+            [Column(n, c.ctype, c.nullable, c.scale) for n, c in zip(names, self.columns)]
+        )
+
 
 class DictExhausted(RuntimeError):
-    """A gap in the label space ran out between two dense neighbours."""
+    """A gap in the label space ran out between two dense neighbours.
+    The reference then rebalances its dictionary and recodes the
+    literals it holds (``expr/remap.py``); the port's dictionary cannot
+    rebalance, so the error stands (ROADMAP Queue 1 item 6)."""
+
+
+_NO_REBALANCE = "; the port's dictionary cannot rebalance (ROADMAP Queue 1 item 6: expr/remap.py)"
 
 
 class StringDictionary:
@@ -130,6 +145,7 @@ class StringDictionary:
         self._sorted: list = []
         self._codes: dict = {}
         self._by_code: dict = {}
+        self.version = 0  # bumped on every insert (the string tables' key)
         self._lock = threading.Lock()
 
     @staticmethod
@@ -171,13 +187,56 @@ class StringDictionary:
             gap = hi - lo
             if gap < 2:
                 raise DictExhausted(
-                    f"label space exhausted between {lo_s!r} and {hi_s!r}"
+                    f"label space exhausted between {lo_s!r} and {hi_s!r}" + _NO_REBALANCE
                 )
             code = lo + max(1, min(gap - 1, int(gap * self._frac(lo_s, hi_s, s))))
             self._sorted.insert(i, s)
             self._codes[s] = code
             self._by_code[code] = s
+            self.version += 1
             return code
+
+    def encode_bulk(self, strings) -> None:
+        """Insert a set of new strings with positional gap division: each
+        run of new strings between two existing neighbours divides that
+        gap evenly (content interpolation, ``encode``, packs a family of
+        long common prefixes into a sliver of the gap). The string
+        tables' builds use it."""
+        with self._lock:
+            new = sorted({s for s in strings if s not in self._codes})
+            if not new:
+                return
+            runs = []
+            k = 0
+            while k < len(new):
+                i = bisect.bisect_left(self._sorted, new[k])
+                hi_s = self._sorted[i] if i < len(self._sorted) else None
+                lo = self._codes[self._sorted[i - 1]] if i > 0 else self.MIN_LABEL
+                hi = self._codes[hi_s] if hi_s is not None else self.MAX_LABEL
+                run = [new[k]]
+                k += 1
+                while k < len(new) and (hi_s is None or new[k] < hi_s):
+                    run.append(new[k])
+                    k += 1
+                runs.append((lo, hi, run))
+            # Every run is validated before anything is inserted.
+            for lo, hi, run in runs:
+                if hi - lo <= len(run):
+                    raise DictExhausted(
+                        f"bulk insert of {len(run)} strings does not fit in gap "
+                        f"{hi - lo} at {run[0]!r}" + _NO_REBALANCE
+                    )
+            for lo, hi, run in runs:
+                for j, s in enumerate(run, 1):
+                    code = lo + j * (hi - lo) // (len(run) + 1)
+                    self._codes[s] = code
+                    self._by_code[code] = s
+            self._sorted = sorted(self._codes)
+            self.version += 1
+
+    def items_sorted(self) -> list:
+        """(code, string) pairs in lexicographic (== code) order."""
+        return [(self._codes[s], s) for s in self._sorted]
 
     def encode_many(self, strings) -> np.ndarray:
         return np.asarray([self.encode(s) for s in strings], dtype=np.int64)
@@ -230,6 +289,45 @@ def decode_result_rows(schema: Schema, cols, nulls, time, diff) -> list:
                 vals.append(cols[j][i].item())
         out.append(tuple(vals) + (int(time[i]), int(diff[i])))
     return out
+
+
+def parse_text_value(raw: str, col: Column):
+    """pg COPY text-format field -> python value for the column type."""
+    import datetime as _dt
+    import decimal as _dec
+
+    t = col.ctype
+    try:
+        if t is ColumnType.BOOL:
+            s = raw.strip().lower()
+            if s in ("t", "true", "1", "yes", "on"):
+                return True
+            if s in ("f", "false", "0", "no", "off"):
+                return False
+            raise ValueError(raw)
+        if t in (ColumnType.INT32, ColumnType.INT64):
+            return int(raw)
+        if t is ColumnType.FLOAT64:
+            return float(raw)
+        if t is ColumnType.DECIMAL:
+            return _dec.Decimal(raw)
+        if t is ColumnType.DATE:
+            s = raw.strip()
+            if s.lstrip("-").isdigit():
+                return int(s)  # days-since-epoch shorthand
+            return (_dt.date.fromisoformat(s) - _dt.date(1970, 1, 1)).days
+        if t is ColumnType.TIMESTAMP:
+            s = raw.strip()
+            if s.lstrip("-").isdigit():
+                return int(s)  # ms-since-epoch shorthand
+            dt = _dt.datetime.fromisoformat(s.replace("T", " "))
+            return int((dt - _dt.datetime(1970, 1, 1)).total_seconds() * 1000)
+        return raw
+    except (ValueError, _dec.InvalidOperation) as exc:
+        # the SQL layer surfaces it as a statement failure
+        raise ValueError(
+            f"invalid {t.value} value {raw!r} for column {col.name!r}"
+        ) from exc
 
 
 # The error-stream schema (one column: the error code).

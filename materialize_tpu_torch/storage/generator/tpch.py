@@ -1,7 +1,6 @@
-"""TPC-H load generator (the port's copy of the lineitem, orders, part,
-supplier, partsupp and nation paths of
-``materialize_tpu/storage/generator/tpch.py``; customer and region are
-not ported: no query the port runs reads them).
+"""TPC-H load generator (the port's copy of
+``materialize_tpu/storage/generator/tpch.py``: lineitem, orders, part,
+supplier, partsupp, customer, nation and region).
 
 Deterministic and host-side: every field of every row is a pure
 function of (seed, version, orderkey, linenumber, field tag), as in
@@ -113,11 +112,26 @@ PARTSUPP_SCHEMA = Schema(
     ]
 )
 
+CUSTOMER_SCHEMA = Schema(
+    [
+        Column("c_custkey", ColumnType.INT64),
+        Column("c_nationkey", ColumnType.INT64),
+        Column("c_name", ColumnType.STRING),
+    ]
+)
+
 NATION_SCHEMA = Schema(
     [
         Column("n_nationkey", ColumnType.INT64),
         Column("n_regionkey", ColumnType.INT64),
         Column("n_name", ColumnType.STRING),
+    ]
+)
+
+REGION_SCHEMA = Schema(
+    [
+        Column("r_regionkey", ColumnType.INT64),
+        Column("r_name", ColumnType.STRING),
     ]
 )
 
@@ -128,6 +142,7 @@ _NATIONS = [
     "ROMANIA", "SAUDI ARABIA", "VIETNAM", "RUSSIA", "UNITED KINGDOM",
     "UNITED STATES",
 ]
+_REGIONS = ["AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST"]
 _NATION_REGION = [0, 1, 1, 1, 4, 0, 3, 3, 2, 2, 4, 4, 2, 4, 0, 0, 0, 1,
                   2, 3, 4, 2, 3, 3, 1]
 
@@ -278,6 +293,15 @@ class TpchGenerator:
         cost = rng.integers(100, 1000_00, size=len(pkeys)).astype(np.int64)
         return [pkeys, skeys, cost]
 
+    def customer_table(self) -> list:
+        """Customer columns: keys 1..n_customer, a nation drawn from the
+        ``seed + 13`` stream, names ``Customer#%09d``."""
+        rng = np.random.default_rng(self.seed + 13)
+        keys = np.arange(1, self.n_customer + 1)
+        nation = rng.integers(0, 25, size=len(keys))
+        names = GLOBAL_DICT.encode_many([f"Customer#{k:09d}" for k in keys])
+        return [keys, nation.astype(np.int64), names]
+
     def nation_table(self) -> list:
         """The 25 TPC-H nations with their regions."""
         return [
@@ -286,21 +310,20 @@ class TpchGenerator:
             GLOBAL_DICT.encode_many(_NATIONS),
         ]
 
+    def region_table(self) -> list:
+        """The 5 TPC-H regions."""
+        return [np.arange(5, dtype=np.int64), GLOBAL_DICT.encode_many(_REGIONS)]
+
     def table_batch(self, name: str, time: int = 0, device=None) -> Batch:
-        """A static table as one insert batch (the dimension snapshot).
-        Customer and region are not ported (ROADMAP Queue 1 item 10: no
-        query the port runs reads them)."""
-        tables = {
+        """A static table as one insert batch (the dimension snapshot)."""
+        schema, make = {
             "supplier": (SUPPLIER_SCHEMA, self.supplier_table),
             "part": (PART_SCHEMA, self.part_table),
             "partsupp": (PARTSUPP_SCHEMA, self.partsupp_table),
+            "customer": (CUSTOMER_SCHEMA, self.customer_table),
             "nation": (NATION_SCHEMA, self.nation_table),
-        }
-        if name not in tables:
-            raise NotImplementedError(
-                f"TPC-H table {name!r} is not ported (ROADMAP Queue 1 item 10)"
-            )
-        schema, make = tables[name]
+            "region": (REGION_SCHEMA, self.region_table),
+        }[name]
         cols = make()
         n = len(cols[0])
         return Batch.from_numpy(schema, cols, np.full(n, time, np.uint64),

@@ -7,10 +7,11 @@ port of the bench's tier pre-sizing (``bench.py:apply_tiers``).
 ``q1_plan``, ``q15_plan`` and ``q9_plan`` are the optimized plans the
 reference renders (``materialize_tpu.transform.optimizer.optimize`` of
 its ``q1_mir()``, ``q15_mir()`` and ``q9_mir()``), and ``q21_plan`` its
-optimizer's plan of the Q21 text (``Q21_SQL``), built directly with the
-port's MIR classes; the port does not carry the optimizer nor the SQL
-planner. Tests convert the reference's optimizer output and assert the
-trees equal, so a change there shows.
+optimizer's plan of the Q21 text (``Q21_SQL``), built by hand with the
+port's MIR classes. Tests convert the reference's optimizer output and
+assert the trees equal, so a change there shows. TPC-H Q7 is planned
+from its text (``Q7_SQL``) by the port's own SQL frontend and optimizer
+(``sql/plan.py``, ``transform/optimizer.py``): ``q7_expr``.
 """
 
 from __future__ import annotations
@@ -25,14 +26,19 @@ from ..expr.scalar import BinaryFunc, CallBinary, CallUnary, UnaryFunc, col, lit
 from ..plan.decisions import quantize_cap
 from ..repr.batch import Batch
 from ..repr.schema import GLOBAL_DICT, ColumnType
+from ..sql.catalog import Catalog, CatalogItem
+from ..sql.plan import plan_statement
 from ..storage.generator.tpch import (
+    CUSTOMER_SCHEMA,
     LINEITEM_SCHEMA,
     NATION_SCHEMA,
     ORDERS_SCHEMA,
     PART_SCHEMA,
     PARTSUPP_SCHEMA,
+    REGION_SCHEMA,
     SUPPLIER_SCHEMA,
 )
+from ..transform.optimizer import optimize
 from .index import build_lineitem_dataflow, lineitem_config, rows_per_tick
 
 # date '1998-12-01' - 90 days, as a day number since 1970-01-01
@@ -269,7 +275,7 @@ def _spine_table(sp: Spine) -> str:
     """The TPC-H table a join spine arranges, by its columns' prefix."""
     prefix = sp.schema[0].name.split("_")[0]
     return {"l": "lineitem", "p": "part", "s": "supplier", "ps": "partsupp",
-            "o": "orders", "n": "nation"}[prefix]
+            "o": "orders", "c": "customer", "n": "nation"}[prefix]
 
 
 def q9_tiers(df, gen, hydrate_orders: int, n_orders_per_tick: int,
@@ -569,6 +575,165 @@ def q21_tiers(df, h_inputs: list, n_orders_per_tick: int, churn_ticks: int,
     return {"grow": [[k, quantize_cap(n)] for k, n in grow],
             "join_caps": [quantize_cap(c["late_tick"])]
             + [quantize_cap(c["semi_tick"])] * (n_sites - 1),
+            "out_delta_cap": df.out_delta_cap, "slot_cap": 256, "letrec_caps": []}
+
+
+# TPC-H Q7 (clause 2.4.7) as written, with 'FRANCE' and 'GERMANY', less
+# ORDER BY (a maintained view is ordered at read time).
+Q7_SQL = """SELECT supp_nation, cust_nation, l_year, sum(volume) AS revenue
+FROM (
+  SELECT n1.n_name AS supp_nation, n2.n_name AS cust_nation,
+         extract(year FROM l_shipdate) AS l_year,
+         l_extendedprice * (1 - l_discount) AS volume
+  FROM supplier, lineitem, orders, customer, nation n1, nation n2
+  WHERE s_suppkey = l_suppkey AND o_orderkey = l_orderkey AND c_custkey = o_custkey
+    AND s_nationkey = n1.n_nationkey AND c_nationkey = n2.n_nationkey
+    AND ((n1.n_name = 'FRANCE' AND n2.n_name = 'GERMANY')
+      OR (n1.n_name = 'GERMANY' AND n2.n_name = 'FRANCE'))
+    AND l_shipdate BETWEEN DATE '1995-01-01' AND DATE '1996-12-31'
+) AS shipping
+GROUP BY supp_nation, cust_nation, l_year"""
+
+
+# The static tables Q7 joins beside the lineitem stream.
+Q7_TABLES = ("supplier", "nation", "customer", "orders")
+
+# Q7's ship-date window: [1995-01-01, 1996-12-31] as day numbers.
+Q7_LO = 9131
+Q7_HI = 9861
+
+
+def tpch_catalog() -> Catalog:
+    """A planning catalog of the eight TPC-H tables the generator makes,
+    each a source."""
+    cat = Catalog()
+    for name, schema in (("lineitem", LINEITEM_SCHEMA), ("orders", ORDERS_SCHEMA),
+                         ("part", PART_SCHEMA), ("partsupp", PARTSUPP_SCHEMA),
+                         ("supplier", SUPPLIER_SCHEMA), ("customer", CUSTOMER_SCHEMA),
+                         ("nation", NATION_SCHEMA), ("region", REGION_SCHEMA)):
+        cat.create(CatalogItem(name, "source", schema))
+    return cat
+
+
+def q7_expr(dictionary=GLOBAL_DICT) -> mir.RelationExpr:
+    """TPC-H Q7 planned from ``Q7_SQL`` by the port's frontend and
+    optimizer: a 6-input delta join of the lineitems shipped in
+    [Q7_LO, Q7_HI] (the BETWEEN, one AND), supplier, orders, customer and
+    nation twice, then the OR of the two nation pairs, ``EXTRACT(YEAR
+    FROM l_shipdate)`` and the volume (scale 4) summed by (supp_nation,
+    cust_nation, l_year). The string literals are codes of
+    ``dictionary``, the one that codes the data."""
+    return optimize(plan_statement(Q7_SQL, tpch_catalog(), dictionary).expr)
+
+
+def build_q7_dataflow(n_orders_per_tick: int = 1024, device=None):
+    """The Q7 dataflow in Q9's layout. Returns (df, hydrate_batch_orders,
+    churn_capacity)."""
+    return build_lineitem_dataflow(q7_expr(), n_orders_per_tick, device=device, **Q9_LAYOUT)
+
+
+def q7_tables(gen, device=None) -> dict:
+    """Q7's static inputs as insert batches: supplier, nation, customer
+    and every order (they ride the first tick, as Q9's do)."""
+    return _static_tables(gen, Q7_TABLES, device)
+
+
+def q7_stagger(h_inputs: list) -> list:
+    """Q7's hydrate inputs with its static tables fed in the order the
+    delta join can absorb a tick at a time: nation and supplier on a
+    tick of their own, then customer, then the lineitem ticks, every
+    order with the first. Fed on one tick, customer's pipeline meets
+    every order in one probe (the join tier of a whole orders table: at
+    SF 1 its six pipelines' outputs overran the card's 80 GB), and
+    nation's meets every customer. In this order each static table's
+    pipeline meets an empty input (customer's meets no order, orders'
+    meets the first tick's lineitems), so every hydrate tick fits a
+    tick's lineitem rows (or the suppliers nation meets)."""
+    first = h_inputs[0]
+    empty = {n: Batch.empty(b.schema, b.capacity, device=b.device) for n, b in first.items()}
+    tick0 = {**empty, "nation": first["nation"], "supplier": first["supplier"]}
+    tick1 = {**empty, "customer": first["customer"]}
+    rest = {**first, "nation": empty["nation"], "supplier": empty["supplier"],
+            "customer": empty["customer"]}
+    return [tick0, tick1, rest, *h_inputs[1:]]
+
+
+def q7_config(sf: float = 1.0, n_orders_per_tick: int = 1024, seed: int = 42,
+              device=None, hydrate_orders: int | None = None):
+    """Returns (df, hydrate, churn) as ``q9_config`` does, for Q7 over
+    Q9's stream and layout: nation and supplier ride the first hydrate
+    tick, customer the second, every order the third with the first
+    lineitem tick (``q7_stagger``); only lineitem hydrates and churns.
+    ``apply_tiers(df, q7_tiers(...))`` pre-sizes the tiers from the
+    hydrate inputs."""
+    df, h_orders, churn_cap = build_q7_dataflow(n_orders_per_tick, device)
+    df, hydrate, churn = lineitem_config(
+        df, hydrate_orders or h_orders, churn_cap, sf, n_orders_per_tick, seed,
+        extra_inputs_fn=lambda gen: q7_tables(gen, device),
+    )
+    return df, lambda: q7_stagger(hydrate()), churn
+
+
+def _q7_counts(h_inputs: list) -> dict:
+    """Row counts over Q7's hydrate inputs (one readback): the orders,
+    customers and suppliers (whichever tick carries them), every
+    lineitem row in the ship-date window and the most of one tick."""
+    per_tick = []
+    for inp in h_inputs:
+        b = inp["lineitem"]
+        ship = b.cols[LINEITEM_SCHEMA.index_of("l_shipdate")]
+        per_tick.append((b.valid_mask() & (ship >= Q7_LO) & (ship <= Q7_HI)).sum())
+    window = torch.stack(per_tick)
+    total, most = window.sum().item(), window.max().item()
+
+    def rows(name):
+        return sum(inp[name]._host_count for inp in h_inputs)
+
+    return {"orders": rows("orders"), "customer": rows("customer"),
+            "supplier": rows("supplier"), "window": int(total), "window_tick": int(most)}
+
+
+def q7_tiers(df, h_inputs: list, n_orders_per_tick: int, churn_ticks: int) -> dict:
+    """The tiers a Q7 run needs, in ``apply_tiers``'s form, from the
+    collections' sizes over the hydrate inputs (``_q7_counts``) and the
+    fold schedule, as ``q21_tiers`` sizes Q21's:
+
+    - each join spine's base and run 0 hold its whole collection: the
+      lineitems in the ship-date window (the join input is the Filter:
+      about two of the seven years) plus ``churn_ticks`` churn ticks of
+      lineitem, or its whole static table;
+    - its slots hold one tick: a hydrate or churn tick's lineitem rows in
+      the window, the whole table for the static ones;
+    - the join tier (one site) holds a tick's matches of one run: a
+      tick's window rows (each meets one row of every other input), or
+      the suppliers that nation's pipeline meets on the first tick
+      (``q7_stagger``'s order; with every table on one tick it would
+      need the whole orders table);
+    - the output's base holds its run 0 and every group (two nation
+      pairs, two years).
+
+    A tick beyond its estimate overflows, rolls back and replays."""
+    c = _q7_counts(h_inputs)
+    churn_li = rows_per_tick(n_orders_per_tick)
+    window_tick = max(c["window_tick"], churn_li)
+    rows = {"lineitem": c["window"] + churn_ticks * churn_li, "orders": c["orders"],
+            "customer": c["customer"], "supplier": c["supplier"], "nation": 25}
+    grow = []
+    for slot, parts in enumerate(df.states):
+        for p, sp in enumerate(parts):
+            if not isinstance(sp, Spine):
+                continue
+            table = _spine_table(sp)
+            n = rows[table]
+            grow += [[("state", slot, (p, ri)), n] for ri in range(sp.levels)]
+            if sp.slots:
+                grow.append([("state", slot, (p, "tail")),
+                             window_tick if table == "lineitem" else n])
+    out0 = df.output.runs_b[0].capacity
+    grow.append([("out", df.output.levels - 1), out0 + 4])
+    return {"grow": [[k, quantize_cap(n)] for k, n in grow],
+            "join_caps": [quantize_cap(max(c["supplier"], window_tick))]
+            * len(df._ctx.join_caps),
             "out_delta_cap": df.out_delta_cap, "slot_cap": 256, "letrec_caps": []}
 
 

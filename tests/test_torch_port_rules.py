@@ -63,6 +63,18 @@ SLICE_MODULES = [
     "materialize_tpu_torch.workloads.auction",
     "materialize_tpu_torch.workloads.pagerank",
     "materialize_tpu_torch.interop",
+    "materialize_tpu_torch.expr.strings",
+    "materialize_tpu_torch.sql.lexer",
+    "materialize_tpu_torch.sql.ast",
+    "materialize_tpu_torch.sql.parser",
+    "materialize_tpu_torch.sql.hir",
+    "materialize_tpu_torch.sql.catalog",
+    "materialize_tpu_torch.sql.plan_query",
+    "materialize_tpu_torch.sql.lowering",
+    "materialize_tpu_torch.sql.plan",
+    "materialize_tpu_torch.analysis.monotonic",
+    "materialize_tpu_torch.transform.optimizer",
+    "materialize_tpu_torch.transform.cse",
 ]
 
 
@@ -109,7 +121,7 @@ def test_entry_points_default_to_cuda():
     from materialize_tpu_torch.storage.generator.auction import AuctionGenerator
     from materialize_tpu_torch.workloads.auction import auction_config
     from materialize_tpu_torch.workloads.pagerank import pagerank_config
-    from materialize_tpu_torch.workloads.tpch import q1_config, q9_config, q15_config
+    from materialize_tpu_torch.workloads.tpch import q1_config, q7_config, q9_config, q15_config
 
     assert default_device() == "cuda"
     if torch.cuda.is_available():
@@ -125,6 +137,8 @@ def test_entry_points_default_to_cuda():
         q15_config(sf=0.001)
     with pytest.raises(RuntimeError, match="cuda"):
         q9_config(sf=0.001)
+    with pytest.raises(RuntimeError, match="cuda"):
+        q7_config(sf=0.001)
     with pytest.raises(RuntimeError, match="cuda"):
         auction_config()
     with pytest.raises(RuntimeError, match="cuda"):
