@@ -3,8 +3,12 @@
 card and check it end to end.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --serve-only
 
-Phases, each printing one JSON line (any failure exits non-zero):
+With ``--serve-only`` it runs phases 1, 5, 7a (twice: the replica
+stepping a tick at a time, then with ``span_pipelining`` on) and
+stops after ``serve_vs_plain_path``, printing neither the kernels line
+nor the last line. Phases, each printing one JSON line (any failure exits non-zero):
 
 1. card and build: the card's name and power limit (``nvidia-smi``),
    then the merge-path kernel built from ``csrc/merge_path.cu`` with
@@ -46,6 +50,35 @@ Phases, each printing one JSON line (any failure exits non-zero):
    plain chain;
 7. Q1 at SF 0.01 in both merge modes: equal peeks, reduce states, output
    runs and err arrangements;
+7a. ``serve``: the port's serving stack in this process, the replica's
+    dataflows on the card: a replica thread (``coord/replica.py``), a
+    Coordinator over FileBlob and SqliteConsensus in a temporary
+    directory, a PgServer on a free port, and this script's own pgwire
+    client (the simple query protocol). Over the wire: ``CREATE SOURCE
+    tpch FROM LOAD GENERATOR TPCH (SCALE FACTOR 0.1, CHURN ORDERS
+    1024)``, Q1's full text as a materialized view, ``order_lines`` (a
+    count and a sum by ``l_orderkey``, ~150,000 groups) with its index;
+    32 churn ticks of the source (``tick_once``) with ``SELECT * FROM
+    q1`` after each span of 16, each equal to a numpy Q1 oracle over the
+    generator's stream (not read from persist); 8 paced ticks, each
+    waited for until both views stepped past it, their time split
+    between the source's persist appends and the replica's fetch, step
+    and sink append; 256 point lookups on ``order_lines`` over the wire
+    and straight through the coordinator, each equal to the oracle; 32
+    more Q1 SELECTs (Q1's sums and count equal to the oracle's, each
+    average equal to its scale-2 sum over the count rounded down, as
+    the engine's decimal division does); the table path (CREATE TABLE, INSERT, an MV with a
+    join and an aggregate, DELETE, UPDATE, a slow-path SELECT). Printed:
+    each DDL's ms, hydrate s, churn updates/s through the served path
+    (source rows written over the wall time from the first tick to the
+    SELECT that first sees the last) beside the bare ``q1`` cell's,
+    SELECT and lookup ms p50/p99, flags readbacks a replica step,
+    host-to-device copies a tick, persist parts and bytes written, merge
+    launches, peak device memory; then the kernel at each merge shape
+    the serve path launched (``serve_kernel_shape``), and
+    ``serve_vs_plain_path``: the script at SF 0.002 with the replica's
+    merges forced to the kernel and then to the plain chain, every
+    SELECT equal;
 8. TPC-H Q15 at SF 0.1 (``workloads/tpch.py``, the reference bench's Q15
    layout, twice its scale; SF 1 is left to earlier records, for time:
    the revenue view, its global MAX and the supplier table in a
@@ -61,7 +94,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
 10. Q15 at SF 0.01 in both merge modes: equal peeks, revenue
     accumulators, join spines, MAX multiset, output runs and err
     arrangements;
-11. TPC-H Q9 at SF 0.5 (``Q9_SF``; SF 1 until Q7 took its time;
+11. TPC-H Q9 at SF 0.25 (``Q9_SF``; SF 1 until Q7 took its time, SF
+    0.5 until the serving phases did;
     ``workloads/tpch.py``, the reference bench's Q9 layout: a 6-input
     delta join over ten spines with a ring of 8 append slots each,
     EXTRACT(YEAR), profit summed by (n_name, o_year)): part, supplier,
@@ -70,7 +104,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
     pre-sized (``q9_tiers``; no hydrate span may overflow), no warm
     span, the join tier set back to a churn tick's
     (``set_join_tiers``), then 32 churn ticks as spans of 16 with one
-    flags readback each; kernel launches by merge shape (2^22 rows at
+    flags readback each; kernel launches by merge shape (2^21 rows at
     L = 6 among them; 2^23 at SF 1), device operations per tick from 2
     profiled ticks, peak device memory,
     ``peek()`` against a numpy Q9 oracle over every batch fed (175
@@ -105,7 +139,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
 17. the kernel at each merge shape the pagerank paths launched, and a
     small pagerank in both merge modes (every state part equal);
 18. TPC-H Q21 (``workloads/tpch.py:q21_plan``: EXISTS as a semijoin, NOT
-    EXISTS as ``Threshold(Union(cse13, Negate(...)))``) at SF 0.5 in
+    EXISTS as ``Threshold(Union(cse13, Negate(...)))``) at SF 0.5
+    (``Q21_SF``; SF 1 does not fit the time limit) in
     Q9's layout and stream: supplier, nation and every order on the
     first hydrate tick, lineitem in ticks of 16,384 orders with every
     tier pre-sized (``q21_tiers``, join tiers per site), 32 churn ticks
@@ -284,13 +319,21 @@ def phase_card_and_build(torch, merge_kernel) -> str:
     )
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unknown"
     print(card, flush=True)
+    from materialize_tpu_torch import native
+
     t0 = time.perf_counter()
     merge_kernel.build()
+    build_s = time.perf_counter() - t0
+    # The host C++ of persist and the replica protocol (CRC32C, varints),
+    # built with g++ before any phase times its first use.
+    t1 = time.perf_counter()
+    native.lib()
     emit({
         "phase": "build",
         "card": card,
         "device_name": torch.cuda.get_device_name(0),
-        "build_s": time.perf_counter() - t0,
+        "build_s": build_s,
+        "native_build_s": time.perf_counter() - t1,
         "ptxas": [l.strip() for l in merge_kernel.BUILD_INFO["log"].splitlines()
                   if "ptxas" in l or "spill" in l],
     })
@@ -1027,10 +1070,11 @@ def q9_presized(sf: float, churn_ticks: int, hydrate_orders: int = 896, **kw):
     return df, hydrate, churn
 
 
-# Q9's scale: SF 0.5 makes room for Q7. At SF 1 its phase took 420.5 s
-# of the script's 939.1 s, at SF 0.5 228.6 s (an NVIDIA H100 80GB HBM3
-# at 700 W, PERF.md §4).
-Q9_SF = 0.5
+# Q9's scale: SF 0.25 makes room for the serving phases. At SF 1 its
+# phase took 420.5 s of the script's 939.1 s, at SF 0.5 250.9 s of
+# 1,085.1 s with the serving phases in (an NVIDIA H100 80GB HBM3 at
+# 700 W, PERF.md §4).
+Q9_SF = 0.25
 
 
 def phase_q9(torch, merge_kernel, card, sf: float = 1.0) -> dict:
@@ -1082,7 +1126,7 @@ def phase_q9(torch, merge_kernel, card, sf: float = 1.0) -> dict:
     errors = df.peek_errors()
     check(errors == [], f"Q9 err collection not empty: {errors}")
     # the largest merge at L = 6 grows with the scale: 2^23 rows at SF 1,
-    # 2^22 at SF 0.5
+    # 2^22 at SF 0.5, 2^21 at SF 0.25
     wide_rows = int((1 << 23) * sf)
     wide = sorted(k for k in run["by_shape"] if k[3] == 6 and max(k[:3]) >= wide_rows)
     check(wide, f"Q9 launched no merge of {wide_rows} rows at L = 6")
@@ -1116,8 +1160,7 @@ def phase_q9(torch, merge_kernel, card, sf: float = 1.0) -> dict:
 
 Q21_COLS = (0, 2, 11, 12)  # orderkey, suppkey, commitdate, receiptdate
 # Q21's scale. At SF 1 its phase took 347.1 s and the script 1,230.8 s
-# of its 1,200 s limit; at SF 0.5, 172.5 s and 939.1 s (an NVIDIA H100
-# 80GB HBM3 at 700 W, PERF.md §4).
+# of its 1,200 s limit (an NVIDIA H100 80GB HBM3 at 700 W, PERF.md §4).
 Q21_SF = 0.5
 
 
@@ -2240,9 +2283,555 @@ def _merged_shapes(*runs) -> dict:
     return out
 
 
-def main() -> int:
+# -- the serving stack over pgwire ----------------------------------------------
+
+SERVE_SF = 0.1  # bench config_q1's scale (bench.py:268-273)
+SERVE_CHURN = 1024  # orders a tick, as the port's other TPC-H cells
+SERVE_TICKS, SERVE_SPAN = 32, 16
+SERVE_LOOKUPS = 256
+
+SERVE_Q1_SQL = """SELECT l_returnflag, l_linestatus,
+  sum(l_quantity) AS sum_qty, sum(l_extendedprice) AS sum_base_price,
+  sum(l_extendedprice * (1 - l_discount)) AS sum_disc_price,
+  sum(l_extendedprice * (1 - l_discount) * (1 + l_tax)) AS sum_charge,
+  avg(l_quantity) AS avg_qty, avg(l_extendedprice) AS avg_price,
+  avg(l_discount) AS avg_disc, count(*) AS count_order
+FROM lineitem
+WHERE l_shipdate <= DATE '1998-12-01' - INTERVAL '90' DAY
+GROUP BY l_returnflag, l_linestatus"""
+
+SERVE_ORDER_LINES_SQL = (
+    "CREATE VIEW order_lines AS SELECT l_orderkey, count(*) AS lines, "
+    "sum(l_quantity) AS qty FROM lineitem GROUP BY l_orderkey"
+)
+
+
+class PgClient:
+    """The simple query protocol of PostgreSQL v3: a startup message,
+    then Query messages answered by RowDescription, DataRows,
+    CommandComplete and ReadyForQuery (or an ErrorResponse, raised)."""
+
+    def __init__(self, port: int, timeout: float = 300.0):
+        import socket
+        import struct
+
+        self._struct = struct
+        self.sock = socket.create_connection(("127.0.0.1", port), timeout)
+        self.sock.settimeout(timeout)
+        body = struct.pack("!I", 196608) + b"user\x00chip_smoke\x00\x00"
+        self.sock.sendall(struct.pack("!I", len(body) + 4) + body)
+        self._until_ready()
+
+    def _exact(self, n: int) -> bytes:
+        buf = b""
+        while len(buf) < n:
+            chunk = self.sock.recv(n - len(buf))
+            check(bool(chunk), "pgwire server closed the connection")
+            buf += chunk
+        return buf
+
+    def _until_ready(self) -> list:
+        msgs = []
+        while True:
+            tag = self._exact(1)
+            (n,) = self._struct.unpack("!I", self._exact(4))
+            msgs.append((tag, self._exact(n - 4)))
+            if tag == b"Z":
+                return msgs
+
+    def query(self, sql: str) -> tuple:
+        """(columns, rows as tuples of text or None, command tag)."""
+        st = self._struct
+        body = sql.encode() + b"\x00"
+        self.sock.sendall(b"Q" + st.pack("!I", len(body) + 4) + body)
+        cols, rows, tag, err = [], [], None, None
+        for t, p in self._until_ready():
+            if t == b"T":
+                (n,) = st.unpack("!H", p[:2])
+                off = 2
+                for _ in range(n):
+                    end = p.index(b"\x00", off)
+                    cols.append(p[off:end].decode())
+                    off = end + 19
+            elif t == b"D":
+                (n,) = st.unpack("!H", p[:2])
+                off, row = 2, []
+                for _ in range(n):
+                    (ln,) = st.unpack("!i", p[off:off + 4])
+                    off += 4
+                    row.append(None if ln == -1 else p[off:off + ln].decode())
+                    off += max(ln, 0)
+                rows.append(tuple(row))
+            elif t == b"C":
+                tag = p[:-1].decode()
+            elif t == b"E":
+                f = {x[:1]: x[1:].decode() for x in p.split(b"\x00") if x}
+                err = f"{f.get(b'C')}: {f.get(b'M')}"
+        check(err is None, f"pgwire error for {sql[:60]!r}: {err}")
+        return cols, rows, tag
+
+    def close(self) -> None:
+        try:
+            self.sock.sendall(b"X" + self._struct.pack("!I", 4))
+        finally:
+            self.sock.close()
+
+
+class ServeStack:
+    """The port's serving stack in this process: a replica thread on the
+    card (its worker thread does all the device work), a Coordinator
+    over FileBlob and SqliteConsensus in ``root``, a PgServer on a free
+    port, and one wire client. ``mode`` forces the replica's merges to
+    the kernel or the plain chain (None: the device rule)."""
+
+    def __init__(self, root: str, mode=None):
+        import contextvars
+        import socket
+        import threading
+
+        from materialize_tpu_torch.coord.coordinator import Coordinator
+        from materialize_tpu_torch.coord.protocol import PersistLocation
+        from materialize_tpu_torch.coord.replica import serve_forever
+        from materialize_tpu_torch.ops.merge import merge_mode
+        from materialize_tpu_torch.server.pgwire import PgServer
+        from materialize_tpu_torch.storage.persist import (FileBlob, PersistClient,
+                                                           SqliteConsensus)
+
+        self.loc = PersistLocation(f"{root}/blob", f"{root}/consensus.db")
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        ready, self._handle = threading.Event(), []
+        # The merge mode is a context variable: the replica thread runs in
+        # a copy of a context that holds it.
+        with merge_mode(mode):
+            ctx = contextvars.copy_context()
+        self._thread = threading.Thread(
+            target=ctx.run, args=(serve_forever, port, self.loc, "r0", ready),
+            kwargs={"handle": self._handle, "device": "cuda"}, daemon=True)
+        self._thread.start()
+        check(ready.wait(60), "replica did not start")
+        self.coord = Coordinator(
+            PersistClient(FileBlob(self.loc.blob_root),
+                          SqliteConsensus(self.loc.consensus_path)),
+            tick_interval=None)
+        self.coord.add_replica("r0", ("127.0.0.1", port))
+        self.pg = PgServer(self.coord).start()
+        self.client = PgClient(self.pg.port)
+
+    @property
+    def worker(self):
+        return self._handle[0]
+
+    def view(self, name: str):
+        return self.worker.dataflows[name].view
+
+    def blob_files(self) -> tuple:
+        n = size = 0
+        for d, _dirs, files in os.walk(self.loc.blob_root):
+            for f in files:
+                n += 1
+                size += os.path.getsize(os.path.join(d, f))
+        return n, size
+
+    def close(self) -> None:
+        self.client.close()
+        self.pg.stop()
+        self.pg._thread.join(30)
+        self.coord.shutdown()
+        self.worker.stop()
+        self._thread.join(60)
+        check(not self._thread.is_alive(), "replica thread did not stop")
+
+
+def _timed(client, sql: str) -> tuple:
+    t = time.perf_counter()
+    out = client.query(sql)
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def _serve_oracle_parts(sf: float, churn: int, ticks: int):
+    """The generator's lineitem stream, on the host, as the source's
+    adapter draws it: (snapshot parts, churn parts of ticks 1..ticks)."""
+    from materialize_tpu_torch.storage.generator.tpch import TpchGenerator
+
+    gen = TpchGenerator(sf=sf, seed=1)
+    snap = list(gen.snapshot_lineitem_parts())
+    churn_parts = [gen.churn_lineitem_part(min(churn, gen.n_orders), t)
+                   for t in range(1, ticks + 1)]
+    return gen, snap, churn_parts
+
+
+def _cols_of(parts, idx) -> tuple:
+    return tuple(np.concatenate([p[0][i] for p in parts]).astype(np.int64) for i in idx) + (
+        np.concatenate([p[1] for p in parts]).astype(np.int64),)
+
+
+def _check_q1_wire(rows, parts, what: str) -> None:
+    """Q1's rows off the wire against ``q1_oracle`` over ``parts``: the
+    sums and the count exactly, and each of the three averages exactly
+    as the engine divides decimals: the scale-2 sum over the count,
+    rounded down to scale 2."""
+    from decimal import Decimal
+
+    from materialize_tpu_torch.repr.schema import GLOBAL_DICT
+    from materialize_tpu_torch.workloads.tpch import Q1_CUTOFF
+
+    cols = _cols_of(parts, Q1_COLS)
+    want = q1_oracle(*cols, cutoff=Q1_CUTOFF)
+    _qty, _ext, disc, _tax, flag, status, ship, diff = cols
+    keep = ship <= Q1_CUTOFF
+    keys, inv = np.unique(np.stack([flag[keep], status[keep]], 1), axis=0, return_inverse=True)
+    sums = np.zeros(len(keys), np.int64)
+    np.add.at(sums, inv.reshape(-1), disc[keep] * diff[keep])
+    disc_sum = {(int(f), int(s)): int(v) for (f, s), v in zip(keys, sums)}
+    want = {(GLOBAL_DICT.decode(f), GLOBAL_DICT.decode(s)):
+            v + tuple(t // v[4] for t in (v[0], v[1], disc_sum[(f, s)]))
+            for (f, s), v in want.items()}
+    got = {}
+    for r in rows:
+        qty, base, disc_price, charge, *avgs = (Decimal(x) for x in r[2:9])
+        got[(r[0], r[1])] = (int(qty * 100), int(base * 100), int(disc_price * 10**4),
+                             int(charge * 10**6), int(r[9]),
+                             *(int(a * 100) for a in avgs))
+    check(len(got) == len(rows) and got == want, f"{what}: Q1 over pgwire != oracle: {got} vs {want}")
+
+
+def _order_lines_oracle(parts) -> tuple:
+    """(lines, sum qty at scale 2) per orderkey over the live rows."""
+    key, qty, diff = _cols_of(parts, (0, 4))
+    n = int(key.max()) + 1
+    lines = np.bincount(key, weights=diff, minlength=n).astype(np.int64)
+    total = np.zeros(n, np.int64)
+    np.add.at(total, key, qty * diff)
+    return lines, total
+
+
+TABLE_SCRIPT = [
+    "CREATE TABLE items (id bigint NOT NULL, name text NOT NULL, price numeric(10,2) NOT NULL)",
+    "CREATE TABLE sales (item bigint NOT NULL, qty bigint NOT NULL)",
+    "INSERT INTO items VALUES (1, 'apple', 1.25), (2, 'pear', 2.50), (3, 'fig', 0.75)",
+    "INSERT INTO sales VALUES (1, 4), (1, 10), (2, 3), (3, 7), (3, 1), (4, 2)",
+    "CREATE MATERIALIZED VIEW revenue AS SELECT i.name, count(*) AS n, "
+    "sum(s.qty * i.price) AS rev FROM sales s JOIN items i ON s.item = i.id GROUP BY i.name",
+    "SELECT * FROM revenue",
+    "DELETE FROM sales WHERE qty > 5",
+    "UPDATE items SET price = price + 1 WHERE id = 1",
+    "SELECT * FROM revenue",
+    "SELECT * FROM sales",
+]
+
+
+def _table_path(client) -> tuple:
+    """The table path over the wire: the timestamp oracle and group
+    commit, a join and an aggregate maintained through DELETE and UPDATE,
+    and a slow-path SELECT. Returns (ms per statement, SELECT rows)."""
+    from decimal import Decimal
+
+    ms, selects = [], []
+    for sql in TABLE_SCRIPT:
+        (cols, rows, tag), t = _timed(client, sql)
+        ms.append(t)
+        if sql.startswith("SELECT"):
+            selects.append(sorted(rows, key=repr))
+
+    def rev(rows):
+        return {r[0]: (int(r[1]), Decimal(r[2])) for r in rows}
+
+    check(rev(selects[0]) == {"apple": (2, Decimal("17.5")), "pear": (1, Decimal("7.5")),
+                              "fig": (2, Decimal("6"))}, f"revenue {selects[0]}")
+    check(rev(selects[1]) == {"apple": (1, Decimal("9")), "pear": (1, Decimal("7.5")),
+                              "fig": (1, Decimal("0.75"))}, f"revenue {selects[1]}")
+    check(sorted((int(a), int(b)) for a, b in selects[2]) == [(1, 4), (2, 3), (3, 1), (4, 2)],
+          f"sales {selects[2]}")
+    return ms, selects
+
+
+class _TickSplit:
+    """Where a paced served tick's time goes. On the coordinator's side
+    (this thread) the source's generation and its persist appends, the
+    lineitem shard's apart; on the replica's (its worker thread) each
+    view's steps that did work, split into the shard fetch (wait for
+    the upper, decode, host-to-device), the dataflow step (to its flags
+    readback) and the sink append. The methods are wrapped on the
+    instances for the paced ticks only, and timed on the host clock."""
+
+    def __init__(self, src, views: dict):
+        self.ms = {}
+        self._undo = []
+        self._wrap(src.adapter, "tick", "source.generate")
+        self._wrap(src, "_append_all", "source.append_all")
+        for name, v in views.items():
+            self._wrap(v, "step", f"{name}.step", lambda r: r is True)
+            self._wrap(v, "step_span", f"{name}.step_span", lambda r: r is True)
+            self._wrap(v.df, "step", f"{name}.df_step")
+            self._wrap(v.df, "run_steps", f"{name}.df_run_steps")
+            self._wrap(v, "_append", f"{name}.sink_append")
+            for sname, s in v.sources.items():
+                self._wrap(s, "fetch_to", f"{name}.fetch_{sname}")
+        for sub, w in src.writers.items():
+            self._wrap(w, "compare_and_append",
+                       "source.cas_lineitem" if sub == "lineitem" else "source.cas_other")
+
+    def _wrap(self, obj, attr: str, key: str, keep=None) -> None:
+        fn = getattr(obj, attr)
+
+        def timed(*a, **kw):
+            t = time.perf_counter()
+            r = fn(*a, **kw)
+            if keep is None or keep(r):
+                self.ms.setdefault(key, []).append((time.perf_counter() - t) * 1e3)
+            return r
+
+        setattr(obj, attr, timed)
+        self._undo.append((obj, attr))
+
+    def remove(self) -> None:
+        for obj, attr in self._undo:
+            delattr(obj, attr)
+
+    def p50(self) -> dict:
+        out = {}
+        for k, v in sorted(self.ms.items()):
+            if k == "source.cas_other":  # 7 appends a tick
+                v = [sum(v[i:i + 7]) for i in range(0, len(v), 7)]
+            out[k] = float(np.percentile(v, 50))
+        return out
+
+
+def _serve_script(st, sf: float, churn: int, ticks: int, span: int, n_lookups: int,
+                  q1_selects: int, paced: int = 8, span_pipelining: bool = False) -> dict:
+    """The serving script on one stack: ``span_pipelining`` set over the
+    wire (on, the replica steps every ready tick of a view as one span
+    with one flags readback; off, a tick at a time), the DDL, ``ticks`` churn ticks
+    of the source in spans of ``span`` with ``SELECT * FROM q1`` after
+    each (checked against the oracle afterwards, off the clock), then
+    ``paced`` ticks each waited for until both views have stepped past
+    it (the source's persist write, then the replica's read, step and
+    sink append), point lookups on ``order_lines`` over the wire and
+    straight through the coordinator, checked against the oracle, more
+    Q1 SELECTs for their latency, then the table path."""
+    from decimal import Decimal
+
+    from materialize_tpu_torch.storage.persist import operators
+
+    c = st.client
+    c.query(f"SET span_pipelining = {str(span_pipelining).lower()}")
+    ddl = [
+        ("create_source", f"CREATE SOURCE tpch FROM LOAD GENERATOR TPCH "
+                          f"(SCALE FACTOR {sf}, CHURN ORDERS {churn})"),
+        ("create_mv_q1", "CREATE MATERIALIZED VIEW q1 AS " + SERVE_Q1_SQL),
+        ("create_view_order_lines", SERVE_ORDER_LINES_SQL),
+        ("create_index_order_lines", "CREATE INDEX order_lines_idx ON order_lines (l_orderkey)"),
+    ]
+    ddl_ms = {}
+    for name, sql in ddl:
+        _out, ddl_ms[name] = _timed(c, sql)
+    # The views hydrate on the replica's first steps, which the first
+    # SELECT waits for.
+    (_cols, first_q1, _tag), first_select_ms = _timed(c, "SELECT * FROM q1")
+    t_o = time.perf_counter()
+    gen, snap, churn_parts = _serve_oracle_parts(sf, churn, ticks + paced)
+    oracle_gen_s = time.perf_counter() - t_o
+    rows_written = sum(len(p[1]) for p in churn_parts[:ticks])
+    src = st.coord.sources["tpch"]
+    q1_view, ol_view = st.view("q1"), st.view("order_lines_idx")
+    rb0 = {"q1": q1_view.df._readbacks, "order_lines": ol_view.df._readbacks}
+    up0 = {"q1": q1_view.upper, "order_lines": ol_view.upper}
+    for k in operators.H2D:
+        operators.H2D[k] = 0
+    files0, bytes0 = st.blob_files()
+    span_selects, span_select_ms, tick_ms = [], [], []
+    t_first = time.perf_counter()
+    for _s in range(ticks // span):
+        for _i in range(span):
+            t = time.perf_counter()
+            src.tick_once()
+            tick_ms.append((time.perf_counter() - t) * 1e3)
+        (_cols, rows, _tag), t = _timed(c, "SELECT * FROM q1")
+        span_selects.append(rows)
+        span_select_ms.append(t)
+    served_s = time.perf_counter() - t_first
+    h2d = dict(operators.H2D)
+    files1, bytes1 = st.blob_files()
+    steps = {"q1": q1_view.upper - up0["q1"], "order_lines": ol_view.upper - up0["order_lines"]}
+    check(min(steps.values()) >= ticks, f"views stepped {steps} of {ticks} ticks")
+    readbacks = {"q1": q1_view.df._readbacks - rb0["q1"],
+                 "order_lines": ol_view.df._readbacks - rb0["order_lines"]}
+    # -- paced ticks: one at a time, each waited for, its time split ---------
+    paced_write_ms, paced_fresh_ms = [], []
+    split = _TickSplit(src, {"q1": q1_view, "order_lines": ol_view})
+    try:
+        for _i in range(paced):
+            target = src.t + 1
+            t = time.perf_counter()
+            src.tick_once()
+            t_w = time.perf_counter()
+            while q1_view.upper < target or ol_view.upper < target:
+                check(time.perf_counter() - t_w < 60, "a paced tick was not stepped within 60 s")
+                time.sleep(0.0002)
+            paced_write_ms.append((t_w - t) * 1e3)
+            paced_fresh_ms.append((time.perf_counter() - t) * 1e3)
+    finally:
+        split.remove()
+    # -- checks, off the clock --------------------------------------------------
+    _check_q1_wire(first_q1, snap, "Q1 after hydration")
+    for i, rows in enumerate(span_selects):
+        _check_q1_wire(rows, snap + churn_parts[: (i + 1) * span], f"Q1 after span {i}")
+    lines, qty = _order_lines_oracle(snap + churn_parts)
+    rng = np.random.default_rng(7)
+    keys = rng.integers(1, gen.n_orders + 1, n_lookups)
+    lookup_ms, direct_ms = [], []
+    for k in keys.tolist():
+        sql = f"SELECT * FROM order_lines WHERE l_orderkey = {k}"
+        (_cols, rows, _tag), t = _timed(c, sql)
+        lookup_ms.append(t)
+        want = [] if lines[k] == 0 else [(k, int(lines[k]), int(qty[k]))]
+        got = [(int(r[0]), int(r[1]), int(Decimal(r[2]) * 100)) for r in rows]
+        check(got == want, f"order_lines lookup {k}: {got} vs {want}")
+        # The same lookup below pgwire: the coordinator, the controller's
+        # batcher, the protocol and the replica's gather on the card.
+        t = time.perf_counter()
+        res = st.coord.execute(sql)
+        direct_ms.append((time.perf_counter() - t) * 1e3)
+        got = [(int(r[0]), int(r[1]), int(r[2] * 100)) for r in res.rows]
+        check(got == want, f"order_lines lookup {k} in process: {got} vs {want}")
+    q1_ms = list(span_select_ms)
+    for _ in range(q1_selects):
+        (_cols, rows, _tag), t = _timed(c, "SELECT * FROM q1")
+        q1_ms.append(t)
+    _check_q1_wire(rows, snap + churn_parts, "Q1 at rest")
+    table_ms, table_selects = _table_path(c)
+    c.query("SET span_pipelining = DEFAULT")
+    return {
+        "span_pipelining": span_pipelining,
+        "ddl_ms": ddl_ms,
+        # From the first view's DDL to Q1's first answer.
+        "hydrate_s": (sum(v for k, v in ddl_ms.items() if k != "create_source")
+                      + first_select_ms) / 1e3,
+        "first_select_q1_ms": first_select_ms, "oracle_gen_s": oracle_gen_s,
+        "churn_ticks": ticks, "source_rows_written": rows_written,
+        "served_s": served_s, "churn_updates_per_s": rows_written / served_s,
+        "source_tick_ms_p50": float(np.percentile(tick_ms, 50)),
+        "select_q1_ms_p50": float(np.percentile(q1_ms, 50)),
+        "select_q1_ms_p99": float(np.percentile(q1_ms, 99)),
+        "select_q1_after_span_ms": span_select_ms,
+        "lookups": len(keys), "lookup_hits": int(sum(lines[k] != 0 for k in keys)),
+        "lookup_ms_p50": float(np.percentile(lookup_ms, 50)),
+        "lookup_ms_p99": float(np.percentile(lookup_ms, 99)),
+        "lookup_in_process_ms_p50": float(np.percentile(direct_ms, 50)),
+        "lookup_in_process_ms_p99": float(np.percentile(direct_ms, 99)),
+        "paced_ticks": paced,
+        "paced_source_write_ms_p50": float(np.percentile(paced_write_ms, 50)),
+        "paced_tick_fresh_ms_p50": float(np.percentile(paced_fresh_ms, 50)),
+        "paced_tick_fresh_ms_p99": float(np.percentile(paced_fresh_ms, 99)),
+        "paced_split_ms_p50": split.p50(),
+        "replica_steps": steps,
+        "flags_readbacks_per_step": {k: readbacks[k] / max(steps[k], 1) for k in steps},
+        "h2d_batches_per_tick": h2d["batches"] / ticks,
+        "h2d_copies_per_tick": h2d["copies"] / ticks,
+        "h2d_bytes_per_tick": h2d["bytes"] / ticks,
+        "persist_parts_written_churn": files1 - files0,
+        "persist_bytes_written_churn": bytes1 - bytes0,
+        "table_ms": table_ms,
+        "selects": [sorted(r) for r in [first_q1, *span_selects]] + table_selects,
+    }
+
+
+def phase_serve(torch, merge_kernel, card, bare_q1: dict, span_pipelining: bool = False) -> dict:
+    """TPC-H Q1 and point lookups served over pgwire by the port's own
+    stack, the replica's dataflows on the card (module docstring)."""
+    import tempfile
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    merge_kernel.LAUNCHES = 0
+    merge_kernel.LAUNCHES_BY_SHAPE.clear()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        st = ServeStack(root)
+        try:
+            out = _serve_script(st, SERVE_SF, SERVE_CHURN, SERVE_TICKS, SERVE_SPAN,
+                                SERVE_LOOKUPS, q1_selects=32,
+                                span_pipelining=span_pipelining)
+            files, size = st.blob_files()
+        finally:
+            st.close()
+    torch.cuda.synchronize()
+    launches = merge_kernel.LAUNCHES
+    by_shape = dict(merge_kernel.LAUNCHES_BY_SHAPE)
+    check(launches > 0, "the serve path launched no merge-path kernel")
+    out.pop("selects")
+    res = {
+        "phase": "serve", "sf": SERVE_SF, "churn_orders": SERVE_CHURN, "card": card,
+        **out,
+        "bare_q1_churn_updates_per_s": bare_q1["churn_updates_per_s"],
+        "bare_q1_sf": bare_q1["sf"],
+        "persist_parts_total": files, "persist_bytes_total": size,
+        "launches": launches,
+        "launches_by_shape": {",".join(map(str, k)): v for k, v in sorted(by_shape.items())},
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "phase_s": time.perf_counter() - t0,
+    }
+    emit(res)
+    res["by_shape"] = by_shape
+    return res
+
+
+def phase_serve_modes(torch, merge_kernel, card) -> None:
+    """The serve script at SF 0.002 with the replica's merges forced to
+    the kernel and then to the plain chain: every SELECT equal."""
+    import tempfile
+
+    def run(mode):
+        start = merge_kernel.LAUNCHES
+        with tempfile.TemporaryDirectory() as root:
+            st = ServeStack(root, mode=mode)
+            try:
+                out = _serve_script(st, 0.002, 64, 8, 4, 32, q1_selects=2)
+            finally:
+                st.close()
+        return out["selects"], merge_kernel.LAUNCHES - start
+
+    ksel, k_launch = run("kernel")
+    tsel, t_launch = run("torch")
+    check(k_launch > 0 and t_launch == 0, f"serve modes launches {k_launch}/{t_launch}")
+    check(ksel == tsel, "serve: SELECTs differ between merge modes")
+    emit({"phase": "serve_vs_plain_path", "sf": 0.002, "selects": len(ksel),
+          "kernel_launches": k_launch, "plain_launches": t_launch, "equal": True,
+          "card": card})
+
+
+def half_full(ca, cb, out):
+    """Q15's, Q9's, Q21's, pagerank's and the serving views' runs fill up
+    to their tier (Q15's join spines and MAX multiset hold one row per
+    supplier, Q9's and Q21's their tables, pagerank's a row per node or
+    edge): time them half full."""
+    return ca // 2, min(cb // 2, max(out - ca // 2, 0))
+
+
+def serve_phases(torch, merge_kernel, card, bare_q1: dict, span_pipelining=(False,)) -> tuple:
+    """``serve`` once for each ``span_pipelining`` setting, the kernel at
+    each merge shape the first run launched, and ``serve_vs_plain_path``."""
+    runs = [phase_serve(torch, merge_kernel, card, bare_q1, span_pipelining=sp)
+            for sp in span_pipelining]
+    rows = phase_path_kernel(torch, merge_kernel, card, runs[0]["by_shape"],
+                             "serve_kernel_shape", half_full)
+    phase_serve_modes(torch, merge_kernel, card)
+    return runs[0], rows
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="Drive the port on one CUDA card.")
+    ap.add_argument("--serve-only", action="store_true",
+                    help="the build, the bare q1 cell and the serving phases, "
+                         "serve also with span_pipelining on; no kernels line, no ok line")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -2258,19 +2847,19 @@ def main() -> int:
         marks.append((name, time.perf_counter()))
 
     card = phase_card_and_build(torch, merge_kernel)
+    if args.serve_only:
+        q1 = phase_q1(torch, merge_kernel, card, sf=0.1)
+        mark("build+q1")
+        serve_phases(torch, merge_kernel, card, q1, span_pipelining=(False, True))
+        mark("serve")
+        emit({"phase": "done", "wall_s": time.perf_counter() - t0, "card": card,
+              "phase_s": {name: t - prev for (_, prev), (name, t) in zip(marks, marks[1:])}})
+        return 0
     kern = phase_kernel(torch, merge_kernel, card)
     mark("build+kernel")
     phase_sql_plans(card)
     mark("sql_plans")
     paths, rows_by_path, by_path = {}, {}, {}
-
-    # Q15's, Q9's, Q21's and pagerank's runs fill up to their tier (Q15's
-    # join spines and MAX multiset hold one row per supplier, Q9's and
-    # Q21's their tables, pagerank's a row per node or edge): time them
-    # half full.
-    def half_full(ca, cb, out):
-        return ca // 2, min(cb // 2, max(out - ca // 2, 0))
-
     paths["index"] = phase_index(torch, merge_kernel, card)
     phase_modes(torch, merge_kernel, card)
     mark("index")
@@ -2281,6 +2870,9 @@ def main() -> int:
         lambda ca, cb, out: (min(ca, 8), min(cb, 8)))
     phase_path_modes(torch, merge_kernel, card, "q1_vs_plain_path", q1_config)
     mark("q1")
+    paths["serve"], rows_by_path["serve"] = serve_phases(torch, merge_kernel, card,
+                                                         paths["q1"])
+    mark("serve+kernel_shape+vs_plain")
     paths["q15"] = phase_q15(torch, merge_kernel, card, sf=0.1)
     rows_by_path["q15"] = phase_path_kernel(torch, merge_kernel, card,
                                             paths["q15"]["by_shape"],

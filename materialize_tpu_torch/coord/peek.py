@@ -14,9 +14,10 @@ the device cores of ``materialize_tpu/coord/peek.py``).
   range is gathered and raw-verified, and the net multiplicity comes
   back per probe.
 
-The controller, batching and routing stay in the reference's control
-plane; ``scan_rows``/``lookup_groups``/``point_groups`` are the host
-glue a caller uses on a port ``Dataflow``.
+``scan_rows``/``lookup_groups``/``point_net`` are the host glue a caller
+uses on a port ``Dataflow``; ``serve_peek_groups`` is the replica's entry
+point for the controller's batched fast-path peeks, and chooses between
+the device cores and the host filter exactly as the reference does.
 """
 
 from __future__ import annotations
@@ -28,6 +29,20 @@ from ..arrangement.spine import lookup_range
 from ..ops.lanes import stack_lanes
 from ..repr.batch import Batch
 from ..repr.schema import DIFF_DTYPE, TIME_DTYPE, decode_result_rows, torch_dtype
+
+class ServerBusy(RuntimeError):
+    """Admission control shed a read: the peek queue is full or too
+    many gather batches are in flight. Surfaced as SQLSTATE 53400 at
+    pgwire — a clean, retryable overload signal instead of an unbounded
+    backlog."""
+
+
+class PeekTimedOut(ServerBusy):
+    """A peek (or batched gather) wait exhausted its budget
+    (``retry_policy_peek``). A ServerBusy subclass on purpose: the
+    client should RETRY, so the front end sheds it exactly like an
+    admission-control rejection (SQLSTATE 53400)."""
+
 
 _MIN_SPAN = 8
 _MIN_BATCH = 8
@@ -258,3 +273,86 @@ def point_net(df, probes: list) -> np.ndarray:
             break
         span = _pow2(mx, _MIN_SPAN)
     return net.cpu().numpy()[: len(probes)]
+
+
+# -- the replica's batched fast path ----------------------------------------
+
+
+def _point_groups(df, bound_cols: tuple, probes: list, served_t: int) -> list:
+    """Every column bound: one row group per probe, holding the probe
+    tuple itself at its net multiplicity (empty when absent)."""
+    schema = df.out_schema
+    arity = schema.arity
+    # Reorder each probe tuple into schema column order.
+    order = {j: k for k, j in enumerate(bound_cols)}
+    full = [tuple(p[order[j]] for j in range(arity)) for p in probes]
+    net = point_net(df, full)
+    hits = [i for i in range(len(full)) if int(net[i]) != 0]
+    rows = []
+    if hits:
+        cols = [
+            np.asarray([full[i][j] for i in hits], dtype=c.dtype)
+            for j, c in enumerate(schema.columns)
+        ]
+        rows = _decode(
+            schema, cols, [None] * arity,
+            np.full(len(hits), served_t, np.uint64),
+            net[hits].astype(np.int64),
+        )
+    groups = [[] for _ in full]
+    for pos, i in enumerate(hits):
+        groups[i] = [rows[pos]]
+    return groups
+
+
+def _host_filter_groups(view, bound_cols: tuple, probes: list,
+                        scan: bool) -> list:
+    """Fallback for dataflows without the single-device gather path:
+    read the result batch once and filter host-side. Still no transient
+    dataflow, still one read amortized over the whole batch."""
+    from ..storage.persist.operators import _host_updates
+
+    schema = view.df.out_schema
+    cols, nulls, time, diff = _host_updates(view.result_batch())
+    if scan:
+        return [_decode(schema, cols, nulls, time, diff)]
+    groups = []
+    for p in probes:
+        mask = np.ones(len(diff), dtype=bool)
+        for k, j in enumerate(bound_cols):
+            v = np.asarray(p[k]).astype(schema.columns[j].dtype)
+            mask &= np.asarray(cols[j]) == v
+            if nulls[j] is not None:
+                mask &= ~np.asarray(nulls[j])
+        groups.append(
+            _decode(
+                schema,
+                [np.asarray(c)[mask] for c in cols],
+                [None if nl is None else np.asarray(nl)[mask] for nl in nulls],
+                time[mask],
+                diff[mask],
+            )
+        )
+    return groups
+
+
+def serve_peek_groups(view, spec: dict) -> list:
+    """Serve one batched fast-path peek against an installed dataflow's
+    maintained arrangement. ``spec``: {"scan": bool, "bound_cols":
+    tuple, "probes": [probe tuple, ...]} with probe values in INTERNAL
+    representation (the same values MIR literals carry). Returns
+    rows-groups: one decoded row list per probe (a single shared group
+    for scans). Never renders, never compacts the spine."""
+    df = view.df
+    probes = [tuple(p) for p in (spec.get("probes") or [])]
+    bound_cols = tuple(spec.get("bound_cols") or ())
+    scan = bool(spec.get("scan"))
+    from ..render.dataflow import Dataflow as _SingleDevice
+
+    if type(df) is not _SingleDevice or getattr(df, "_basic_finalizers", None):
+        return _host_filter_groups(view, bound_cols, probes, scan)
+    if scan:
+        return [scan_rows(df)]
+    if len(bound_cols) == df.out_schema.arity:
+        return _point_groups(df, bound_cols, probes, view.upper - 1)
+    return lookup_groups(df, bound_cols, probes)

@@ -15,7 +15,7 @@ dictionary's current version when it evaluates the call. So a nested
 call (``upper(trim(x))``) finds the strings the inner call added, and
 the reference's pass count (``collect_keys``'s depth) is not needed.
 The port's dictionary cannot rebalance: a gap that runs out raises
-``DictExhausted`` (ROADMAP Queue 1 item 6).
+``DictExhausted`` (ROADMAP Queue 1 item 6b).
 
 Strings are coded in ``GLOBAL_DICT`` unless ``dictionary_scope(d)`` says
 the data (and the plan's string literals, ``plan_statement(...,

@@ -147,3 +147,161 @@ def join_stage_keys(expr: mir.Join, offsets: list, stage: int):
                     ">2-member equivalence classes need residual filters"
                 )
     return tuple(left_key), tuple(right_key), consumed
+
+
+# -- the peek fast path (coord/peek.py serves what this recognizes) ---------
+
+
+@dataclass(frozen=True)
+class PeekPlan:
+    """EXPLAIN-visible fast-path peek decision:
+    how a SELECT over a peekable (indexed / materialized) relation is
+    served without rendering a transient dataflow.
+
+    kind: "scan"   — gather every maintained row (O(result): the scan
+                     IS the result);
+          "lookup" — equality constraints on ``bound`` columns,
+                     row-gathered from the maintained spine (a full-
+                     column binding rides the cached hash key lanes +
+                     lex_searchsorted_2d; partial bindings run the
+                     masked-compaction gather);
+          "empty"  — constraints are contradictory or compare against
+                     NULL: zero rows, zero dispatches.
+    bound: ((base column index, Literal), ...), column-sorted.
+    projection: output column -> base column map (None = identity),
+    applied host-side on the gathered rows — O(result) work."""
+
+    kind: str
+    name: str
+    bound: tuple = ()
+    projection: "tuple | None" = None
+
+    def describe(self) -> str:
+        if self.kind == "empty":
+            return (
+                f"fast path: empty result over {self.name!r} "
+                "(contradictory or NULL equality — zero dispatches)"
+            )
+        if self.kind == "scan":
+            return (
+                f"fast path: full index scan of {self.name!r} "
+                "(O(result) gather, no dataflow)"
+            )
+        cols = [c for c, _ in self.bound]
+        return (
+            f"fast path: index lookup on {self.name!r} bound={cols} "
+            "(O(result) gather, no dataflow)"
+        )
+
+
+def _eq_col_literal(pred):
+    """`col = literal` (either side), else None."""
+    from ..expr.scalar import BinaryFunc, CallBinary, Literal
+
+    if (
+        not isinstance(pred, CallBinary)
+        or pred.func != BinaryFunc.EQ
+    ):
+        return None
+    a, b = pred.left, pred.right
+    if isinstance(a, ColumnRef) and isinstance(b, Literal):
+        return a.index, b
+    if isinstance(b, ColumnRef) and isinstance(a, Literal):
+        return b.index, a
+    return None
+
+
+def _literal_binds(lit, col) -> "str | None":
+    """Can this literal's INTERNAL value be compared raw against the
+    column's device representation? Literal values are already internal
+    (string dictionary codes, scaled decimals, epoch ints — see
+    expr/scalar.eval_expr), so same-type comparisons are exact.
+    Returns "bind" (probe raw), "empty" (provably no match: an
+    out-of-range cross-width integer literal — casting it to the
+    column dtype would overflow or wrap), or None (slow path:
+    cross-family comparisons like float-vs-int, where XLA promotes
+    and a raw compare would change semantics)."""
+    from ..repr.schema import ColumnType
+
+    litcol = lit.typ(None)
+    if litcol.ctype == col.ctype:
+        if col.ctype is ColumnType.DECIMAL and litcol.scale != col.scale:
+            return None
+        return "bind"
+    ints = (ColumnType.INT32, ColumnType.INT64)
+    if litcol.ctype in ints and col.ctype in ints:
+        if col.ctype is ColumnType.INT32 and not (
+            -(1 << 31) <= int(lit.value) < (1 << 31)
+        ):
+            # No INT32 value equals this literal; the probe cast would
+            # overflow (numpy>=2 raises) or wrap (matching wrong rows).
+            return "empty"
+        return "bind"
+    return None
+
+
+def peek_fast_path(
+    expr: mir.RelationExpr, peekable: frozenset
+) -> "PeekPlan | None":
+    """Recognize an optimized SELECT servable in O(result) from a
+    maintained arrangement: a chain of Project/Filter layers over a
+    Get of a peekable relation, where every Filter predicate is a
+    column-equality against a literal. Returns None (slow path: render
+    a transient dataflow) otherwise. Shared by the coordinator's
+    sequencing and EXPLAIN ANALYSIS — the printed decision is exactly
+    what serves."""
+    chain = []
+    node = expr
+    while isinstance(node, (mir.Project, mir.Filter)):
+        chain.append(node)
+        node = node.input
+    if not isinstance(node, mir.Get) or node.name not in peekable:
+        return None
+    base_schema = node.schema()
+    arity = base_schema.arity
+    if arity == 0:
+        return None
+    colmap = list(range(arity))  # current-level column -> base column
+    bound: dict = {}
+    empty = False
+    for layer in reversed(chain):  # apply bottom-up
+        if isinstance(layer, mir.Filter):
+            for p in layer.predicates:
+                eq = _eq_col_literal(p)
+                if eq is None:
+                    return None
+                ref, lit = eq
+                if ref >= len(colmap):
+                    return None  # malformed; let the slow path error
+                base = colmap[ref]
+                if lit.value is None:
+                    # `col = NULL` is never true in SQL.
+                    empty = True
+                    continue
+                binds = _literal_binds(lit, base_schema.columns[base])
+                if binds is None:
+                    return None
+                if binds == "empty":
+                    empty = True
+                    continue
+                prev = bound.get(base)
+                if prev is not None and prev.value != lit.value:
+                    empty = True
+                bound[base] = lit
+        else:  # Project
+            if any(o >= len(colmap) for o in layer.outputs):
+                return None
+            colmap = [colmap[o] for o in layer.outputs]
+    projection = (
+        tuple(colmap) if colmap != list(range(arity)) else None
+    )
+    if empty:
+        return PeekPlan("empty", node.name, (), projection)
+    if bound:
+        return PeekPlan(
+            "lookup",
+            node.name,
+            tuple(sorted(bound.items())),
+            projection,
+        )
+    return PeekPlan("scan", node.name, (), projection)

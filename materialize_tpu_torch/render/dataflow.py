@@ -42,9 +42,8 @@ loop over ticks, with the due spine levels folded after every
 - capacities follow the same pow2 tiers as the reference, so overflow,
   rollback and replay happen on the same ticks.
 
-Left out: donation, the compile ledger, the program bank, SPMD (the
-exchanges are the identity on one device), and the dyncfg gate of
-temporal filters (they are always on).
+Left out: donation, the compile ledger, the program bank, and SPMD (the
+exchanges are the identity on one device).
 """
 
 from __future__ import annotations
@@ -359,6 +358,12 @@ def _build_temporal_filter(expr: mir.Filter, ctx: _RenderContext):
     plain = [p for p in expr.predicates if not contains_mz_now(p)]
     inner = _build(expr.input, ctx)
     mfp = MapFilterProject(expr.input.schema().arity, predicates=plain)
+    from ..utils.dyncfg import COMPUTE_CONFIGS, ENABLE_TEMPORAL_FILTERS
+
+    if not ENABLE_TEMPORAL_FILTERS(COMPUTE_CONFIGS):
+        raise NotImplementedError(
+            "temporal filters disabled by dyncfg enable_temporal_filters"
+        )
     lo_exprs, hi_exprs = canonicalize_temporal(temporal)
     op = TemporalFilterOp(expr.input.schema(), tuple(lo_exprs), tuple(hi_exprs))
     slot = ctx.new_slot(op.init_state(ctx.state_cap, ctx.device))
@@ -652,6 +657,10 @@ class Dataflow:
         self._folds = 0
         # Every tier key grown on overflow, in order (replays included).
         self._grown: list = []
+        # The corrected per-step deltas of the last rollback and replay
+        # (``check_flags``), in dispatch order: a sink must forward
+        # these, not the provisional deltas of the overflowed span.
+        self.replayed_deltas: list = []
         self._defer_ck = None
         self._defer_log: list = []
         self._defer_flags = None
@@ -691,6 +700,30 @@ class Dataflow:
     def time(self) -> int:
         """Frontier: every tick < time is complete."""
         return self._time
+
+    @time.setter
+    def time(self, v: int) -> None:
+        # External assignment (a MaintainedView aligning the dataflow to
+        # a shard's as_of). The port keeps no device copy of the time.
+        self._time = v
+
+    def gather_delta(self, out: Batch) -> Batch:
+        """A step's output delta as the sink reads it: one device holds
+        it whole, so this is the delta itself (the reference's sharded
+        dataflow gathers per-worker shards here)."""
+        return out
+
+    def capture_basic_multisets(self):
+        raise NotImplementedError(
+            "basic aggregates (string_agg/array_agg/list_agg) are not "
+            "ported (ROADMAP Queue 1 item 15)"
+        )
+
+    def finalize_basic_columns(self, *args, **kwargs):
+        raise NotImplementedError(
+            "basic aggregates (string_agg/array_agg/list_agg) are not "
+            "ported (ROADMAP Queue 1 item 15)"
+        )
 
     def _due_levels(self, tick: int) -> int:
         """Highest spine level due at compaction tick ``tick``."""
@@ -981,12 +1014,14 @@ class Dataflow:
         self._restore(ck)
         for k in over:
             self._grow_for(k)
+        self.replayed_deltas = []
         for inputs_list, flush_first in log:
             while True:
                 ck2 = self._checkpoint()
-                _, s2, c2 = self._dispatch(inputs_list, flush_first)
+                deltas, s2, c2 = self._dispatch(inputs_list, flush_first)
                 again = self._read_flags(s2, c2)
                 if not again:
+                    self.replayed_deltas.extend(deltas)
                     break
                 self._restore(ck2)
                 for k in again:
@@ -1013,6 +1048,13 @@ class Dataflow:
         self.check_flags()
         self._compact_now()
         return self.output.base
+
+    def output_records(self) -> int:
+        """Approximate maintained row count (every run and ingest slot;
+        rows whose diffs cancel across runs count until the next fold).
+        Introspection only: one small device->host read."""
+        counts = [b.count for b in self.output.runs_b + tuple(self.output.slots)]
+        return int(torch.stack(counts).sum().item())
 
     def peek(self) -> list:
         """The full maintained result (SELECT * FROM the index)."""

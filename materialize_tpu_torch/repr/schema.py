@@ -124,10 +124,33 @@ class DictExhausted(RuntimeError):
     """A gap in the label space ran out between two dense neighbours.
     The reference then rebalances its dictionary and recodes the
     literals it holds (``expr/remap.py``); the port's dictionary cannot
-    rebalance, so the error stands (ROADMAP Queue 1 item 6)."""
+    rebalance, so the error stands (ROADMAP Queue 1 item 6b)."""
 
 
-_NO_REBALANCE = "; the port's dictionary cannot rebalance (ROADMAP Queue 1 item 6: expr/remap.py)"
+_NO_REBALANCE = "; the port's dictionary cannot rebalance (ROADMAP Queue 1 item 6b: expr/remap.py)"
+
+
+class DictSnapshot:
+    """A read view of the dictionary (``StringDictionary.snapshot``). The
+    port's dictionary never relabels, so a view shares its maps; persist
+    takes one per part, as the reference does."""
+
+    __slots__ = ("_codes", "_by_code", "_sorted", "epoch")
+
+    def __init__(self, codes, by_code, sorted_, epoch):
+        self._codes = codes
+        self._by_code = by_code
+        self._sorted = sorted_
+        self.epoch = epoch
+
+    def decode(self, code: int) -> str:
+        return self._by_code[int(code)]
+
+    def decode_many(self, codes) -> list:
+        return [self._by_code[int(c)] for c in np.asarray(codes)]
+
+    def items_sorted(self) -> list:
+        return [(self._codes[s], s) for s in list(self._sorted)]
 
 
 class StringDictionary:
@@ -146,7 +169,15 @@ class StringDictionary:
         self._codes: dict = {}
         self._by_code: dict = {}
         self.version = 0  # bumped on every insert (the string tables' key)
+        # The reference's relabeling epoch; the port never rebalances, so
+        # it stays 0 (persist and the replica compare it as the reference
+        # does).
+        self.epoch = 0
         self._lock = threading.Lock()
+
+    def snapshot(self) -> DictSnapshot:
+        with self._lock:
+            return DictSnapshot(self._codes, self._by_code, list(self._sorted), self.epoch)
 
     @staticmethod
     def _frac(lo_s, hi_s, s: str) -> float:
@@ -244,6 +275,9 @@ class StringDictionary:
     def decode(self, code: int) -> str:
         return self._by_code[int(code)]
 
+    def decode_many(self, codes) -> list:
+        return [self._by_code[int(c)] for c in np.asarray(codes)]
+
     def __len__(self) -> int:
         return len(self._sorted)
 
@@ -257,10 +291,22 @@ def days_to_date(days: int):
     return _dt.date(1970, 1, 1) + _dt.timedelta(days=int(days))
 
 
+def date_to_days(d) -> int:
+    import datetime as _dt
+
+    return (d - _dt.date(1970, 1, 1)).days
+
+
 def ms_to_ts(ms: int):
     import datetime as _dt
 
     return _dt.datetime(1970, 1, 1) + _dt.timedelta(milliseconds=int(ms))
+
+
+def ts_to_ms(ts) -> int:
+    import datetime as _dt
+
+    return int((ts - _dt.datetime(1970, 1, 1)).total_seconds() * 1000)
 
 
 def decode_result_rows(schema: Schema, cols, nulls, time, diff) -> list:

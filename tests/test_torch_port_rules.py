@@ -3,7 +3,8 @@
 - Nothing under ``materialize_tpu_torch/`` and not ``chip_smoke.py``
   imports ``jax`` or anything of the reference package ``materialize_tpu``
   (AST scan of every import statement).
-- Importing the slice's modules leaves ``jax`` out of ``sys.modules``.
+- Importing the slice's modules leaves ``jax`` out of ``sys.modules`` and
+  builds nothing (the native library and the kernel build at first use).
 - Entry points default to ``device="cuda"`` and raise without a card.
 - The kernel's wrappers (``search_right``, ``merge_path``) and a merge
   forced to the kernel raise on CPU tensors.
@@ -75,6 +76,28 @@ SLICE_MODULES = [
     "materialize_tpu_torch.analysis.monotonic",
     "materialize_tpu_torch.transform.optimizer",
     "materialize_tpu_torch.transform.cse",
+    "materialize_tpu_torch.native",
+    "materialize_tpu_torch.utils.dyncfg",
+    "materialize_tpu_torch.utils.retry",
+    "materialize_tpu_torch.utils.metrics",
+    "materialize_tpu_torch.utils.trace",
+    "materialize_tpu_torch.utils.locks",
+    "materialize_tpu_torch.storage.persist",
+    "materialize_tpu_torch.storage.persist.location",
+    "materialize_tpu_torch.storage.persist.codec",
+    "materialize_tpu_torch.storage.persist.state",
+    "materialize_tpu_torch.storage.persist.pubsub",
+    "materialize_tpu_torch.storage.persist.machine",
+    "materialize_tpu_torch.storage.persist.client",
+    "materialize_tpu_torch.storage.persist.operators",
+    "materialize_tpu_torch.coord.protocol",
+    "materialize_tpu_torch.coord.oracle",
+    "materialize_tpu_torch.coord.freshness",
+    "materialize_tpu_torch.coord.replica",
+    "materialize_tpu_torch.coord.controller",
+    "materialize_tpu_torch.coord.sources",
+    "materialize_tpu_torch.coord.coordinator",
+    "materialize_tpu_torch.server.pgwire",
 ]
 
 
@@ -104,6 +127,10 @@ def test_slice_imports_leave_jax_unloaded():
         f"for m in {SLICE_MODULES!r}: importlib.import_module(m)\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'materialize_tpu' not in sys.modules, 'reference imported'\n"
+        "from materialize_tpu_torch import native\n"
+        "from materialize_tpu_torch.ops import merge_kernel\n"
+        "assert native._lib is None, 'native library built at import'\n"
+        "assert merge_kernel._FN is None, 'merge kernel built at import'\n"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
@@ -145,6 +172,12 @@ def test_entry_points_default_to_cuda():
         AuctionGenerator().tick(0, 0)
     with pytest.raises(RuntimeError, match="cuda"):
         pagerank_config()
+    from materialize_tpu_torch.coord.protocol import PersistLocation
+    from materialize_tpu_torch.coord.replica import ReplicaWorker
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        # The replica's device is checked before it opens the location.
+        ReplicaWorker(location=PersistLocation("/nonexistent/blob", "/nonexistent/c.db"))
     cpu = Dataflow(Get("lineitem", LINEITEM_SCHEMA), device="cpu")
     assert cpu.device.type == "cpu"
 
