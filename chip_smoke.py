@@ -6,9 +6,9 @@ card and check it end to end.
     python3 chip_smoke.py --serve-only
 
 With ``--serve-only`` it runs phases 1, 5, 7a (twice: the replica
-stepping a tick at a time, then with ``span_pipelining`` on) and
-stops after ``serve_vs_plain_path``, printing neither the kernels line
-nor the last line. Phases, each printing one JSON line (any failure exits non-zero):
+stepping a tick at a time, then with ``span_pipelining`` on) and 7b,
+and stops after ``deploy``, printing neither the kernels line nor the
+last line. Phases, each printing one JSON line (any failure exits non-zero):
 
 1. card and build: the card's name and power limit (``nvidia-smi``),
    then the merge-path kernel built from ``csrc/merge_path.cu`` with
@@ -79,6 +79,28 @@ nor the last line. Phases, each printing one JSON line (any failure exits non-ze
     ``serve_vs_plain_path``: the script at SF 0.002 with the replica's
     merges forced to the kernel and then to the plain chain, every
     SELECT equal;
+7b. ``deploy``: the port deployed as users deploy it, at ``serve``'s
+    width: an ``Environment`` (``server/environmentd.py``) in this
+    process with one replica process on the card (``python -m
+    materialize_tpu_torch.coord.replica --device cuda``), pgwire and
+    HTTP; ``serve``'s source, Q1 view and ``order_lines`` index; one
+    ``SUBSCRIBE q1`` over pgwire (a borrowed shard tail) and two
+    identical ``SUBSCRIBE TO (SELECT ... FROM order_lines WHERE
+    l_orderkey <= 4096)``, over pgwire and SSE, sharing one dataflow on
+    the card; 32 churn ticks in spans of 16, then 16 paced ticks. Every
+    subscription's snapshot plus updates equals the numpy oracle at
+    every frontier it reports; ``/api/sql`` equals pgwire;
+    ``mz_wallclock_lag_summary``, ``mz_hydration_statuses``,
+    ``mz_subscriptions``, ``mz_cluster_replicas`` and ``mz_compactions``
+    answer (background merges, none inline); ``/api/readyz`` is ready;
+    the replica's shipped ``mz_merge_path_launches_total`` is above 0.
+    Then shutdown (each replica process alive until then) and a recovery
+    on the same directory: the catalog replayed, Q1 equal to the oracle,
+    and Q1's subscription resumed at its last frontier exactly. Printed:
+    served updates/s, paced tick and SUBSCRIBE delivery lag p50/p99
+    (``coord/freshness.lag_ms``), the recorder's lag, the replica's boot
+    s, library load s, step ms a tick and peak device bytes (from its
+    shipped metrics), recovery s, compactions, the phase's seconds;
 8. TPC-H Q15 at SF 0.1 (``workloads/tpch.py``, the reference bench's Q15
    layout, twice its scale; SF 1 is left to earlier records, for time:
    the revenue view, its global MAX and the supplier table in a
@@ -139,8 +161,9 @@ nor the last line. Phases, each printing one JSON line (any failure exits non-ze
 17. the kernel at each merge shape the pagerank paths launched, and a
     small pagerank in both merge modes (every state part equal);
 18. TPC-H Q21 (``workloads/tpch.py:q21_plan``: EXISTS as a semijoin, NOT
-    EXISTS as ``Threshold(Union(cse13, Negate(...)))``) at SF 0.5
-    (``Q21_SF``; SF 1 does not fit the time limit) in
+    EXISTS as ``Threshold(Union(cse13, Negate(...)))``) at SF 0.25
+    (``Q21_SF``; SF 1 does not fit the time limit, SF 0.5 not beside
+    ``deploy``) in
     Q9's layout and stream: supplier, nation and every order on the
     first hydrate tick, lineitem in ticks of 16,384 orders with every
     tier pre-sized (``q21_tiers``, join tiers per site), 32 churn ticks
@@ -746,10 +769,12 @@ def _host_cols(torch, batches, cols) -> tuple:
     )
 
 
-def q1_oracle(qty, ext, disc, tax, flag, status, ship, diff, cutoff: int) -> dict:
+def q1_oracle(qty, ext, disc, tax, flag, status, ship, diff, cutoff: int,
+              nonzero: bool = True) -> dict:
     """TPC-H Q1 in numpy int64, independent of the port: {(returnflag,
     linestatus): (sum_qty, sum_base_price, sum_disc_price, sum_charge,
-    count)} over the live rows (groups whose count nets to 0 vanish)."""
+    count)} over the live rows (groups whose count nets to 0 vanish,
+    unless ``nonzero`` is False: a delta's sums then add up)."""
     keep = ship <= cutoff
     disc_price = ext * (100 - disc)  # scale 4
     charge = disc_price * (100 + tax)  # scale 6
@@ -760,7 +785,7 @@ def q1_oracle(qty, ext, disc, tax, flag, status, ship, diff, cutoff: int) -> dic
     sums = np.zeros((len(uniq), 5), dtype=np.int64)
     np.add.at(sums, inv.reshape(-1), vals)
     return {(int(k[0]), int(k[1])): tuple(int(x) for x in row)
-            for k, row in zip(uniq, sums) if row[4] != 0}
+            for k, row in zip(uniq, sums) if row[4] != 0 or not nonzero}
 
 
 def _device_ops(torch, fn) -> int:
@@ -1160,8 +1185,9 @@ def phase_q9(torch, merge_kernel, card, sf: float = 1.0) -> dict:
 
 Q21_COLS = (0, 2, 11, 12)  # orderkey, suppkey, commitdate, receiptdate
 # Q21's scale. At SF 1 its phase took 347.1 s and the script 1,230.8 s
-# of its 1,200 s limit (an NVIDIA H100 80GB HBM3 at 700 W, PERF.md §4).
-Q21_SF = 0.5
+# of its 1,200 s limit; at SF 0.5, with the deploy phase in, the script
+# took 1,051.1 s (an NVIDIA H100 80GB HBM3 at 700 W, PERF.md §4).
+Q21_SF = 0.25
 
 
 def q21_oracle(li: tuple, orders, supplier, nation, f_code: int, saudi_code: int) -> dict:
@@ -2415,7 +2441,7 @@ class ServeStack:
         self.coord = Coordinator(
             PersistClient(FileBlob(self.loc.blob_root),
                           SqliteConsensus(self.loc.consensus_path)),
-            tick_interval=None)
+            tick_interval=None, device="cuda")
         self.coord.add_replica("r0", ("127.0.0.1", port))
         self.pg = PgServer(self.coord).start()
         self.client = PgClient(self.pg.port)
@@ -2468,27 +2494,44 @@ def _cols_of(parts, idx) -> tuple:
         np.concatenate([p[1] for p in parts]).astype(np.int64),)
 
 
-def _check_q1_wire(rows, parts, what: str) -> None:
-    """Q1's rows off the wire against ``q1_oracle`` over ``parts``: the
-    sums and the count exactly, and each of the three averages exactly
-    as the engine divides decimals: the scale-2 sum over the count,
-    rounded down to scale 2."""
-    from decimal import Decimal
-
-    from materialize_tpu_torch.repr.schema import GLOBAL_DICT
+def _q1_sums(parts) -> dict:
+    """Q1's additive sums over ``parts`` by (returnflag, linestatus)
+    code: ``q1_oracle``'s five and the discount's (for avg_disc), groups
+    of count 0 kept, so the sums of two parts add up."""
     from materialize_tpu_torch.workloads.tpch import Q1_CUTOFF
 
     cols = _cols_of(parts, Q1_COLS)
-    want = q1_oracle(*cols, cutoff=Q1_CUTOFF)
+    sums = q1_oracle(*cols, cutoff=Q1_CUTOFF, nonzero=False)
     _qty, _ext, disc, _tax, flag, status, ship, diff = cols
     keep = ship <= Q1_CUTOFF
     keys, inv = np.unique(np.stack([flag[keep], status[keep]], 1), axis=0, return_inverse=True)
-    sums = np.zeros(len(keys), np.int64)
-    np.add.at(sums, inv.reshape(-1), disc[keep] * diff[keep])
-    disc_sum = {(int(f), int(s)): int(v) for (f, s), v in zip(keys, sums)}
+    d = np.zeros(len(keys), np.int64)
+    np.add.at(d, inv.reshape(-1), disc[keep] * diff[keep])
+    disc_sum = {(int(f), int(s)): int(v) for (f, s), v in zip(keys, d)}
+    return {k: v + (disc_sum[k],) for k, v in sums.items()}
+
+
+def _q1_add(a: dict, b: dict) -> dict:
+    out = dict(a)
+    for k, v in b.items():
+        out[k] = tuple(x + y for x, y in zip(out.get(k, (0,) * len(v)), v))
+    return out
+
+
+def _check_q1_wire(rows, parts, what: str, sums=None) -> None:
+    """Q1's rows off the wire against ``q1_oracle`` over ``parts`` (or
+    over ``sums``, ``_q1_sums``' of them): the sums and the count
+    exactly, and each of the three averages exactly as the engine
+    divides decimals: the scale-2 sum over the count, rounded down to
+    scale 2."""
+    from decimal import Decimal
+
+    from materialize_tpu_torch.repr.schema import GLOBAL_DICT
+
+    sums = _q1_sums(parts) if sums is None else sums
     want = {(GLOBAL_DICT.decode(f), GLOBAL_DICT.decode(s)):
-            v + tuple(t // v[4] for t in (v[0], v[1], disc_sum[(f, s)]))
-            for (f, s), v in want.items()}
+            v[:5] + tuple(t // v[4] for t in (v[0], v[1], v[5]))
+            for (f, s), v in sums.items() if v[4] != 0}
     got = {}
     for r in rows:
         qty, base, disc_price, charge, *avgs = (Decimal(x) for x in r[2:9])
@@ -2822,6 +2865,512 @@ def serve_phases(torch, merge_kernel, card, bare_q1: dict, span_pipelining=(Fals
     return runs[0], rows
 
 
+# -- a deployment: environmentd with a subprocess replica on the card -------------
+
+DEPLOY_TICKS, DEPLOY_SPAN, DEPLOY_PACED, DEPLOY_RESUMED = 32, 16, 16, 4
+# The query subscription's filter: 4,096 orders (the generator's keys are
+# dense), so its snapshot stays inside subscribe_queue_depth's 8,192 rows.
+DEPLOY_OL_MAX_KEY = 4096
+
+
+def _copy_lines(payload: bytes) -> tuple:
+    """One COPY-out chunk of a SUBSCRIBE (``server/pgwire.py``): its
+    kind, its events ``(vals..., time, diff)`` as text and its progress
+    frontier."""
+    kind, events, frontier = "deltas", [], None
+    for line in payload.decode().split("\n"):
+        if not line:
+            continue
+        f = line.split("\t")
+        if f[1] == "0" and f[2] == "snapshot" and len(f) == 3:
+            kind = "snapshot"
+        elif f[1] == "0" and f[2] == "progress" and len(f) == 3:
+            frontier = int(f[0])
+        else:
+            events.append((tuple(None if v == "\\N" else v for v in f[2:]),
+                           int(f[0]), int(f[1])))
+    return kind, events, frontier
+
+
+class _Tail:
+    """One subscription read on a thread: each chunk as ``(kind, events,
+    frontier, monotonic arrival)``, events ``(vals as text, time,
+    diff)``. ``pg`` speaks pgwire's COPY-out; otherwise it reads the
+    HTTP SSE stream of ``/api/subscribe``."""
+
+    def __init__(self, port: int, sql: str, pg: bool):
+        import socket
+        import struct
+        import threading
+
+        self.chunks, self.error = [], None
+        self._lock = threading.Lock()
+        self.sock = socket.create_connection(("127.0.0.1", port), 60)
+        if pg:
+            body = struct.pack("!I", 196608) + b"user\x00chip_smoke\x00\x00"
+            self.sock.sendall(struct.pack("!I", len(body) + 4) + body)
+            while self._msg()[0] != b"Z":
+                pass
+            q = sql.encode() + b"\x00"
+            self.sock.sendall(b"Q" + struct.pack("!I", len(q) + 4) + q)
+            tag, body = self._msg()
+            check(tag == b"H", f"SUBSCRIBE over pgwire: {tag!r} {body[:200]!r}")
+            target = self._pg_loop
+        else:
+            from urllib.parse import quote
+
+            self.sock.sendall(f"GET /api/subscribe?query={quote(sql)} HTTP/1.1\r\n"
+                              f"Host: 127.0.0.1\r\n\r\n".encode())
+            self._file = self.sock.makefile("rb")
+            status = self._file.readline()
+            check(b" 200 " in status, f"SSE subscribe: {status!r}")
+            while self._file.readline() not in (b"\r\n", b"\n", b""):
+                pass
+            target = self._sse_loop
+        self._thread = threading.Thread(target=self._run, args=(target,), daemon=True)
+        self._thread.start()
+
+    def _msg(self) -> tuple:
+        import struct
+
+        def exact(n):
+            buf = b""
+            while len(buf) < n:
+                chunk = self.sock.recv(n - len(buf))
+                if not chunk:
+                    raise EOFError("subscription stream closed")
+                buf += chunk
+            return buf
+
+        tag = exact(1)
+        (n,) = struct.unpack("!I", exact(4))
+        return tag, exact(n - 4)
+
+    def _run(self, loop) -> None:
+        try:
+            loop()
+        except (EOFError, OSError, ValueError):
+            pass
+        except Exception as e:  # noqa: BLE001 - reported by check_ok
+            self.error = repr(e)
+
+    def _add(self, kind, events, frontier) -> None:
+        with self._lock:
+            self.chunks.append((kind, events, frontier, time.monotonic()))
+
+    def _pg_loop(self) -> None:
+        while True:
+            tag, body = self._msg()
+            if tag == b"d":
+                self._add(*_copy_lines(body))
+            elif tag == b"E":
+                self.error = body.decode(errors="replace")
+                return
+
+    def _sse_loop(self) -> None:
+        for raw in self._file:
+            line = raw.decode().rstrip("\n")
+            if line.startswith("event: error"):
+                self.error = line
+            if not line.startswith("data: "):
+                continue
+            msg = json.loads(line[6:])
+            if "error" in msg:
+                self.error = msg["error"]
+                return
+            events = [(tuple(None if v is None else str(v) for v in e[:-2]), int(e[-2]),
+                       int(e[-1])) for e in msg["events"]]
+            self._add("snapshot" if msg.get("snapshot") else "deltas", events,
+                      int(msg["progress"]))
+
+    def frontier(self) -> int:
+        with self._lock:
+            return max((c[2] for c in self.chunks), default=0)
+
+    def arrival(self, frontier: int):
+        """Monotonic arrival of the first chunk at or past ``frontier``."""
+        with self._lock:
+            return next((c[3] for c in self.chunks if c[2] >= frontier), None)
+
+    def states(self) -> list:
+        """(frontier, multiset of rows) after every chunk: a snapshot
+        chunk replaces the state, a delta chunk adds to it."""
+        from collections import Counter
+
+        with self._lock:
+            chunks = list(self.chunks)
+        state, out = Counter(), []
+        for kind, events, frontier, _at in chunks:
+            if kind == "snapshot":
+                state = Counter()
+            for vals, _t, d in events:
+                state[vals] += d
+            out.append((frontier, +state))
+        return out
+
+    def close(self) -> None:
+        import socket
+        import struct
+
+        try:
+            if not hasattr(self, "_file"):
+                self.sock.sendall(b"X" + struct.pack("!I", 4))  # Terminate
+            # Wakes the reader thread out of its blocking read.
+            self.sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        self._thread.join(30)
+        check(not self._thread.is_alive(), "a subscription reader did not stop")
+        if hasattr(self, "_file"):
+            self._file.close()
+        self.sock.close()
+
+
+def _rows_of(state) -> list:
+    return [vals for vals, n in sorted(state.items()) for _ in range(n)]
+
+
+def _order_lines_small(parts) -> tuple:
+    """(lines, sum qty at scale 2) by orderkey <= DEPLOY_OL_MAX_KEY over
+    ``parts``; additive."""
+    key, qty, diff = _cols_of(parts, (0, 4))
+    small = key <= DEPLOY_OL_MAX_KEY
+    n = DEPLOY_OL_MAX_KEY + 1
+    return (np.bincount(key[small], weights=diff[small], minlength=n).astype(np.int64),
+            np.bincount(key[small], weights=(qty * diff)[small], minlength=n).astype(np.int64))
+
+
+def _check_order_lines(state, lines_qty, what: str) -> None:
+    from decimal import Decimal
+
+    lines, qty = lines_qty
+    keys = np.nonzero(lines)[0]
+    want = sorted((int(k), int(lines[k]), int(qty[k])) for k in keys)
+    got = sorted((int(r[0]), int(r[1]), int(Decimal(r[2]) * 100)) for r in _rows_of(state))
+    check(got == want, f"{what}: {len(got)} rows vs the oracle's {len(want)}")
+
+
+def _metric_samples(http_port: int) -> dict:
+    """``/metrics`` as {sample with its labels: value} (the deployment's
+    one scrape: the coordinator's registry merged with each replica's
+    last shipped snapshot)."""
+    from urllib.request import urlopen
+
+    text = urlopen(f"http://127.0.0.1:{http_port}/metrics", timeout=60).read().decode()
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            name, _, value = line.rpartition(" ")
+            out[name] = float(value)
+    return out
+
+
+def _settled_metrics(http_port: int, key: str) -> dict:
+    """``/metrics`` once ``key`` holds still across two scrapes 0.3 s
+    apart: the replica ships a snapshot at most every
+    ``metrics_report_ms``, so its last steps are in the settled one."""
+    prev = _metric_samples(http_port)
+    for _ in range(100):
+        time.sleep(0.3)
+        cur = _metric_samples(http_port)
+        if cur.get(key) == prev.get(key) and key in cur:
+            return cur
+        prev = cur
+    check(False, f"/metrics {key} did not settle")
+
+
+def _http_sql(http_port: int, sql: str) -> list:
+    from urllib.request import Request, urlopen
+
+    req = Request(f"http://127.0.0.1:{http_port}/api/sql",
+                  data=json.dumps({"query": sql}).encode())
+    res = json.loads(urlopen(req, timeout=120).read())["results"][-1]
+    check("rows" in res, f"/api/sql {sql[:60]!r}: {res}")
+    return [tuple(None if v is None else str(v) for v in r) for r in res["rows"]]
+
+
+def _replica_alive(env) -> None:
+    for rid, rec in env.replica_records.items():
+        p = rec.get("proc")
+        check(p is not None and p.poll() is None,
+              f"replica {rid} died (exit code {None if p is None else p.returncode})")
+
+
+def _shutdown_checked(env) -> dict:
+    """Shut the environment down; every replica process must have been
+    alive until then and end on the SIGTERM (no escalation)."""
+    _replica_alive(env)
+    report = env.shutdown()
+    for r in report["replicas"]:
+        check(r["returncode"] in (0, -15) and not r["escalated"],
+              f"replica process {r['pid']} ended with {r['returncode']}")
+    return report
+
+
+def _deploy_run(root: str, device: str, sf: float, churn: int, ticks: int, span: int,
+                paced: int, resumed: int) -> dict:
+    """The deployment script on ``device`` (module docstring, ``deploy``):
+    an ``Environment`` in this process with one subprocess replica,
+    served over pgwire and HTTP, then shut down and recovered on the same
+    data directory. Returns the phase's numbers; raises on any check."""
+    from materialize_tpu_torch.coord.freshness import FRESHNESS, lag_ms
+    from materialize_tpu_torch.server.environmentd import Environment
+    from materialize_tpu_torch.storage.persist import COMPACTION_STATS
+
+    # The recorder is process-global: start it empty, without the lag
+    # of the serve phase's in-process replica (same view names).
+    FRESHNESS.clear()
+    out: dict = {}
+    # Where the phase's seconds go, stage by stage.
+    split, t_last = {}, [time.perf_counter()]
+
+    def stage(name: str) -> None:
+        now = time.perf_counter()
+        split[name] = now - t_last[0]
+        t_last[0] = now
+
+    out["split_s"] = split
+    t_boot = time.perf_counter()
+    env = Environment(root, device=device, tick_interval=None)
+    out["environment_boot_s"] = time.perf_counter() - t_boot
+    out["replica_boot_s"] = env.replica_records["r0"]["boot_s"]
+    try:
+        http = env.http.port
+        c = PgClient(env.pg.port)
+        c.query("SET metrics_report_ms = 50")
+        t = time.perf_counter()
+        c.query(f"CREATE SOURCE tpch FROM LOAD GENERATOR TPCH "
+                f"(SCALE FACTOR {sf}, CHURN ORDERS {churn})")
+        c.query("CREATE MATERIALIZED VIEW q1 AS " + SERVE_Q1_SQL)
+        c.query(SERVE_ORDER_LINES_SQL)
+        c.query("CREATE INDEX order_lines_idx ON order_lines (l_orderkey)")
+        _cols, first_q1, _tag = c.query("SELECT * FROM q1")
+        out["hydrate_s"] = time.perf_counter() - t
+        stage("boot_and_hydrate")
+        first = _settled_metrics(http, 'mz_merge_path_load_seconds{replica="r0"}')
+        out["replica_library_load_s"] = first['mz_merge_path_load_seconds{replica="r0"}']
+        _gen, snap, churn_parts = _serve_oracle_parts(sf, churn, ticks + paced + resumed)
+        # The oracles at every frontier F (times < F: the snapshot and
+        # churn ticks 1..F-1), built up a tick at a time.
+        q1_at, ol_at = [None, _q1_sums(snap)], [None, _order_lines_small(snap)]
+        for part in churn_parts:
+            q1_at.append(_q1_add(q1_at[-1], _q1_sums([part])))
+            lq = _order_lines_small([part])
+            ol_at.append((ol_at[-1][0] + lq[0], ol_at[-1][1] + lq[1]))
+        _check_q1_wire(first_q1, None, "deploy: Q1 after hydration", q1_at[1])
+        stage("oracle")
+        ol_sql = (f"SUBSCRIBE TO (SELECT l_orderkey, lines, qty FROM order_lines "
+                  f"WHERE l_orderkey <= {DEPLOY_OL_MAX_KEY})")
+        tails = {
+            "q1_pgwire": _Tail(env.pg.port, "SUBSCRIBE q1", pg=True),
+            "order_lines_pgwire": _Tail(env.pg.port, ol_sql, pg=True),
+            "order_lines_sse": _Tail(http, ol_sql, pg=False),
+        }
+        src = env.coord.sources["tpch"]
+        f0 = src.t
+
+        def wait_tails(frontier: int, what: str) -> None:
+            t_w = time.perf_counter()
+            while min(tl.frontier() for tl in tails.values()) < frontier:
+                check(time.perf_counter() - t_w < 120, f"{what}: subscriptions stalled")
+                for name, tl in tails.items():
+                    check(tl.error is None, f"{name}: {tl.error}")
+                time.sleep(0.001)
+
+        wait_tails(f0, "deploy: subscription snapshots")
+        stage("subscribe")
+        hub = env.coord.subscribe_hub.snapshot()
+        check(hub["installs"] == 1 and hub["sessions"] == 3,
+              f"deploy: hub {hub['installs']} installs, {hub['sessions']} sessions")
+        owned = [tl for tl in hub["tails"] if tl["owned"]]
+        check(len(owned) == 1 and owned[0]["sessions"] == 2,
+              f"deploy: the query subscriptions do not share one dataflow: {hub['tails']}")
+        rows_written = sum(len(p[1]) for p in churn_parts[:ticks])
+        t_first = time.perf_counter()
+        for _s in range(ticks // span):
+            for _i in range(span):
+                src.tick_once()
+            c.query("SELECT * FROM q1")
+        wait_tails(src.t, "deploy: churn spans")
+        served_s = time.perf_counter() - t_first
+        stage("churn")
+        step0 = _settled_metrics(http, "mz_replica_step_seconds_sum{replica=\"r0\"}")
+        fresh_ms, deliver = [], {name: [] for name in tails}
+        for _i in range(paced):
+            target = src.t + 1
+            t_tick = time.monotonic()
+            src.tick_once()
+            wait_tails(target, "deploy: a paced tick")
+            fresh_ms.append(lag_ms(t_tick))
+            for name, tl in tails.items():
+                deliver[name].append(lag_ms(t_tick, tl.arrival(target)))
+        stage("paced")
+        step1 = _settled_metrics(http, "mz_replica_step_seconds_sum{replica=\"r0\"}")
+        key = 'mz_replica_step_seconds_{}{{replica="r0"}}'
+        # -- checks, off the clock -------------------------------------------
+        for name, tl in tails.items():
+            check(tl.error is None, f"{name}: {tl.error}")
+            states = tl.states()
+            check(states and states[-1][0] == src.t, f"{name}: ends at {states[-1][0]}")
+            for frontier, state in states:
+                if name.startswith("q1"):
+                    _check_q1_wire(_rows_of(state), None, f"deploy: {name} at {frontier}",
+                                   q1_at[frontier])
+                else:
+                    _check_order_lines(state, ol_at[frontier], f"deploy: {name} at {frontier}")
+            out[f"{name}_frontiers_checked"] = len(states)
+        last_q1 = tails["q1_pgwire"].states()[-1]
+        _cols, wire_q1, _tag = c.query("SELECT * FROM q1")
+        http_q1 = _http_sql(http, "SELECT * FROM q1")
+        check(sorted(http_q1) == sorted(wire_q1), "deploy: /api/sql != pgwire for q1")
+        _check_q1_wire(wire_q1, None, "deploy: Q1 at rest", q1_at[src.t])
+        ol_where = f"SELECT * FROM order_lines WHERE l_orderkey <= {DEPLOY_OL_MAX_KEY}"
+        check(sorted(_http_sql(http, ol_where)) == sorted(c.query(ol_where)[1]),
+              "deploy: /api/sql != pgwire for order_lines")
+        intro = {}
+        for rel, sql in (
+            ("mz_wallclock_lag_summary", "SELECT dataflow, replica, samples, p50_ms, p99_ms "
+                                         "FROM mz_wallclock_lag_summary"),
+            ("mz_hydration_statuses", "SELECT dataflow, replica, status FROM mz_hydration_statuses"),
+            ("mz_subscriptions", "SELECT session, dataflow, sharers, frontier FROM mz_subscriptions"),
+            ("mz_cluster_replicas", "SELECT name, connected, state FROM mz_cluster_replicas"),
+            ("mz_compactions", "SELECT shard, replica, requests, merges_background, "
+                               "merges_inline, blob_writes_inline FROM mz_compactions"),
+        ):
+            intro[rel] = c.query(sql)[1]
+        check(("r0", "1", "active") in intro["mz_cluster_replicas"], "deploy: r0 not connected")
+        check({("q1", "r0", "hydrated"), ("order_lines_idx", "r0", "hydrated")}
+              <= set(intro["mz_hydration_statuses"]), "deploy: views not hydrated")
+        check(len(intro["mz_subscriptions"]) == 3, "deploy: mz_subscriptions")
+        check(any(r[0] == "q1" and r[1] == "r0" and int(r[2]) > 0
+                  for r in intro["mz_wallclock_lag_summary"]), "deploy: no lag samples for q1")
+        comp = intro["mz_compactions"]
+        check(sum(int(r[3]) for r in comp) > 0, f"deploy: no background compaction: {comp}")
+        check(all(int(r[4]) == 0 and int(r[5]) == 0 for r in comp),
+              f"deploy: compaction work on the tick path: {comp}")
+        from urllib.request import urlopen
+        from urllib.error import HTTPError
+
+        try:
+            ready = json.loads(urlopen(f"http://127.0.0.1:{http}/api/readyz", timeout=60).read())
+        except HTTPError as e:
+            ready = json.loads(e.read())
+        check(ready["ready"], f"deploy: readyz {ready}")
+        stage("checks")
+        summary = FRESHNESS.summary()
+        out.update({
+            "churn_ticks": ticks, "source_rows_written": rows_written, "served_s": served_s,
+            "served_updates_per_s": rows_written / served_s,
+            "paced_ticks": paced,
+            "paced_tick_fresh_ms_p50": float(np.percentile(fresh_ms, 50)),
+            "paced_tick_fresh_ms_p99": float(np.percentile(fresh_ms, 99)),
+            "delivery_lag_ms": {name: {"p50": float(np.percentile(v, 50)),
+                                       "p99": float(np.percentile(v, 99))}
+                                for name, v in deliver.items()},
+            "recorder_lag_ms": {f"{df}@{rep}": {"p50": s["p50_ms"], "p99": s["p99_ms"],
+                                                "samples": s["samples"]}
+                                for (df, rep), s in sorted(summary.items())},
+            "replica_step_ms_per_tick": (step1[key.format("sum")] - step0[key.format("sum")])
+            * 1e3 / paced,
+            "replica_steps_per_tick": (step1[key.format("count")] - step0[key.format("count")])
+            / paced,
+            "hub": {k: hub[k] for k in ("installs", "shared_joins", "sessions")},
+            "readbacks_per_span": env.coord.subscribe_hub.snapshot()["readbacks_per_span"],
+            "compactions": {"requests": sum(int(r[2]) for r in comp),
+                            "merges_background": sum(int(r[3]) for r in comp),
+                            "merges_inline": sum(int(r[4]) for r in comp),
+                            "coordinator": COMPACTION_STATS.totals()},
+            "readyz": ready["checks"],
+        })
+        for tl in tails.values():
+            tl.close()
+        c.close()
+        fin = _settled_metrics(http, 'mz_merge_path_launches_total{replica="r0"}')
+        out["launches_first_boot"] = int(fin['mz_merge_path_launches_total{replica="r0"}'])
+        out["replica_peak_device_bytes"] = int(fin['mz_device_peak_bytes{replica="r0"}'])
+        last_frontier, last_state = last_q1
+        stage("settle")
+    finally:
+        report = _shutdown_checked(env)
+    stage("shutdown")
+    # -- recovery: the same data directory, the catalog replayed -------------
+    t = time.perf_counter()
+    env = Environment(root, device=device, tick_interval=None)
+    try:
+        rec = env.await_recovery()
+        out["recovery_s"] = time.perf_counter() - t
+        stage("recovery")
+        out["recovery_replica_boot_s"] = env.replica_records["r0"]["boot_s"]
+        check(rec["coordinator"]["catalog_replayed"] >= 4 and
+              rec["coordinator"]["replay_failures"] == 0, f"deploy: recovery {rec}")
+        c = PgClient(env.pg.port)
+        c.query("SET metrics_report_ms = 50")
+        src = env.coord.sources["tpch"]
+        check(src.t == last_frontier, f"deploy: source at {src.t} after recovery, "
+              f"{last_frontier} before")
+        _check_q1_wire(c.query("SELECT * FROM q1")[1], None, "deploy: Q1 after recovery",
+                       q1_at[src.t])
+        # Exactly-once resume of the Q1 subscription at its last frontier:
+        # deltas from there on, no snapshot.
+        sub = env.coord.subscribe_hub.resume("q1", last_frontier)
+        state = last_state.copy()
+        for _i in range(resumed):
+            src.tick_once()
+        deadline = time.perf_counter() + 120
+        frontiers = []
+        while sub.frontier < src.t:
+            check(time.perf_counter() < deadline, "deploy: resumed subscription stalled")
+            got = sub.poll(timeout=1.0)
+            if got is None:
+                continue
+            events, frontier = got
+            for ev in events:
+                *vals, _t, d = ev
+                state[tuple(None if v is None else str(v) for v in vals)] += d
+            frontiers.append(frontier)
+            _check_q1_wire(_rows_of(+state), None, f"deploy: resumed Q1 at {frontier}",
+                           q1_at[frontier])
+        sub.close()
+        stage("resume")
+        out["resumed_frontiers"] = frontiers
+        c.close()
+        fin = _settled_metrics(env.http.port, 'mz_merge_path_launches_total{replica="r0"}')
+        out["launches_recovery_boot"] = int(fin['mz_merge_path_launches_total{replica="r0"}'])
+    finally:
+        report2 = _shutdown_checked(env)
+    stage("settle_and_shutdown")
+    out["launches"] = out["launches_first_boot"] + out["launches_recovery_boot"]
+    out["shutdown"] = [report, report2]
+    return out
+
+
+def phase_deploy(torch, merge_kernel, card, serve: dict) -> dict:
+    """``deploy``: the port deployed as users deploy it, the replica in a
+    process of its own on the card (module docstring)."""
+    import tempfile
+
+    torch.cuda.synchronize()
+    # Earlier phases' cached blocks stay with this process: hand them back
+    # before the replica process takes its own share of the card.
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        out = _deploy_run(root, "cuda", SERVE_SF, SERVE_CHURN, DEPLOY_TICKS, DEPLOY_SPAN,
+                          DEPLOY_PACED, DEPLOY_RESUMED)
+    check(out["launches_first_boot"] > 0 and out["launches_recovery_boot"] > 0,
+          f"deploy: the replica processes launched merge_path "
+          f"{out['launches_first_boot']}/{out['launches_recovery_boot']} times")
+    res = {"phase": "deploy", "sf": SERVE_SF, "churn_orders": SERVE_CHURN, "card": card,
+           **out,
+           "serve_paced_split_ms_p50": serve["paced_split_ms_p50"],
+           "serve_paced_tick_fresh_ms_p50": serve["paced_tick_fresh_ms_p50"],
+           "serve_churn_updates_per_s": serve["churn_updates_per_s"],
+           "phase_s": time.perf_counter() - t0}
+    emit(res)
+    res["by_shape"] = {}
+    return res
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2829,8 +3378,9 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Drive the port on one CUDA card.")
     ap.add_argument("--serve-only", action="store_true",
-                    help="the build, the bare q1 cell and the serving phases, "
-                         "serve also with span_pipelining on; no kernels line, no ok line")
+                    help="the build, the bare q1 cell, the serving phases (serve "
+                         "also with span_pipelining on) and deploy; no kernels line, "
+                         "no ok line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2850,8 +3400,11 @@ def main(argv=None) -> int:
     if args.serve_only:
         q1 = phase_q1(torch, merge_kernel, card, sf=0.1)
         mark("build+q1")
-        serve_phases(torch, merge_kernel, card, q1, span_pipelining=(False, True))
+        serve, _rows = serve_phases(torch, merge_kernel, card, q1,
+                                    span_pipelining=(False, True))
         mark("serve")
+        phase_deploy(torch, merge_kernel, card, serve)
+        mark("deploy")
         emit({"phase": "done", "wall_s": time.perf_counter() - t0, "card": card,
               "phase_s": {name: t - prev for (_, prev), (name, t) in zip(marks, marks[1:])}})
         return 0
@@ -2873,6 +3426,8 @@ def main(argv=None) -> int:
     paths["serve"], rows_by_path["serve"] = serve_phases(torch, merge_kernel, card,
                                                          paths["q1"])
     mark("serve+kernel_shape+vs_plain")
+    paths["deploy"] = phase_deploy(torch, merge_kernel, card, paths["serve"])
+    mark("deploy")
     paths["q15"] = phase_q15(torch, merge_kernel, card, sf=0.1)
     rows_by_path["q15"] = phase_path_kernel(torch, merge_kernel, card,
                                             paths["q15"]["by_shape"],

@@ -21,9 +21,11 @@ re-dispatch (and the broadcast fallback) safe to race a straggler
 answer from the original target. ``peek_routing = 'broadcast'``
 restores the legacy fan-out for comparison.
 
-The port's copy routes without lag data (the freshness recorder waits
-for ROADMAP Queue 1 item 6b): candidates rank by serving capability,
-then frontier, then name.
+Subprocess replicas piggyback trace spans, metrics, lag records,
+hydration status and compaction stats on their Frontiers reports; the
+controller ingests them, deduping by pid (``utils/trace.py``,
+``coord/freshness.py``). The reference's compile records have no
+counterpart in eager torch: no port replica ships any.
 """
 
 from __future__ import annotations
@@ -778,6 +780,8 @@ class ComputeController:
         ties toward the higher reported frontier, then name order.
         Element 0 is the routing target; the rest are the failover
         order."""
+        from .freshness import FRESHNESS
+
         with self._lock:
             live = [
                 r
@@ -787,8 +791,15 @@ class ComputeController:
             per_frontier = dict(self.frontiers.get(dataflow, {}))
         if not live:
             return []
+        summary = FRESHNESS.summary()
+
         def rank(r):
-            lag = float("inf")  # no lag data in the port (item 6b)
+            s = summary.get((dataflow, r))
+            lag = (
+                s["p50_ms"]
+                if s is not None and s["samples"]
+                else float("inf")
+            )
             status = self.hydration.status((dataflow, r))
             serving = (
                 status in ("hydrated", "swapping")
@@ -1118,6 +1129,11 @@ class ComputeController:
                 # in mz_freshness_events, and the stall counter ticks.
                 # The replica's own later hydrating/hydrated report
                 # overrides the stall.
+                from .freshness import (
+                    FRESHNESS,
+                    hydration_stalls_total,
+                )
+
                 for r in connected:
                     if r in acks:
                         continue
@@ -1130,6 +1146,10 @@ class ComputeController:
                             "install budget"
                         ),
                     )
+                    FRESHNESS.record_event(
+                        name, r, "hydration_stall"
+                    )
+                    hydration_stalls_total().inc()
                 return
             _time.sleep(poll)
 
@@ -1146,6 +1166,9 @@ class ComputeController:
             self.swap_states.pop(name, None)
             self.install_acks.pop(name, None)
         self.hydration.forget_dataflow(name)
+        from .freshness import FRESHNESS
+
+        FRESHNESS.forget(name)
         self._broadcast(ctp.drop_dataflow(name))
 
     def allow_compaction(self, dataflow: str, since: int) -> None:
@@ -1309,12 +1332,22 @@ class ComputeController:
                 # above — re-reading the live dict here unlocked was a
                 # detector finding.
                 if known:
-                    # In-process replicas ship no spans, compile records
-                    # or lag (the port has no subprocess replica yet:
-                    # item 6b); status transitions land on the
-                    # hydration board (its own lock) keyed by replica.
+                    spans = msg.get("spans")
+                    if spans:
+                        from ..utils.trace import TRACER
+
+                        TRACER.ingest(spans, process=replica)
                     fresh = msg.get("freshness")
                     if fresh:
+                        # Lag records merge into the process-global
+                        # recorder (pid-deduped like spans); status
+                        # transitions land on the hydration board
+                        # (its own lock) keyed by THIS replica.
+                        from .freshness import FRESHNESS
+
+                        lag = fresh.get("lag")
+                        if lag:
+                            FRESHNESS.ingest(lag, process=replica)
                         for df, entry in (
                             fresh.get("status") or {}
                         ).items():
@@ -1367,11 +1400,14 @@ class ComputeController:
             return max(per.values()) if per else 0
 
     def least_lagged_replica(self, dataflow: str) -> str | None:
-        """The routing hook: among CONNECTED replicas, the one with the
-        lowest windowed p50 wallclock lag in the reference. The port
-        records no lag (item 6b), so every replica ranks as lag-less and
-        ties break toward the higher reported frontier, then name
-        order. None when no replica is connected."""
+        """The routing hook: among CONNECTED replicas,
+        the one with the lowest windowed p50 wallclock lag for this
+        dataflow (coord/freshness.py summaries). Replicas with no lag
+        data yet rank behind those with data; ties break toward the
+        higher reported frontier, then name order. None when no
+        replica is connected."""
+        from .freshness import FRESHNESS
+
         with self._lock:
             live = [
                 r
@@ -1381,7 +1417,19 @@ class ComputeController:
             per_frontier = dict(self.frontiers.get(dataflow, {}))
         if not live:
             return None
-        return min(sorted(live), key=lambda r: -per_frontier.get(r, 0))
+        summary = FRESHNESS.summary()
+        best, best_key = None, None
+        for r in sorted(live):
+            s = summary.get((dataflow, r))
+            lag = (
+                s["p50_ms"]
+                if s is not None and s["samples"]
+                else float("inf")
+            )
+            key = (lag, -per_frontier.get(r, 0))
+            if best_key is None or key < best_key:
+                best, best_key = r, key
+        return best
 
     def hydration_snapshot(self) -> list:
         """The mz_hydration_statuses rows: (dataflow, replica, status,

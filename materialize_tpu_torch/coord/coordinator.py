@@ -14,9 +14,10 @@ under a lock, exactly the single-coordinator-loop discipline of the
 reference (simple, and all the heavy lifting is async underneath).
 
 The port's copy plans with the port's own frontend and optimizer
-(``sql/``, ``transform/``). Not ported yet, each raising with its
-ROADMAP item: SUBSCRIBE (``coord/subscribe.py``, item 6b), the
-introspection relations (``coord/introspection.py``, item 6b), sinks
+(``sql/``, ``transform/``) and evaluates introspection reads on the
+device it is given (``device=``, default ``"cuda"``). Not ported yet,
+each raising with its ROADMAP item: the introspection relations that
+read JAX compile and program state (``coord/introspection.py``), sinks
 (item 16) and the EXPLAIN ANALYSIS blocks (items 6b and 14).
 """
 
@@ -29,6 +30,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from .. import resolve_device
 from ..expr import relation as mir
 from ..repr.schema import GLOBAL_DICT, parse_text_value, Column, ColumnType, Schema
 from ..sql.catalog import Catalog as SqlCatalog
@@ -61,6 +63,7 @@ from ..utils.dyncfg import COMPUTE_CONFIGS
 from .controller import ComputeController
 from .oracle import TimestampOracle
 from .protocol import DataflowDescription
+from .replica import _result_rows as _decode_peek_rows
 from .sources import GeneratorSource
 
 # Peeks wait for dataflow frontiers; first-compile latency on a fresh
@@ -77,20 +80,6 @@ def _peek_timeout() -> float:
 
     b = _retry_policy("peek").budget
     return b if b > 0 else PEEK_TIMEOUT
-
-# The reference's introspection relations (coord/introspection.py). The
-# port registers their names, so the catalog lists what the reference's
-# does, and raises when one is read (ROADMAP Queue 1 item 6b).
-INTROSPECTION_NAMES = (
-    "mz_objects", "mz_sources", "mz_dataflows", "mz_dataflow_frontiers",
-    "mz_arrangement_sizes", "mz_compactions", "mz_span_epochs",
-    "mz_donation", "mz_sharding", "mz_recovery", "mz_subscriptions",
-    "mz_metrics", "mz_trace_spans", "mz_compile_log", "mz_program_bank",
-    "mz_slow_statements", "mz_cluster_replicas", "mz_autoscale_events",
-    "mz_wallclock_lag_history", "mz_wallclock_lag_summary",
-    "mz_hydration_statuses", "mz_source_statuses", "mz_sink_statuses",
-    "mz_freshness_events",
-)
 
 CATALOG_SHARD = "mz_catalog"
 CATALOG_SCHEMA = Schema([Column("item", ColumnType.STRING)])
@@ -117,7 +106,11 @@ class Coordinator:
         self,
         persist: PersistClient,
         tick_interval: float | None = None,
+        device=None,
     ):
+        # Where introspection reads run (their one local dataflow step):
+        # named by the caller, "cuda" by default, raising without a card.
+        self.device = resolve_device(device)
         self.persist = persist
         self.catalog = SqlCatalog()
         self.controller = ComputeController()
@@ -169,12 +162,19 @@ class Coordinator:
         from ..utils.locks import tracked_rlock
 
         self._lock = tracked_rlock("coord.sequencing", sequencing=True)
+        # The push serving plane: SUBSCRIBE sessions fan
+        # out from shared sink-shard tails — one readback per span, N
+        # consumers (coord/subscribe.py).
+        from .subscribe import SubscribeHub
+
+        self.subscribe_hub = SubscribeHub(self)
         # Introspection relations (mz_internal analog): virtual items
-        # whose snapshots need coord/introspection.py (item 6b). Their
-        # names are registered; reading one raises.
-        for name in INTROSPECTION_NAMES:
+        # resolved to snapshots at peek time (introspection.py).
+        from .introspection import INTROSPECTION_SCHEMAS
+
+        for name, schema in INTROSPECTION_SCHEMAS.items():
             self.catalog.create(
-                CatalogItem(name=name, kind="introspection", schema=Schema([]))
+                CatalogItem(name=name, kind="introspection", schema=schema)
             )
         # Recovery report: what this boot replayed from the
         # durable catalog and how long it took — surfaced via
@@ -310,6 +310,76 @@ class Coordinator:
                 self.recovery["replay_failures"] += 1
                 self._catalog_append(rec, -1)
 
+    def health(self) -> dict:
+        """The /api/readyz verdict (the freshness plane's probe): ready iff catalog replay had no failures AND (no
+        replicas are registered OR at least one is connected) AND
+        every durable (catalog-installed peekable) dataflow has some
+        connected replica that hydrated — board status `hydrated`, or
+        a reported frontier past 0 — AND, when the freshness_slo_ms
+        SLO is set, no durable dataflow's latest committed lag
+        breaches it. Machine-checkable readiness for `environmentd
+        --recover` drives and rolling restarts."""
+        from ..utils.dyncfg import FRESHNESS_SLO_MS
+        from .freshness import FRESHNESS
+
+        controller = self.controller
+        replicas = dict(controller.replicas)
+        connected = {
+            r for r, rc in replicas.items() if rc.connected.is_set()
+        }
+        dataflows = sorted(set(self.peekable.values()))
+        with controller._lock:
+            frontiers = {
+                df: dict(controller.frontiers.get(df, {}))
+                for df in dataflows
+            }
+        unhydrated = []
+        if replicas:
+            for df in dataflows:
+                ok = False
+                for r in connected:
+                    if (
+                        controller.hydration.status((df, r))
+                        == "hydrated"
+                        or frontiers[df].get(r, 0) > 0
+                    ):
+                        ok = True
+                        break
+                if not ok:
+                    unhydrated.append(df)
+        try:
+            slo = float(FRESHNESS_SLO_MS(COMPUTE_CONFIGS) or 0.0)
+        except (TypeError, ValueError):
+            slo = 0.0
+        breaching = []
+        if slo > 0.0:
+            for df in dataflows:
+                for rep, (_f, lag, _at) in sorted(
+                    FRESHNESS.latest(df).items()
+                ):
+                    if lag > slo:
+                        breaching.append(f"{df}@{rep}")
+        checks = {
+            "catalog_replayed": (
+                int(self.recovery.get("replay_failures", 0)) == 0
+            ),
+            "replicas_connected": (not replicas) or bool(connected),
+            "dataflows_hydrated": not unhydrated,
+            "lag_under_slo": not breaching,
+        }
+        return {
+            "ready": all(checks.values()),
+            "checks": checks,
+            "unhydrated": unhydrated,
+            "breaching": breaching,
+            "replicas": {
+                "registered": len(replicas),
+                "connected": len(connected),
+            },
+            "dataflows": len(dataflows),
+            "freshness_slo_ms": slo,
+        }
+
     # -- statement execution -------------------------------------------------
     def execute(self, sql: str) -> ExecuteResult:
         """One statement, sequenced. Opens the coordinator's span of
@@ -429,6 +499,12 @@ class Coordinator:
                         raise ValueError(
                             f"expected one of {sorted(LEVELS)}"
                         )
+                if (
+                    plan.name == "freshness_slo_ms"
+                    and plan.value is not None
+                    and float(plan.value) < 0.0
+                ):
+                    raise ValueError("expected a value >= 0")
                 self.update_config({plan.name: plan.value})
             except (TypeError, ValueError) as e:
                 raise PlanError(
@@ -1053,11 +1129,23 @@ class Coordinator:
 
     # -- subscribe ------------------------------------------------------------
     def _sequence_subscribe(self, plan: SubscribePlan) -> ExecuteResult:
-        """SUBSCRIBE runs through the reference's fan-out hub."""
-        raise NotImplementedError(
-            "SUBSCRIBE is not ported (ROADMAP Queue 1 item 6b: "
-            "coord/subscribe.py)"
+        """SUBSCRIBE through the fan-out hub: same-query
+        sessions share ONE dataflow + ONE sink-shard tail; bare-Get
+        subscriptions of durable objects tail the object's own shard
+        with zero installs. Admission sheds with ServerBusy (pgwire
+        53400 / HTTP 503) past subscribe_max_sessions."""
+        expr = optimize(self._inline_views(plan.expr))
+        imports, index_imports = self._source_imports(expr)
+        sub = self.subscribe_hub.subscribe(
+            expr,
+            imports,
+            index_imports,
+            plan.column_names,
+            as_of=getattr(plan, "as_of", None),
         )
+        res = ExecuteResult("subscription", columns=plan.column_names)
+        res.subscription = sub
+        return res
 
     def _inline_views(self, expr: mir.RelationExpr) -> mir.RelationExpr:
         """Replace Get(view) with the view's definition so rendered
@@ -1338,6 +1426,10 @@ class Coordinator:
                 f"cannot drop {name!r}: its arrangement is imported by "
                 f"dataflows {importers}"
             )
+        # Subscriptions tailing a dropped object's shard would block
+        # forever on an upper that never advances again: close them
+        # (their wire loops see `closed` and terminate the stream).
+        self.subscribe_hub.close_for(doomed)
         # Remove the durable record (retract by replayed-sql identity).
         for rec in self._catalog_live_records():
             if rec.get("name") == name:
@@ -1409,11 +1501,36 @@ class Coordinator:
         return names
 
     def _sequence_introspection_peek(self, plan, expr) -> ExecuteResult:
-        """The reference evaluates introspection reads coordinator-side
-        over snapshots of its subsystems."""
-        raise NotImplementedError(
-            "the introspection relations are not ported (ROADMAP Queue 1 "
-            "item 6b: coord/introspection.py)"
+        """Evaluate entirely coordinator-side: substitute snapshots as
+        Constants and run one local dataflow step (full SQL surface over
+        introspection state)."""
+        from ..render.dataflow import Dataflow
+        from .introspection import snapshot
+
+        def subst(e):
+            if isinstance(e, mir.Get):
+                it = self.catalog.items.get(e.name)
+                if it is not None and it.kind == "introspection":
+                    rows = tuple(
+                        (vals, 1) for vals in snapshot(self, e.name)
+                    )
+                    return mir.Constant(rows, it.schema)
+                return e
+            return _rewrite_children(e, subst)
+
+        # Dispatch under the sequencing lock: the plan is pure
+        # Constants over coordinator snapshots — bounded rows, no source
+        # waits — stepped once on the coordinator's device.
+        df = Dataflow(subst(expr), device=self.device)
+        df.step({})
+        rows = _decode_peek_rows(df.output_batch(), df)
+        return ExecuteResult(
+            "rows",
+            rows=_finish(rows, plan.order_by,
+                         getattr(plan, "limit", None),
+                         getattr(plan, "offset", 0)),
+            columns=plan.column_names,
+            schema=expr.schema(),
         )
 
     def _sequence_peek(self, plan: SelectPlan) -> ExecuteResult:
@@ -1711,6 +1828,7 @@ class Coordinator:
             src.stop()
         for snk in self.sinks.values():
             snk.stop()
+        self.subscribe_hub.shutdown()
         self.controller.shutdown()
 
 

@@ -10,19 +10,28 @@ replays its command history; reconciliation keeps dataflows whose
 description is unchanged instead of rebuilding them
 (``compute/src/server.rs:373 run_client``).
 
-The port's replica runs in-process (``serve_forever`` on a thread) and
-steps its dataflows on the device it is given (``device=``, default
-``"cuda"``). All device work stays on the worker thread
-(``_worker_loop``); peek responses cross the protocol as Python rows,
-never as tensors. Not ported yet, each raising with its ROADMAP item:
-SPMD workers (item 8), async compile and hot swap (Queue 2 item 6: the
-program bank has no counterpart in eager torch), shipping observability
-and the subprocess entry point (item 6b, with environmentd), and the
+Run as a subprocess:
+    python -m materialize_tpu_torch.coord.replica --port P --blob DIR \
+        --consensus FILE [--replica-id R] [--device cuda]
+
+or in-process (``serve_forever`` on a thread). The replica steps its
+dataflows on the device it is given (``--device`` / ``device=``, default
+``"cuda"``; no card means an error, never the CPU). All device work
+stays on the worker thread (``_worker_loop``); peek responses cross the
+protocol as Python rows, never as tensors. A subprocess replica ships
+its observability on its Frontiers reports (``ship_observability``):
+trace spans, /metrics families (the merge-path kernel's launch count and
+the replica's peak device bytes among them), lag records and compaction
+stats; the reference's compile records have no counterpart in eager
+torch and none ship. Not ported yet, each raising with its ROADMAP
+item: SPMD workers (item 8), async compile and hot swap (Queue 2 item 6:
+the program bank has no counterpart in eager torch), and the
 dictionary-rebalance rebuild (item 6b: expr/remap.py).
 """
 
 from __future__ import annotations
 
+import argparse
 import queue
 import socket
 import threading
@@ -95,11 +104,6 @@ class ReplicaWorker:
                 "replicas with workers > 1 (an SPMD mesh) are not ported "
                 "(ROADMAP Queue 1 item 8)"
             )
-        if ship_observability:
-            raise NotImplementedError(
-                "shipping observability from a subprocess replica is not "
-                "ported (ROADMAP Queue 1 item 6b, with environmentd)"
-            )
         self.device = resolve_device(device)
         if persist_client is not None:
             self.client = persist_client
@@ -108,10 +112,10 @@ class ReplicaWorker:
             self.client = PersistClient(
                 FileBlob(location.blob_root),
                 SqliteConsensus(location.consensus_path),
-                # The reference requests background compaction from sink
-                # appends; the port's compactor waits for ROADMAP Queue 1
-                # item 6b, so sink shards only keep more parts.
-                auto_compaction=False,
+                # Production client: sink-shard appends request
+                # background compaction per the compaction_mode dyncfg
+                # instead of growing the spine forever.
+                auto_compaction=True,
             )
         self.replica_id = replica_id
         self.workers = workers
@@ -126,6 +130,22 @@ class ReplicaWorker:
         # rebuilds == 0 — reconciliation as a counted invariant.
         self._recovery: dict[str, dict] = {}
         self._recovery_dirty: set = set()
+        # Observability piggybacks: completed trace spans queue for the
+        # Frontiers report; /metrics snapshots ship on a throttle, only
+        # when changed. Shipping is enabled only for SUBPROCESS replicas
+        # (ship_observability, set by the `-m ...coord.replica` entry
+        # point): an in-process replica shares the coordinator's
+        # process-global rings and registry, so its spans are already
+        # visible locally and shipping them would only pickle bytes
+        # over loopback for the controller's pid-dedupe to drop (and
+        # double-report metrics, which carry no pid).
+        if ship_observability:
+            from ..utils.trace import TRACER as _TRACER
+            from .freshness import FRESHNESS as _FRESHNESS
+
+            _TRACER.enable_ship()
+            _FRESHNESS.enable_ship()
+        self._ship_observability = bool(ship_observability)
         # Hydration status machine (freshness plane): per-dataflow
         # pending -> hydrating -> hydrated -> stalled with attempt
         # count and last error. Unlike lag records, status entries ship
@@ -133,6 +153,8 @@ class ReplicaWorker:
         # on the controller board — no pid-dedupe question arises).
         self._hydration: dict[str, dict] = {}
         self._hydration_dirty: set = set()
+        self._metrics_last_ship = 0.0
+        self._metrics_last: list | None = None
         self._stop = threading.Event()
 
     # -- serving -------------------------------------------------------------
@@ -262,6 +284,7 @@ class ReplicaWorker:
 
             pipelined = SPAN_PIPELINING(COMPUTE_CONFIGS)
             for name, inst in list(self.dataflows.items()):
+                t_step = _time.perf_counter()
                 try:
                     # Non-blocking: only if some input advanced. The
                     # pipelined span path dispatches every
@@ -275,6 +298,9 @@ class ReplicaWorker:
                         else inst.view.step(timeout=0)
                     ):
                         worked = True
+                        step_seconds().observe(
+                            _time.perf_counter() - t_step
+                        )
                 except SinkConflict:
                     # Another replica's durable chunking won a hydration
                     # race: rebuild this view from the durable shard
@@ -317,7 +343,7 @@ class ReplicaWorker:
     ) -> None:
         """One hydration status transition, queued for the next
         Frontiers piggyback (coord/freshness.py status machine)."""
-        from .freshness import status_entry  # the status machine only
+        from .freshness import status_entry
 
         self._hydration[name] = status_entry(
             status, attempts=attempts, error=error
@@ -540,7 +566,7 @@ class ReplicaWorker:
                     if mode == "off":
                         continue
                     if mode == "inline":
-                        # Pre-ISSUE-20 behavior: merge on the worker
+                        # The synchronous discipline: merge on the worker
                         # loop (blocks command drain + span stepping).
                         s.reader.machine.maybe_compact(
                             max_batches=ARRANGEMENT_COMPACTION_BATCHES(
@@ -548,10 +574,12 @@ class ReplicaWorker:
                             ),
                             ctx="inline",
                         )
-                    # "background": the reference hands the shard to its
-                    # compaction service; the port's waits for ROADMAP
-                    # Queue 1 item 6b, so the since moves and the shard
-                    # keeps its parts.
+                    else:
+                        from ..storage.persist.compactor import (
+                            compaction_service,
+                        )
+
+                        compaction_service().request(s.reader.machine)
         elif kind == "UpdateConfiguration":
             # Command-stream ordering makes every worker flip the flags
             # at the same point (compute_state.rs:46-59 analog). The
@@ -903,10 +931,22 @@ class ReplicaWorker:
                 rec = self._recovery.get(name)
                 if rec is not None and name in self.dataflows:
                     recovery[name] = dict(rec)
+        # Observability piggybacks: completed trace spans ship whenever
+        # present (empty in steady state / tracing off); the /metrics
+        # snapshot ships on the metrics_report_ms throttle and only when
+        # some value changed. Subprocess replicas only (see __init__).
+        spans, metrics = [], None
+        if self._ship_observability:
+            from ..utils.trace import TRACER
+
+            spans = TRACER.drain_shippable()
+            metrics = self._metrics_snapshot()
         # Freshness piggyback: hydration status transitions ship on
         # EVERY report path (dirty-set — the controller board is keyed
-        # by replica, so in-process replicas can't double-count). The
-        # port records no lag (coord/freshness.py).
+        # by replica, so in-process replicas can't double-count); lag
+        # records ship only from subprocess replicas (in-process ones
+        # share the process-global FRESHNESS ring, and the controller's
+        # pid-dedupe would drop the copies anyway).
         freshness = {}
         if self._hydration_dirty:
             dirty, self._hydration_dirty = self._hydration_dirty, set()
@@ -917,17 +957,102 @@ class ReplicaWorker:
             }
             if status:
                 freshness["status"] = status
-        if changed or recovery or freshness:
+        if self._ship_observability:
+            from .freshness import FRESHNESS
+
+            lag = FRESHNESS.drain_shippable()
+            if lag:
+                freshness["lag"] = lag
+        # Compaction stats ride the same way: dirty-set of
+        # shards whose counters moved since the last report. Subprocess
+        # replicas only — in-process ones share the process-global
+        # registry the coordinator serves directly.
+        compactions = {}
+        if self._ship_observability:
+            from ..storage.persist.compactor import STATS as _CSTATS
+
+            compactions = _CSTATS.take_dirty()
+        if (changed or recovery or spans or metrics or freshness
+                or compactions):
             ctp.send_msg(
                 conn,
                 ctp.frontiers(
                     changed, records, epochs, self.replica_id,
-                    recovery=recovery, arrangement_bytes=abytes,
-                    freshness=freshness,
+                    recovery=recovery, spans=spans, metrics=metrics,
+                    arrangement_bytes=abytes, freshness=freshness,
+                    compactions=compactions,
                 ),
             )
             return True
         return False
+
+    def _metrics_snapshot(self) -> list | None:
+        """This process's /metrics families for the controller-side
+        merged exposition, at most once per metrics_report_ms and only
+        on change (None = nothing to ship this report). The device
+        gauges are sampled first: the merge-path kernel's launches in
+        this process and the replica's peak device bytes."""
+        from ..utils.dyncfg import COMPUTE_CONFIGS, METRICS_REPORT_MS
+        from ..utils.metrics import REGISTRY
+
+        interval = float(METRICS_REPORT_MS(COMPUTE_CONFIGS)) / 1000.0
+        now = _time.monotonic()
+        if now - self._metrics_last_ship < max(interval, 0.05):
+            return None
+        _sample_device_metrics(self.device)
+        fams = REGISTRY.families()
+        if fams == self._metrics_last:
+            self._metrics_last_ship = now
+            return None
+        self._metrics_last = fams
+        self._metrics_last_ship = now
+        return fams
+
+
+def step_seconds():
+    """Histogram of the worker thread's dataflow steps (or spans) that
+    did work: the replica's own step time, read from its shipped
+    /metrics."""
+    from ..utils.metrics import REGISTRY
+
+    return REGISTRY.get_or_create(
+        "histogram", "mz_replica_step_seconds",
+        "seconds of each dataflow step or span that did work on a "
+        "replica's worker thread",
+    )
+
+
+def _sample_device_metrics(device) -> None:
+    """Copy this process's device facts into its registry: the
+    merge-path kernel's launch count (``ops/merge_kernel.LAUNCHES``,
+    which only its wrapper bumps, at a launch) as a counter, the kernel
+    library's load seconds, and the peak bytes torch's allocator held on
+    the replica's card (0 on the CPU)."""
+    import torch
+
+    from ..ops import merge_kernel
+    from ..utils.metrics import REGISTRY
+
+    launches = REGISTRY.get_or_create(
+        "counter", "mz_merge_path_launches_total",
+        "merge-path kernel launches in this process",
+    )
+    gap = merge_kernel.LAUNCHES - launches.value
+    if gap > 0:
+        launches.inc(gap)
+    REGISTRY.get_or_create(
+        "gauge", "mz_merge_path_load_seconds",
+        "seconds this process spent building or loading the merge-path "
+        "kernel library",
+    ).set(float(merge_kernel.BUILD_INFO.get("load_seconds", 0.0)))
+    peak = (
+        torch.cuda.max_memory_allocated(device)
+        if device.type == "cuda" else 0
+    )
+    REGISTRY.get_or_create(
+        "gauge", "mz_device_peak_bytes",
+        "peak device bytes torch's allocator held in this process",
+    ).set(float(peak))
 
 def serve_forever(
     port: int,
@@ -964,7 +1089,43 @@ def serve_forever(
 
 
 def main() -> None:
-    raise NotImplementedError(
-        "the subprocess replica entry point is not ported (ROADMAP Queue "
-        "1 item 6b, with environmentd); run serve_forever on a thread"
+    ap = argparse.ArgumentParser(description="materialize_tpu_torch replica")
+    ap.add_argument("--port", type=int, required=True)
+    ap.add_argument("--blob", required=True)
+    ap.add_argument("--consensus", required=True)
+    ap.add_argument("--replica-id", default="r0")
+    ap.add_argument(
+        "--workers", type=int, default=1,
+        help="devices in this replica's SPMD mesh (1: item 8 is not ported)",
     )
+    ap.add_argument(
+        "--device", default="cuda",
+        help="where the dataflows live: cuda (default; exits non-zero "
+        "without a card) or cpu",
+    )
+    args = ap.parse_args()
+    # The device is checked before the replica listens: without the card
+    # it asks for, it exits non-zero instead of serving on the CPU.
+    device = resolve_device(args.device)
+    # This interpreter IS the replica: label its span recorder so
+    # piggybacked spans carry the replica identity (in-process test
+    # replicas share the coordinator's tracer and skip this).
+    from ..utils.trace import TRACER
+
+    TRACER.process = f"replica:{args.replica_id}"
+    print(f"replica {args.replica_id} listening on {args.port}", flush=True)
+    serve_forever(
+        args.port,
+        PersistLocation(args.blob, args.consensus),
+        args.replica_id,
+        workers=args.workers,
+        # This interpreter is a dedicated replica: its spans/metrics
+        # exist nowhere else, so piggyback them to the controller
+        # (in-process replicas skip this — shared rings).
+        ship_observability=True,
+        device=device,
+    )
+
+
+if __name__ == "__main__":
+    main()

@@ -113,6 +113,16 @@ class TpchAdapter(GeneratorAdapter):
             )
         }
 
+    def recover(self, upto: int) -> None:
+        """Rebuild each order's current lineitem version after a restart
+        (the churn retracts the version it inserted before). The
+        reference's adapter has no such hook and restarts every order at
+        version 0, so its first churn tick after a restart retracts rows
+        that are not there (ROADMAP Queue 3)."""
+        self.gen.replay_churn_versions(
+            min(self.churn_orders, self.gen.n_orders), upto
+        )
+
 
 class AuctionAdapter(GeneratorAdapter):
     def __init__(self, options: dict):

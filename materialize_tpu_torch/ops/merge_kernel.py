@@ -85,11 +85,13 @@ def _compile():
 def build():
     """Compile (if needed) and load the kernel library; returns its C
     entry point ``merge_path`` with its argument types. Records the
-    build's seconds and the compiler's ``-Xptxas -v`` report in
+    build's seconds, the seconds to build (if needed) and load the
+    library, and the compiler's ``-Xptxas -v`` report in
     ``BUILD_INFO``."""
     global _FN
     with _LOCK:
         if _FN is None:
+            t0 = time.perf_counter()
             path, log, seconds = _compile()
             fn = ctypes.CDLL(str(path)).merge_path
             fn.argtypes = [
@@ -100,7 +102,8 @@ def build():
             ]
             fn.restype = ctypes.c_int
             _FN = fn
-            BUILD_INFO.update(path=str(path), seconds=seconds, log=log)
+            BUILD_INFO.update(path=str(path), seconds=seconds, log=log,
+                              load_seconds=time.perf_counter() - t0)
         return _FN
 
 

@@ -3,8 +3,8 @@
 Analog of the reference's ``src/pgwire`` (``protocol.rs:145 run()``,
 ``:847 StateMachine``): startup handshake, the simple-query protocol
 (Query -> RowDescription/DataRow*/CommandComplete/ReadyForQuery), error
-responses, and COPY in and out. SUBSCRIBE (streamed via COPY-out in the
-reference) is not ported: the coordinator's error reaches the client. Text result format only
+responses, and SUBSCRIBE streamed via the COPY-out subprotocol (the
+reference streams TAIL/SUBSCRIBE the same way). Text result format only
 (the reference negotiates binary per column; text is always legal).
 No TLS/SCRAM — SSLRequest is politely refused with 'N' (plaintext), as
 the reference does when TLS is off.
@@ -598,13 +598,95 @@ class PgConnection:
             self._ready()
 
     def _stream_subscription(self, res) -> None:
-        """SUBSCRIBE over the COPY-out subprotocol needs the reference's
-        fan-out hub; the port's coordinator raises before any
-        subscription exists, and that error reaches the client."""
-        raise NotImplementedError(
-            "SUBSCRIBE is not ported (ROADMAP Queue 1 item 6b: "
-            "coord/subscribe.py)"
-        )
+        """SUBSCRIBE over the COPY-out subprotocol: one text line per
+        update '(time, diff, cols...)' plus a progress line per span
+        window (the reference's SUBSCRIBE/TAIL wire behavior).
+
+        Delivery is EVENT-DRIVEN: the loop selects on the
+        client socket and the hub session's wake fd — a committed span
+        wakes it to drain the shared tail's chunk, and a client
+        half-close / CopyFail / Terminate wakes it to tear down. No
+        polling heartbeat, no MSG_PEEK hack: thousands of idle
+        subscribers cost zero CPU between spans."""
+        import select
+
+        from ..coord.subscribe import SubscriptionLagging
+
+        sub = res.subscription
+        # CopyOutResponse: text format, one column.
+        self._send(_msg(b"H", struct.pack("!bh", 0, 0)))
+        wake = sub.wake_socket()
+        try:
+            while True:
+                # Drain BEFORE selecting (chunks enqueued before the
+                # wake fd existed — the join snapshot — have no wake
+                # byte to select on) and BEFORE honoring `closed`: a
+                # hub-reaped lagging session still owes the client its
+                # SubscriptionLagging error (raised by pop_ready), not
+                # a clean end-of-stream.
+                for kind, events, frontier, _stamp in sub.pop_ready():
+                    lines = []
+                    if kind == "snapshot":
+                        # Coalesce-to-snapshot marker: the rows that
+                        # follow REPLACE the consumer's accumulated
+                        # state (subscribe_slow_policy = 'coalesce',
+                        # or the join snapshot itself).
+                        lines.append(f"{frontier}\t0\tsnapshot\n")
+                    for ev in events:
+                        *vals, t, d = ev
+                        fields = "\t".join(
+                            "\\N" if v is None else str(v)
+                            for v in vals
+                        )
+                        lines.append(f"{t}\t{d}\t{fields}\n")
+                    lines.append(f"{frontier}\t0\tprogress\n")
+                    self._send(_msg(b"d", "".join(lines).encode()))
+                if sub.closed:
+                    return
+                ready, _, _ = select.select(
+                    [self.sock, wake], [], [], 30.0
+                )
+                if self.sock in ready:
+                    # The client spoke mid-stream: CopyFail aborts,
+                    # Terminate ends the session, a bare EOF is the
+                    # half-close of a dead client (SIGKILL included —
+                    # the kernel's FIN lands here).
+                    try:
+                        tag = self.sock.recv(1)
+                    except OSError:
+                        return
+                    if not tag:
+                        return  # half-close / client death
+                    (length,) = struct.unpack(
+                        "!I", self._recv_exact(4)
+                    )
+                    self._recv_exact(length - 4)
+                    if tag == b"f":  # CopyFail: client aborted
+                        return
+                    if tag == b"c":  # CopyDone: clean client end
+                        return
+                    if tag == b"X":  # Terminate
+                        self.alive = False
+                        return
+                    # Flush/Sync etc. during COPY-out: ignore.
+                if wake in ready:
+                    try:
+                        while wake.recv(4096):
+                            pass
+                    except (BlockingIOError, OSError):
+                        pass
+        except SubscriptionLagging as e:
+            # Slow-consumer disconnect policy: a retryable shed, like
+            # admission control (the client may re-SUBSCRIBE).
+            try:
+                self._error("53400", str(e))
+            except (ConnectionError, OSError):
+                pass
+        except (BrokenPipeError, ConnectionError, OSError):
+            pass
+        finally:
+            sub.close()
+
 
 _COPY_ESCAPES = {
     "\\": "\\",

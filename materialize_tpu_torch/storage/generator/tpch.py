@@ -350,14 +350,27 @@ class TpchGenerator:
                 device=device,
             )
 
+    def _churn_keys(self, n_orders: int, tick: int) -> np.ndarray:
+        """The sorted order keys that churn tick ``tick`` replaces."""
+        rng = np.random.default_rng(self.seed * 31 + tick)
+        return np.sort(
+            rng.choice(np.arange(1, self.n_orders + 1), size=n_orders, replace=False)
+        )
+
+    def replay_churn_versions(self, n_orders: int, upto: int) -> None:
+        """Set each order's current version as churn ticks ``1..upto-1``
+        left it, without generating their rows: a source restarted at
+        frontier ``upto`` then retracts exactly the rows it inserted
+        before."""
+        for tick in range(1, upto):
+            for k in self._churn_keys(n_orders, tick).tolist():
+                self._order_version[k] = 1000 + tick
+
     def churn_lineitem_part(self, n_orders: int, tick: int):
         """One tick of order churn as numpy (cols, diffs): delete the
         current version of ``n_orders`` orders' lineitems (exactly the
         rows inserted for them before) and insert version 1000 + tick."""
-        rng = np.random.default_rng(self.seed * 31 + tick)
-        keys = np.sort(
-            rng.choice(np.arange(1, self.n_orders + 1), size=n_orders, replace=False)
-        )
+        keys = self._churn_keys(n_orders, tick)
         new_version = 1000 + tick
         by_version: dict = {}
         for k in keys:

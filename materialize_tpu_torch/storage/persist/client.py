@@ -218,12 +218,9 @@ class WriteHandle:
         if mode == "inline":
             self.machine.maybe_compact(max_batches=threshold, ctx="inline")
         else:
-            raise NotImplementedError(
-                "compaction_mode=background needs the background compaction "
-                "service (storage/persist/compactor.py, ROADMAP Queue 1 item "
-                "6b); open the client with auto_compaction=False or SET "
-                "compaction_mode to 'inline' or 'off'"
-            )
+            from .compactor import compaction_service
+
+            compaction_service().request(self.machine)
 
     def append_batch(self, batch: Batch, lower: int, upper: int) -> None:
         """Append a device Batch's valid rows."""

@@ -313,9 +313,9 @@ class Machine:
 
         ``ctx`` attributes the merge work ("inline" = on the caller's
         — i.e. the writer's tick — path, "background" = the detached
-        compactor's worker thread). The reference counts it in
-        compactor.STATS; the port has no compactor yet (ROADMAP Queue 1
-        item 6b) and counts nothing.
+        compactor's worker thread) in the counted compaction stats
+        (compactor.STATS): the compactor-smoke gate asserts the tick
+        path did ZERO of this under compaction_mode=background.
 
         Concurrency: the swap requires the EXACT batch prefix that was
         merged to still be present (identity on the HollowBatch tuple) —
@@ -329,6 +329,12 @@ class Machine:
         merged_key, n, old_keys = self._merge_parts(st, ctx=ctx)
         replaced = self.swap_compacted(
             prefix, merged_key, n, self._last_merge_bytes[1]
+        )
+        from .compactor import STATS
+
+        STATS.record_merge(
+            self.shard, ctx, replaced,
+            self._last_merge_bytes[0], self._last_merge_bytes[1],
         )
         # Best-effort blob cleanup: state is already durable; a failed
         # delete leaks a part but never corrupts (internal/gc.rs model).
@@ -425,6 +431,9 @@ class Machine:
                 merged_key, schema, cols, nulls, time, diff, len(data),
                 dict_epoch=dict_epoch,
             )
+        from .compactor import STATS
+
+        STATS.record_blob_write(self.shard, ctx, len(data))
         return merged_key, n, old_keys
 
     def gc_consensus(self, keep_last: int = 1) -> None:

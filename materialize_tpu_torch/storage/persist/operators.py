@@ -647,9 +647,21 @@ class MaintainedView:
                     )
             else:
                 as_of = max(max_since, min_upper - 1)
-            if as_of <= 0 and max_since == 0 and self._as_of_override is None:
+            if (
+                as_of <= 0
+                and max_since == 0
+                and self._as_of_override is None
+                and not any(
+                    isinstance(s, IndexSource)
+                    for s in self.sources.values()
+                )
+            ):
                 # Nothing (or only t=0) ingested and no compaction:
-                # replay from scratch, no snapshot step needed.
+                # replay from scratch, no snapshot step needed. Not with
+                # an index import: its publisher's t=0 content is a base
+                # snapshot it never pushes again, so replaying from 0
+                # would lose it (the reference's copy of this branch
+                # does; ROADMAP Queue 3).
                 for s in self.sources.values():
                     s.resume_at(0)
                 self._upper = 0
@@ -1032,9 +1044,18 @@ class MaintainedView:
         return True
 
     def _record_freshness(self, frontier: int, arrived: float) -> None:
-        """The reference records wallclock lag at every committed span
-        boundary (coord/freshness.py); the port has no freshness plane
-        yet (ROADMAP Queue 1 item 6b) and records nothing."""
+        """Committed-span-boundary lag recording: wallclock_lag_ms =
+        commit time - arrival time of the newest input tick the span
+        covers (one definition: coord/freshness.lag_ms). Pure host
+        bookkeeping: no tensor is read here."""
+        from ...coord.freshness import FRESHNESS, lag_ms
+
+        FRESHNESS.record(
+            getattr(self.df, "name", "") or "df",
+            self.replica_id,
+            frontier,
+            lag_ms(arrived),
+        )
 
     def sync_spans(self) -> None:
         """The read barrier. The port never leaves a span in flight

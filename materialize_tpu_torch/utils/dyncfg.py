@@ -107,7 +107,6 @@ COMPUTE_CONFIGS = ConfigSet()
 ITEM_13 = "ROADMAP Queue 1 item 13: the rest of plan/decisions.py"
 ITEM_14 = "ROADMAP Queue 1 item 14: analysis/"
 SPAN_EXEC = "ROADMAP Queue 1 item 6b: render/span_exec.py"
-SUBSCRIBE = "ROADMAP Queue 1 item 6b: coord/subscribe.py"
 PROGRAM_BANK = (
     "ROADMAP Queue 2 item 6: the program bank has no counterpart in "
     "eager torch"
@@ -150,7 +149,6 @@ COMPACTION_LEASE_S = Config(
     "reclaimable by a successor after this long; the holder renews "
     "before every swap, and epoch fencing rejects a stale holder that "
     "outlived its lease",
-    unported="ROADMAP Queue 1 item 6b: storage/persist/compactor.py",
 ).register(COMPUTE_CONFIGS)
 
 PART_TIERING = Config(
@@ -389,7 +387,6 @@ SUBSCRIBE_MAX_SESSIONS = Config(
     "sessions across the coordinator; arrivals beyond this are shed "
     "with 'server busy' (SQLSTATE 53400 at pgwire, HTTP 503) instead "
     "of degrading every existing stream",
-    unported=SUBSCRIBE,
 ).register(COMPUTE_CONFIGS)
 
 SUBSCRIBE_QUEUE_DEPTH = Config(
@@ -398,7 +395,6 @@ SUBSCRIBE_QUEUE_DEPTH = Config(
     "cannot drain its deltas this far behind the shared tail is "
     "handled by subscribe_slow_policy instead of buffering without "
     "bound (the hub's queues are the only per-subscriber state)",
-    unported=SUBSCRIBE,
 ).register(COMPUTE_CONFIGS)
 
 SUBSCRIBE_SLOW_POLICY = Config(
@@ -409,7 +405,6 @@ SUBSCRIBE_SLOW_POLICY = Config(
     "re-delivers a collapsed snapshot at the current frontier (state "
     "transfer — correct for dashboard-class consumers that only need "
     "current state, at the cost of one extra shard read)",
-    unported=SUBSCRIBE,
 ).register(COMPUTE_CONFIGS)
 
 SUBSCRIBE_TAIL_POLL_MS = Config(
@@ -418,7 +413,6 @@ SUBSCRIBE_TAIL_POLL_MS = Config(
     "for the sink shard's upper to advance before re-checking for "
     "retirement (bounds tail-thread teardown latency, NOT delivery "
     "latency — data wakes the listen immediately)",
-    unported=SUBSCRIBE,
 ).register(COMPUTE_CONFIGS)
 
 # -- the observability plane --------------------------------------
@@ -447,7 +441,6 @@ METRICS_REPORT_MS = Config(
     "how often a replica piggybacks its /metrics sample snapshot on a "
     "Frontiers response (deployment-wide scrape cadence): snapshots "
     "ship at most once per interval and only when some value changed",
-    unported="ROADMAP Queue 1 item 6b: ship_observability, with server/environmentd.py",
 ).register(COMPUTE_CONFIGS)
 
 FRESHNESS_SLO_MS = Config(
@@ -458,7 +451,6 @@ FRESHNESS_SLO_MS = Config(
     "ONSETS append to the bounded mz_freshness_events ring; /api/"
     "readyz reports not-ready while any durable dataflow's latest lag "
     "breaches. 0 disables (production default: opt in per deployment)",
-    unported="ROADMAP Queue 1 item 6b: coord/freshness.py's lag recorder",
 ).register(COMPUTE_CONFIGS)
 
 TRANSIENT_PEEK_CACHE = Config(
@@ -491,5 +483,4 @@ AUTOSCALE_POLICY = Config(
     "the most-lagged one (down to min), with cooldown hysteresis; "
     "every decision lands in the mz_autoscale_events ledger. Empty "
     "disables (production default: opt in per deployment)",
-    unported="ROADMAP Queue 1 item 6b: coord/autoscaler.py",
 ).register(COMPUTE_CONFIGS)

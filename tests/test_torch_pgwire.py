@@ -1,12 +1,12 @@
 """Port parity for the PostgreSQL wire protocol front end.
 
-The exchanges of ``tests/test_server.py``'s ``TestPgwire`` (all but
-SUBSCRIBE, which the port does not serve yet) run against the port's
+The exchanges of ``tests/test_server.py``'s ``TestPgwire`` (all but the
+streaming SUBSCRIBE ones, which ``tests/test_torch_server.py`` runs) run against the port's
 ``PgServer`` and the reference's, each over its own in-process cluster;
 columns, rows, command tags, message tags and error codes (SQLSTATE and
 message) must be equal, and the reference test's own assertions hold on
-the port's side. SUBSCRIBE over the port's wire ends in the
-coordinator's error, and the session lives on.
+the port's side. A SUBSCRIBE the coordinator refuses ends in its error
+over both wires, and the session lives on.
 """
 
 from __future__ import annotations
@@ -197,12 +197,13 @@ def test_extended_protocol_error_skips_to_sync(servers):
 
 
 def test_port_subscribe_surfaces_the_coordinators_error(servers):
-    c = MiniPg(servers["port"])
-    try:
-        c.query("CREATE TABLE st (v bigint NOT NULL)")
-        cols, rows, err, tag = c.query("SUBSCRIBE st")
-        assert err is not None and err[0] == "XX000"
-        assert "SUBSCRIBE is not ported" in err[1] and "item 6b" in err[1]
-        assert c.query("SELECT 1")[1] == [("1",)]
-    finally:
-        c.close()
+    """A SUBSCRIBE the coordinator refuses ends in its error over the
+    wire, as the reference's does, and the session lives on (the
+    streaming cases are in ``tests/test_torch_server.py``)."""
+
+    def ex(c):
+        return [c.query("SUBSCRIBE nope"), c.query("SELECT 1")]
+
+    (cols, rows, err, tag), after = both(servers, ex)
+    assert err is not None and err[0] == "XX000" and "nope" in err[1]
+    assert after[1] == [("1",)]

@@ -5,7 +5,11 @@
   (AST scan of every import statement).
 - Importing the slice's modules leaves ``jax`` out of ``sys.modules`` and
   builds nothing (the native library and the kernel build at first use).
-- Entry points default to ``device="cuda"`` and raise without a card.
+- Entry points default to ``device="cuda"`` and raise without a card;
+  the two commands, ``python -m materialize_tpu_torch.coord.replica``
+  and ``python -m materialize_tpu_torch.server.environmentd``, serve
+  with ``--device cpu`` with neither ``jax`` nor ``materialize_tpu``
+  loaded, and exit non-zero with ``--device cuda`` and no card.
 - The kernel's wrappers (``search_right``, ``merge_path``) and a merge
   forced to the kernel raise on CPU tensors.
 """
@@ -13,12 +17,15 @@
 from __future__ import annotations
 
 import ast
+import os
 import subprocess
 import sys
 from pathlib import Path
 
 import pytest
 import torch
+
+from tests.torch_serving import deadline  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -98,6 +105,12 @@ SLICE_MODULES = [
     "materialize_tpu_torch.coord.sources",
     "materialize_tpu_torch.coord.coordinator",
     "materialize_tpu_torch.server.pgwire",
+    "materialize_tpu_torch.storage.persist.compactor",
+    "materialize_tpu_torch.coord.subscribe",
+    "materialize_tpu_torch.coord.introspection",
+    "materialize_tpu_torch.coord.autoscaler",
+    "materialize_tpu_torch.server.http",
+    "materialize_tpu_torch.server.environmentd",
 ]
 
 
@@ -178,6 +191,15 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="cuda"):
         # The replica's device is checked before it opens the location.
         ReplicaWorker(location=PersistLocation("/nonexistent/blob", "/nonexistent/c.db"))
+    from materialize_tpu_torch.coord.coordinator import Coordinator
+    from materialize_tpu_torch.server.environmentd import Environment
+    from materialize_tpu_torch.storage.persist import MemBlob, MemConsensus, PersistClient
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        Coordinator(PersistClient(MemBlob(), MemConsensus()))
+    with pytest.raises(RuntimeError, match="cuda"):
+        # Checked before a directory or a replica process is made.
+        Environment("/nonexistent/envd", tick_interval=None)
     cpu = Dataflow(Get("lineitem", LINEITEM_SCHEMA), device="cpu")
     assert cpu.device.type == "cpu"
 
@@ -205,3 +227,71 @@ def test_kernel_mode_refuses_cpu_tensors():
         merged, lanes, _ = merge_sorted_cached(batch, a, batch, a, 8)
     assert merged.cols[0].tolist() == [0, 0, 1, 1, 2, 2, 3, 3]
     assert lanes.shape == (8, 2)
+
+
+# Runs a ``-m`` entry point's module as ``__main__`` in this process and,
+# once it serves, reports which of the forbidden packages are loaded.
+_CLEAN = """
+import os, runpy, signal, socket, sys, threading, time
+module, port = sys.argv[1], int(sys.argv[2])
+sys.argv = [module] + sys.argv[3:]
+
+def watch():
+    while True:
+        try:
+            socket.create_connection(("127.0.0.1", port), 1).close()
+            break
+        except OSError:
+            time.sleep(0.05)
+    loaded = sorted(m for m in ("jax", "jaxlib", "materialize_tpu") if m in sys.modules)
+    print("LOADED", loaded, flush=True)
+    if module.endswith("environmentd"):
+        os.kill(os.getpid(), signal.SIGTERM)  # a clean shutdown
+    else:
+        os._exit(0)
+
+threading.Thread(target=watch, daemon=True).start()
+runpy.run_module(module, run_name="__main__")
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _entry(module: str, device: str, tmp_path) -> tuple:
+    port = _free_port()
+    if module.endswith("replica"):
+        args = ["--port", str(port), "--blob", str(tmp_path / "blob"),
+                "--consensus", str(tmp_path / "c.db")]
+    else:
+        args = ["--data-dir", str(tmp_path / "envd"), "--pg-port", str(port),
+                "--http-port", str(_free_port())]
+    proc = subprocess.run(
+        [sys.executable, "-c", _CLEAN, module, str(port), *args, "--device", device],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "OMP_NUM_THREADS": "1"},
+    )
+    return proc.returncode, proc.stdout, proc.stderr
+
+
+@pytest.mark.parametrize("module", ["materialize_tpu_torch.coord.replica",
+                                    "materialize_tpu_torch.server.environmentd"])
+def test_commands_serve_on_cpu_without_jax(module, tmp_path):
+    rc, out, err = _entry(module, "cpu", tmp_path)
+    assert rc == 0 and "LOADED []" in out, out + err[-2000:]
+
+
+@pytest.mark.parametrize("module", ["materialize_tpu_torch.coord.replica",
+                                    "materialize_tpu_torch.server.environmentd"])
+def test_commands_refuse_cuda_without_a_card(module, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    rc, out, err = _entry(module, "cuda", tmp_path)
+    assert rc != 0 and "LOADED" not in out and "cuda" in err, out + err[-2000:]

@@ -39,6 +39,8 @@ from materialize_tpu_torch.expr import scalar as ts
 from materialize_tpu_torch.repr import schema as tschema
 from materialize_tpu_torch.repr.batch import Batch as TBatch
 
+from tests.torch_dict import reference_dict_restored  # noqa: F401
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():

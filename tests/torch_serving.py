@@ -106,12 +106,14 @@ class Cluster:
     def coordinator(self):
         coordinator = mod(self.pkg, "coord.coordinator")
         persist = mod(self.pkg, "storage.persist")
+        kw = {"device": "cpu"} if self.pkg == "port" else {}
         c = coordinator.Coordinator(
             persist.PersistClient(
                 persist.FileBlob(self.loc.blob_root),
                 persist.SqliteConsensus(self.loc.consensus_path),
             ),
             tick_interval=None,  # manual ticks: deterministic tests
+            **kw,
         )
         c.add_replica("r0", ("127.0.0.1", self.port))
         self.coords.append(c)
