@@ -5,17 +5,18 @@ card and check it end to end.
     python3 chip_smoke.py
     python3 chip_smoke.py --serve-only
 
-With ``--serve-only`` it runs phases 1, 5, 7a (twice: the replica
-stepping a tick at a time, then with ``span_pipelining`` on) and 7b,
-and stops after ``deploy``, printing neither the kernels line nor the
-last line. Phases, each printing one JSON line (any failure exits non-zero):
+With ``--serve-only`` it runs phases 1, 5, 7a and 7b, and stops after
+``deploy``, printing neither the kernels line nor the last line. Phases,
+each printing one JSON line (any failure exits non-zero):
 
 1. card and build: the card's name and power limit (``nvidia-smi``),
    then the merge-path kernel built from ``csrc/merge_path.cu`` with
    nvcc for sm_90a (seconds, ptxas report); then ``sql_plans``: TPC-H
    Q21 and Q7 planned from their text by the port's SQL frontend and
    optimizer on this machine (no JAX), Q21's plan equal to
-   ``q21_plan()``, node counts and planning ms;
+   ``q21_plan()``, node counts and planning ms, and EXPLAIN PHYSICAL
+   PLAN of Q7 and Q1 (printed), whose Join and Reduce lines must be the
+   plans the render layer builds for the same queries on the card;
 2. kernel against its plain torch versions, exactly: insertion points
    (``pos``) against ``search_right_torch`` for L in {1, 2, 3, 4, 5, 8,
    13, 25, 29}, random ``a_count`` (0 and m included), heavy duplicates, lanes on
@@ -36,7 +37,11 @@ last line. Phases, each printing one JSON line (any failure exits non-zero):
    per span, kernel launches counted over the whole run in all and by
    merge shape, the maintained multiset against a numpy oracle, and a
    full scan, 64 ``l_orderkey = k`` lookups and 64 full-row point
-   lookups against it;
+   lookups against it; then the next 32 churn ticks through the
+   pipelined executor (``render/span_exec.SpanExecutor``: span K+1
+   dispatched before span K's one flags readback), its updates/s beside
+   the serial train's, and the index against the oracle again (by a
+   128-bit multiset fingerprint);
 4. the index configuration at SF 0.01 with the merge forced to the
    kernel and then to the plain chain: the spines must be equal;
 5. TPC-H Q1 at SF 0.1 (``workloads/tpch.py``, the reference bench's Q1
@@ -50,8 +55,11 @@ last line. Phases, each printing one JSON line (any failure exits non-zero):
    plain chain;
 7. Q1 at SF 0.01 in both merge modes: equal peeks, reduce states, output
    runs and err arrangements;
-7a. ``serve``: the port's serving stack in this process, the replica's
-    dataflows on the card: a replica thread (``coord/replica.py``), a
+7a. ``serve``, run twice: the replica stepping a tick at a time, then
+    with ``span_pipelining`` on (the default: ``order_lines``' index
+    pipelines, ``_step_span_pipelined``; Q1's view commits each span at
+    its boundary). The port's serving stack in this process, the
+    replica's dataflows on the card: a replica thread (``coord/replica.py``), a
     Coordinator over FileBlob and SqliteConsensus in a temporary
     directory, a PgServer on a free port, and this script's own pgwire
     client (the simple query protocol). Over the wire: ``CREATE SOURCE
@@ -72,9 +80,13 @@ last line. Phases, each printing one JSON line (any failure exits non-zero):
     each DDL's ms, hydrate s, churn updates/s through the served path
     (source rows written over the wall time from the first tick to the
     SELECT that first sees the last) beside the bare ``q1`` cell's,
-    SELECT and lookup ms p50/p99, flags readbacks a replica step,
+    SELECT and lookup ms p50/p99, flags readbacks a replica step, spans
+    committed with the flags readbacks at their boundaries (exactly one
+    a span when pipelined) and the most spans in flight (at most one),
     host-to-device copies a tick, persist parts and bytes written, merge
-    launches, peak device memory; then the kernel at each merge shape
+    launches, peak device memory, and the host-sync probe: 8 more ticks
+    with ``torch.cuda.set_sync_debug_mode("warn")``, each synchronizing
+    call counted by the line that made it, per span; then the kernel at each merge shape
     the serve path launched (``serve_kernel_shape``), and
     ``serve_vs_plain_path``: the script at SF 0.002 with the replica's
     merges forced to the kernel and then to the plain chain, every
@@ -93,7 +105,11 @@ last line. Phases, each printing one JSON line (any failure exits non-zero):
     ``mz_wallclock_lag_summary``, ``mz_hydration_statuses``,
     ``mz_subscriptions``, ``mz_cluster_replicas`` and ``mz_compactions``
     answer (background merges, none inline); ``/api/readyz`` is ready;
-    the replica's shipped ``mz_merge_path_launches_total`` is above 0.
+    the replica's shipped ``mz_merge_path_launches_total`` is above 0;
+    ``mz_span_epochs`` (both views past 0) and ``mz_compile_log`` (the
+    replica's ``merge_path.cu`` build or load) are read over pgwire and
+    printed; the replica process's shipped span census shows one flags
+    readback a span and at most one span in flight.
     Then shutdown (each replica process alive until then) and a recovery
     on the same directory: the catalog replayed, Q1 equal to the oracle,
     and Q1's subscription resumed at its last frontier exactly. Printed:
@@ -150,10 +166,12 @@ last line. Phases, each printing one JSON line (any failure exits non-zero):
 16. pagerank (``workloads/pagerank.py``, the reference bench's
     ``config_pagerank``: 2,000 nodes, 10,000 edges, 64 rewired a tick,
     60 evaluations a tick, ``state_cap`` 2^14, tiers pre-sized): 1
-    hydrate tick, 16 churn ticks as 2 spans of 8 with one flags readback
-    each (the LetRec's and the float sums' readbacks counted apart), a
-    profiled tick, ``peek()`` one row per node within rel 1e-3 of a
-    numpy fixpoint, and ``tests/test_letrec.py``'s five edges at 300
+    hydrate tick, a warm span of 8, 8 churn ticks as one span of 8 (16
+    before the pipelined checks joined: the script's time limit) with
+    one flags readback (the
+    LetRec's and the float sums' readbacks counted apart), a profiled
+    tick, ``peek()`` one row per node within rel 1e-3 of a numpy
+    fixpoint, and ``tests/test_letrec.py``'s five edges at 300
     evaluations within rel 1e-9; ``pagerank_x32`` at 32 times the graph
     (65,536 nodes, 327,680 edges, 2,048 rewired a tick, ``state_cap``
     2^19): 1 hydrate tick, 2 churn ticks (not 8: the script's time
@@ -184,7 +202,11 @@ last line. Phases, each printing one JSON line (any failure exits non-zero):
 20. ``arms_small``: Union, Constant, FlatMap (``generate_series``, its
     tier overflowing once, growing and replaying), ArrangeBy, Negate and
     Threshold in one plan over 3 ticks of a few hundred seeded rows,
-    against numpy;
+    against numpy; then a string dictionary rebalance on the card
+    through the serving stack: a view over strings, a SELECT whose
+    string table runs a squeezed label gap dry (the replica rebalances,
+    remaps and rebuilds from persist), a SELECT whose literal does (the
+    coordinator rebalances and replans), every answer checked;
 21. TPC-H Q7 (``Q7_SQL``, clause 2.4.7 less ORDER BY) planned from its
     text on this machine by the port's frontend and optimizer
     (``workloads/tpch.py:q7_expr``: a 6-input delta join with nation
@@ -326,6 +348,58 @@ def consolidate_np(mat: np.ndarray, diff: np.ndarray):
     rows = mat[start]
     keep = sums != 0
     return rows[keep], sums[keep]
+
+
+# (seed, multiplier) of the fingerprint's two row hashes (murmur3's
+# fmix64 multipliers).
+_FP_HASHES = ((0x9E3779B97F4A7C15, np.uint64(0xFF51AFD7ED558CCD)),
+              (0xC2B2AE3D27D4EB4F, np.uint64(0xC4CEB9FE1A85EC53)))
+
+
+def multiset_fingerprint(mat: np.ndarray, diff: np.ndarray) -> tuple:
+    """Two 64-bit wrapping sums of a per-row hash times the row's diff:
+    equal multisets (rows of ``mat`` with multiplicities ``diff``) give
+    equal sums in any row order, and the sums add across batches; two
+    unequal ones agree only if both 64-bit sums collide."""
+    out = []
+    with np.errstate(over="ignore"):
+        for seed, mul in _FP_HASHES:
+            h = np.full(len(diff), seed, dtype=np.uint64)
+            for j in range(mat.shape[1]):
+                h ^= mat[:, j].astype(np.uint64)
+                h *= mul
+                h ^= h >> np.uint64(33)
+            h *= mul
+            h ^= h >> np.uint64(29)
+            out.append(int((h * diff.astype(np.uint64)).sum(dtype=np.uint64)))
+    return tuple(out)
+
+
+def _signed(u: int) -> int:
+    return u - (1 << 64) if u >= 1 << 63 else u
+
+
+def multiset_fingerprint_torch(torch, mat, diff) -> tuple:
+    """``multiset_fingerprint`` of the int64 tensors ``mat`` ([N, C]) and
+    ``diff`` where they lie (on the card for the index: no 6M-row copy
+    to the host), bit for bit: int64 arithmetic wraps as uint64's, and
+    the logical shifts are arithmetic ones masked."""
+    out = []
+    for seed, mul in _FP_HASHES:
+        m = _signed(int(mul))
+        h = torch.full((mat.shape[0],), _signed(seed), dtype=torch.int64, device=mat.device)
+        for j in range(mat.shape[1]):
+            h = h ^ mat[:, j]
+            h = h * m
+            h = h ^ ((h >> 33) & ((1 << 31) - 1))
+        h = h * m
+        h = h ^ ((h >> 29) & ((1 << 35) - 1))
+        out.append(int((h * diff).sum().item()) % (1 << 64))
+    return tuple(out)
+
+
+def fingerprint_add(a: tuple, b: tuple) -> tuple:
+    return tuple((x + y) % (1 << 64) for x, y in zip(a, b))
 
 
 def host_matrix(cols) -> np.ndarray:
@@ -674,6 +748,50 @@ def phase_index(torch, merge_kernel, card, sf: float = 1.0) -> dict:
     check(len(b_sums) == int(base.count), "compacted base holds duplicate rows")
     check(np.array_equal(b_rows, o_rows) and np.array_equal(b_sums, o_sums),
           "maintained index != oracle")
+    del base, b_cols
+
+    # -- main path: the next 32 churn ticks through the pipelined executor ----
+    # (render/span_exec.py, as the reference bench drives its span
+    # configurations): span K+1 is dispatched before span K's one flags
+    # readback; the peek after it is held to the oracle again.
+    from materialize_tpu_torch.render.span_exec import SpanExecutor
+
+    p_inputs, p_rows = [], []
+    for i in range(ticks_churn):
+        inp, n = churn(ticks_churn + i, df.time + i)
+        p_inputs.append(inp)
+        p_rows.append(n)
+    ex = SpanExecutor(df)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for span in _spans(p_inputs, span_churn):
+        ex.submit(span)
+    ex.sync()
+    torch.cuda.synchronize()
+    pipelined_s = time.perf_counter() - t
+    ex.close()
+    pst = ex.stats()
+    check(pst["readbacks_per_span"] == 1.0 and pst["max_inflight"] <= 1
+          and pst["overflows"] == 0 and pst["spans_committed"] == ticks_churn // span_churn,
+          f"pipelined index spans: {pst}")
+    # Held to the oracle by multiset fingerprint (a second sort of the
+    # 6M rows would take the script ~30 s): the oracle's is the last
+    # check's consolidated rows plus every pipelined batch's.
+    p_cols = [inp["lineitem"].to_columns() for inp in p_inputs]
+    want_fp = fingerprint_add(
+        multiset_fingerprint_torch(torch, torch.from_numpy(o_rows).to(df.device),
+                                   torch.from_numpy(o_sums).to(df.device)),
+        multiset_fingerprint(np.concatenate([host_matrix(c[:13]) for c in p_cols]),
+                             np.concatenate([c[14] for c in p_cols])))
+    base = df.output_batch()
+    n_base = int(base.count)
+    got_fp = multiset_fingerprint_torch(
+        torch, torch.stack([c[:n_base].to(torch.int64) for c in base.cols[:13]], dim=1),
+        base.diff[:n_base])
+    check(got_fp == want_fp, "maintained index != oracle after the pipelined churn")
+    torch.cuda.synchronize()
+    launches = merge_kernel.LAUNCHES
+    by_shape = dict(merge_kernel.LAUNCHES_BY_SHAPE)
 
     folds = df._folds - folds_before
     check(launches > 0 and launches >= folds, f"launches {launches} < folds {folds}")
@@ -686,6 +804,10 @@ def phase_index(torch, merge_kernel, card, sf: float = 1.0) -> dict:
         "hydrate_gen_s": gen_s, "hydrate_s": hydrate_s,
         "churn_ticks": ticks_churn, "churn_gen_s": churn_gen_s,
         "churn_updates": int(sum(c_rows)), "churn_updates_per_s": ups,
+        "pipelined_churn_updates": int(sum(p_rows)),
+        "pipelined_churn_updates_per_s": sum(p_rows) / pipelined_s,
+        "pipelined_tick_ms": pipelined_s * 1e3 / ticks_churn,
+        "pipelined_spans": pst,
         "span_ms": span_ms, "tick_ms_p50": float(np.percentile(tick_ms, 50)),
         "tick_ms_p99": float(np.percentile(tick_ms, 99)),
         "readbacks_per_span": span_reads,
@@ -698,7 +820,7 @@ def phase_index(torch, merge_kernel, card, sf: float = 1.0) -> dict:
     }
     emit(out)
     out["by_shape"] = by_shape
-    del df, h_inputs, c_inputs, fed, base
+    del df, h_inputs, c_inputs, p_inputs, fed, base, ex
     torch.cuda.empty_cache()
     return out
 
@@ -1478,8 +1600,32 @@ def phase_sql_plans(card) -> dict:
             joins = [e for e in _walk(plan) if isinstance(e, mir.Join)]
             check(len(joins) == 1 and joins[0].implementation == "delta"
                   and len(joins[0].inputs) == 6, "Q7 is not one 6-input delta join")
+    for name, sql in (("q7", Q7_SQL), ("q1", SERVE_Q1_SQL)):
+        out[f"{name}_explain_physical"] = _explain_vs_render(sql, tpch_catalog(), name)
     emit(out)
     return out
+
+
+def _explain_vs_render(sql: str, catalog, name: str, device: str = "cuda") -> list:
+    """EXPLAIN PHYSICAL PLAN of ``sql`` (``plan/lowering.py``'s LIR),
+    checked against the plans the render layer built for the same
+    optimized query on the card: every Join and Reduce the dataflow
+    rendered (``_RenderContext.lir``, read from its operators) is one
+    line of the EXPLAIN text, and no other Join or Reduce is."""
+    from materialize_tpu_torch.render.dataflow import Dataflow
+    from materialize_tpu_torch.sql.plan import plan_statement
+    from materialize_tpu_torch.transform.optimizer import optimize
+
+    text = plan_statement("EXPLAIN PHYSICAL PLAN FOR " + sql, catalog).text
+    lines = text.splitlines()
+    explained = sorted(
+        ln.split(" ", 1)[1] for ln in (x.strip() for x in lines)
+        if ln.split(" ")[1] in ("Join", "Reduce"))
+    df = Dataflow(optimize(plan_statement(sql, catalog).expr), device=device)
+    rendered = sorted(f"{op} {detail}" for op, detail in df._ctx.lir)
+    check(rendered and explained == rendered,
+          f"{name}: EXPLAIN PHYSICAL PLAN {explained} != rendered {rendered}")
+    return lines
 
 
 def _walk(expr):
@@ -2105,13 +2251,88 @@ def phase_arms_small(torch, merge_kernel, card) -> dict:
     want = arms_oracle(ticks)
     check(got == want, f"arms peek != numpy oracle ({len(got)} vs {len(want)} rows)")
     check(df.peek_errors() == [], "arms err collection not empty")
+    rebalance = _dict_rebalance_on_card(torch, merge_kernel)
+    launches += rebalance["launches"]
+    for k, v in rebalance.pop("by_shape").items():
+        by_shape[k] = by_shape.get(k, 0) + v
     out = {"phase": "arms_small", "card": card, "ticks": len(ticks), "rows": len(got),
            "grown_keys": [str(k) for k in df._grown], "join_tiers": list(df._ctx.join_caps),
+           "dict_rebalance": rebalance,
            "launches": launches,
            "launches_by_shape": {",".join(map(str, k)): v for k, v in sorted(by_shape.items())}}
     emit(out)
     out["by_shape"] = by_shape
     return out
+
+
+def _squeeze_gap(d, lo: str, hi: str) -> None:
+    """Give two new strings adjacent labels, so any string that sorts
+    between them runs the label gap dry (``tests/test_dict_rebalance.py``'s
+    recipe)."""
+    ca, cb = d.encode(lo), d.encode(hi)
+    with d.lock():
+        del d._by_code[cb]
+        d._codes[hi] = ca + 1
+        d._by_code[ca + 1] = hi
+        d.version += 1
+
+
+def _dict_rebalance_on_card(torch, merge_kernel) -> dict:
+    """A string dictionary rebalance on the card, through the serving
+    stack (a replica thread whose dataflows live on the card): a
+    materialized view over strings; a SELECT whose string table runs a
+    squeezed label gap dry, so the replica rebalances the dictionary,
+    remaps every installed plan (``expr/remap.py``) and rebuilds its
+    dataflows from the durable shards; then a SELECT whose literal lands
+    in a squeezed gap, so the coordinator rebalances and replans. Every
+    answer against the strings themselves, and the view still
+    maintains."""
+    import tempfile
+
+    from materialize_tpu_torch.repr.schema import GLOBAL_DICT
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    start = merge_kernel.LAUNCHES
+    shapes0 = dict(merge_kernel.LAUNCHES_BY_SHAPE)
+    epoch0 = GLOBAL_DICT.epoch
+    with tempfile.TemporaryDirectory() as root:
+        st = ServeStack(root)
+        try:
+            c = st.coord
+
+            def rows(sql):
+                return sorted(c.execute(sql).rows)
+
+            c.execute("CREATE TABLE rb (s text NOT NULL)")
+            c.execute("INSERT INTO rb VALUES ('rbza'), ('rbzc')")
+            c.execute("CREATE MATERIALIZED VIEW rbv AS SELECT s FROM rb WHERE s <> 'rbzx'")
+            check(rows("SELECT s FROM rbv") == [("rbza",), ("rbzc",)], "rebalance: rbv")
+            _squeeze_gap(GLOBAL_DICT, "RBZ", "RBZB")  # upper('rbza') sorts between
+            check(rows("SELECT upper(s) FROM rb") == [("RBZA",), ("RBZC",)],
+                  "rebalance: upper(s) after the replica's rebalance")
+            replica_epoch = GLOBAL_DICT.epoch
+            check(replica_epoch > epoch0, "rebalance: the replica did not rebalance")
+            check(rows("SELECT s FROM rbv") == [("rbza",), ("rbzc",)],
+                  "rebalance: rbv after the rebuild")
+            c.execute("INSERT INTO rb VALUES ('rbzb')")
+            want = [("rbza",), ("rbzb",), ("rbzc",)]
+            check(rows("SELECT s FROM rbv") == want, "rebalance: rbv after an insert")
+            _squeeze_gap(GLOBAL_DICT, "rbzq", "rbzr")  # the literal 'rbzqa' sorts between
+            check(rows("SELECT s FROM rbv WHERE s < 'rbzqa'") == want,
+                  "rebalance: the coordinator's replan")
+            check(GLOBAL_DICT.epoch > replica_epoch, "rebalance: the coordinator did not")
+            rebuilds = {n: r.get("rebuilds", 0) for n, r in st.worker._recovery.items()}
+            check(rebuilds.get("rbv", 0) >= 1, f"rebalance: rbv was not rebuilt {rebuilds}")
+        finally:
+            st.close()
+    torch.cuda.synchronize()
+    launches = merge_kernel.LAUNCHES - start
+    check(launches > 0, "the rebalance run launched no merge-path kernel")
+    by_shape = {k: v - shapes0.get(k, 0) for k, v in merge_kernel.LAUNCHES_BY_SHAPE.items()
+                if v - shapes0.get(k, 0)}
+    return {"epochs": GLOBAL_DICT.epoch - epoch0, "rebuilds": rebuilds, "launches": launches,
+            "by_shape": by_shape, "s": time.perf_counter() - t0}
 
 
 # -- pagerank --------------------------------------------------------------------
@@ -2408,9 +2629,10 @@ class ServeStack:
     card (its worker thread does all the device work), a Coordinator
     over FileBlob and SqliteConsensus in ``root``, a PgServer on a free
     port, and one wire client. ``mode`` forces the replica's merges to
-    the kernel or the plain chain (None: the device rule)."""
+    the kernel or the plain chain (None: the device rule); ``device`` is
+    where the replica's dataflows live (the CPU for a rehearsal)."""
 
-    def __init__(self, root: str, mode=None):
+    def __init__(self, root: str, mode=None, device: str = "cuda"):
         import contextvars
         import socket
         import threading
@@ -2435,13 +2657,13 @@ class ServeStack:
             ctx = contextvars.copy_context()
         self._thread = threading.Thread(
             target=ctx.run, args=(serve_forever, port, self.loc, "r0", ready),
-            kwargs={"handle": self._handle, "device": "cuda"}, daemon=True)
+            kwargs={"handle": self._handle, "device": device}, daemon=True)
         self._thread.start()
         check(ready.wait(60), "replica did not start")
         self.coord = Coordinator(
             PersistClient(FileBlob(self.loc.blob_root),
                           SqliteConsensus(self.loc.consensus_path)),
-            tick_interval=None, device="cuda")
+            tick_interval=None, device=device)
         self.coord.add_replica("r0", ("127.0.0.1", port))
         self.pg = PgServer(self.coord).start()
         self.client = PgClient(self.pg.port)
@@ -2454,11 +2676,16 @@ class ServeStack:
         return self.worker.dataflows[name].view
 
     def blob_files(self) -> tuple:
+        # Compaction and the span commits delete parts while this walks:
+        # a part gone before its size is read is not counted.
         n = size = 0
         for d, _dirs, files in os.walk(self.loc.blob_root):
             for f in files:
+                try:
+                    size += os.path.getsize(os.path.join(d, f))
+                except FileNotFoundError:
+                    continue
                 n += 1
-                size += os.path.getsize(os.path.join(d, f))
         return n, size
 
     def close(self) -> None:
@@ -2643,8 +2870,14 @@ class _TickSplit:
         return out
 
 
+# Source ticks of the serving script's host-sync probe (after the paced
+# ticks, before the lookups; the oracles cover them).
+SYNC_PROBE_TICKS = 8
+
+
 def _serve_script(st, sf: float, churn: int, ticks: int, span: int, n_lookups: int,
-                  q1_selects: int, paced: int = 8, span_pipelining: bool = False) -> dict:
+                  q1_selects: int, paced: int = 8, span_pipelining: bool = False,
+                  probe_ticks: int = SYNC_PROBE_TICKS) -> dict:
     """The serving script on one stack: ``span_pipelining`` set over the
     wire (on, the replica steps every ready tick of a view as one span
     with one flags readback; off, a tick at a time), the DDL, ``ticks`` churn ticks
@@ -2675,7 +2908,7 @@ def _serve_script(st, sf: float, churn: int, ticks: int, span: int, n_lookups: i
     # SELECT waits for.
     (_cols, first_q1, _tag), first_select_ms = _timed(c, "SELECT * FROM q1")
     t_o = time.perf_counter()
-    gen, snap, churn_parts = _serve_oracle_parts(sf, churn, ticks + paced)
+    gen, snap, churn_parts = _serve_oracle_parts(sf, churn, ticks + paced + probe_ticks)
     oracle_gen_s = time.perf_counter() - t_o
     rows_written = sum(len(p[1]) for p in churn_parts[:ticks])
     src = st.coord.sources["tpch"]
@@ -2684,6 +2917,9 @@ def _serve_script(st, sf: float, churn: int, ticks: int, span: int, n_lookups: i
     up0 = {"q1": q1_view.upper, "order_lines": ol_view.upper}
     for k in operators.H2D:
         operators.H2D[k] = 0
+    for k in operators.SPANS:
+        operators.SPANS[k] = 0
+    epochs0 = {"q1": q1_view.span_epoch, "order_lines": ol_view.span_epoch}
     files0, bytes0 = st.blob_files()
     span_selects, span_select_ms, tick_ms = [], [], []
     t_first = time.perf_counter()
@@ -2718,6 +2954,15 @@ def _serve_script(st, sf: float, churn: int, ticks: int, span: int, n_lookups: i
             paced_fresh_ms.append((time.perf_counter() - t) * 1e3)
     finally:
         split.remove()
+    spans = dict(operators.SPANS)
+    spans["by_view"] = {"q1": q1_view.span_epoch - epochs0["q1"],
+                        "order_lines": ol_view.span_epoch - epochs0["order_lines"]}
+    if span_pipelining:
+        check(spans["committed"] > 0 and spans["boundary_readbacks"] == spans["committed"],
+              f"serve: flags readbacks at span boundaries {spans}")
+        check(spans["max_inflight"] == 1, f"serve: spans in flight {spans}")
+    syncs = (_host_sync_probe(src, {"q1": q1_view, "order_lines": ol_view}, probe_ticks)
+             if probe_ticks else None)
     # -- checks, off the clock --------------------------------------------------
     _check_q1_wire(first_q1, snap, "Q1 after hydration")
     for i, rows in enumerate(span_selects):
@@ -2772,6 +3017,14 @@ def _serve_script(st, sf: float, churn: int, ticks: int, span: int, n_lookups: i
         "paced_split_ms_p50": split.p50(),
         "replica_steps": steps,
         "flags_readbacks_per_step": {k: readbacks[k] / max(steps[k], 1) for k in steps},
+        # Spans committed over the churn and paced ticks, the flags
+        # readbacks at their boundaries, and the most spans a view held
+        # in flight (0 when the replica steps a tick at a time).
+        "spans_committed": spans["committed"], "spans_by_view": spans["by_view"],
+        "flags_readbacks_per_span": (spans["boundary_readbacks"] / spans["committed"]
+                                     if spans["committed"] else None),
+        "max_spans_in_flight": spans["max_inflight"],
+        "host_sync_probe": syncs,
         "h2d_batches_per_tick": h2d["batches"] / ticks,
         "h2d_copies_per_tick": h2d["copies"] / ticks,
         "h2d_bytes_per_tick": h2d["bytes"] / ticks,
@@ -2780,6 +3033,47 @@ def _serve_script(st, sf: float, churn: int, ticks: int, span: int, n_lookups: i
         "table_ms": table_ms,
         "selects": [sorted(r) for r in [first_q1, *span_selects]] + table_selects,
     }
+
+
+def _host_sync_probe(src, views: dict, ticks: int) -> dict:
+    """Hidden host syncs of the replica's eager train: ``ticks`` source
+    ticks, each waited for until every view stepped past it, with
+    ``torch.cuda.set_sync_debug_mode("warn")`` on (outside any timed
+    window). Every synchronizing CUDA call warns; the warnings are
+    counted by the line that made them, and divided by the spans the
+    views committed (by the ticks, with no spans)."""
+    import warnings
+    from collections import Counter
+
+    import torch
+
+    from materialize_tpu_torch.storage.persist import operators
+
+    for k in operators.SPANS:
+        operators.SPANS[k] = 0
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _i in range(ticks):
+                target = src.t + 1
+                src.tick_once()
+                t_w = time.perf_counter()
+                while min(v.upper for v in views.values()) < target:
+                    check(time.perf_counter() - t_w < 60, "sync probe: a tick was not stepped")
+                    time.sleep(0.0002)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = Counter(
+        f"{os.path.relpath(w.filename, os.path.dirname(os.path.abspath(__file__)))}:{w.lineno}"
+        for w in caught if "synchroniz" in str(w.message))
+    spans = operators.SPANS["committed"]
+    n = sum(syncs.values())
+    return {"ticks": ticks, "spans": spans, "host_syncs": n,
+            "host_syncs_per_span": n / spans if spans else None,
+            "host_syncs_per_tick": n / ticks,
+            "sites": dict(syncs.most_common())}
 
 
 def phase_serve(torch, merge_kernel, card, bare_q1: dict, span_pipelining: bool = False) -> dict:
@@ -2832,7 +3126,7 @@ def phase_serve_modes(torch, merge_kernel, card) -> None:
         with tempfile.TemporaryDirectory() as root:
             st = ServeStack(root, mode=mode)
             try:
-                out = _serve_script(st, 0.002, 64, 8, 4, 32, q1_selects=2)
+                out = _serve_script(st, 0.002, 64, 8, 4, 32, q1_selects=2, probe_ticks=0)
             finally:
                 st.close()
         return out["selects"], merge_kernel.LAUNCHES - start
@@ -2854,15 +3148,17 @@ def half_full(ca, cb, out):
     return ca // 2, min(cb // 2, max(out - ca // 2, 0))
 
 
-def serve_phases(torch, merge_kernel, card, bare_q1: dict, span_pipelining=(False,)) -> tuple:
-    """``serve`` once for each ``span_pipelining`` setting, the kernel at
-    each merge shape the first run launched, and ``serve_vs_plain_path``."""
+def serve_phases(torch, merge_kernel, card, bare_q1: dict,
+                 span_pipelining=(False, True)) -> tuple:
+    """``serve`` once for each ``span_pipelining`` setting (a tick at a
+    time, then the pipelined span path), the kernel at each merge shape
+    the first run launched, and ``serve_vs_plain_path``."""
     runs = [phase_serve(torch, merge_kernel, card, bare_q1, span_pipelining=sp)
             for sp in span_pipelining]
     rows = phase_path_kernel(torch, merge_kernel, card, runs[0]["by_shape"],
                              "serve_kernel_shape", half_full)
     phase_serve_modes(torch, merge_kernel, card)
-    return runs[0], rows
+    return runs, rows
 
 
 # -- a deployment: environmentd with a subprocess replica on the card -------------
@@ -3108,11 +3404,13 @@ def _shutdown_checked(env) -> dict:
 
 
 def _deploy_run(root: str, device: str, sf: float, churn: int, ticks: int, span: int,
-                paced: int, resumed: int) -> dict:
+                paced: int, resumed: int, span_pipelining: bool = True) -> dict:
     """The deployment script on ``device`` (module docstring, ``deploy``):
     an ``Environment`` in this process with one subprocess replica,
     served over pgwire and HTTP, then shut down and recovered on the same
-    data directory. Returns the phase's numbers; raises on any check."""
+    data directory. ``span_pipelining`` off (a durable SET before the
+    DDL) steps the replica's views a tick at a time instead. Returns the
+    phase's numbers; raises on any check."""
     from materialize_tpu_torch.coord.freshness import FRESHNESS, lag_ms
     from materialize_tpu_torch.server.environmentd import Environment
     from materialize_tpu_torch.storage.persist import COMPACTION_STATS
@@ -3138,6 +3436,8 @@ def _deploy_run(root: str, device: str, sf: float, churn: int, ticks: int, span:
         http = env.http.port
         c = PgClient(env.pg.port)
         c.query("SET metrics_report_ms = 50")
+        if not span_pipelining:
+            c.query("SET span_pipelining = false")
         t = time.perf_counter()
         c.query(f"CREATE SOURCE tpch FROM LOAD GENERATOR TPCH "
                 f"(SCALE FACTOR {sf}, CHURN ORDERS {churn})")
@@ -3236,8 +3536,17 @@ def _deploy_run(root: str, device: str, sf: float, churn: int, ticks: int, span:
             ("mz_cluster_replicas", "SELECT name, connected, state FROM mz_cluster_replicas"),
             ("mz_compactions", "SELECT shard, replica, requests, merges_background, "
                                "merges_inline, blob_writes_inline FROM mz_compactions"),
+            ("mz_span_epochs", "SELECT dataflow, replica, span_epoch FROM mz_span_epochs"),
+            ("mz_compile_log", "SELECT process, kind, dataflow, fingerprint, tier, seconds, "
+                               "cache FROM mz_compile_log"),
         ):
             intro[rel] = c.query(sql)[1]
+        epochs = {(r[0], r[1]): int(r[2]) for r in intro["mz_span_epochs"]}
+        check(all((epochs.get((v, "r0"), 0) > 0) == span_pipelining
+                  for v in ("q1", "order_lines_idx")), f"deploy: span epochs {epochs}")
+        check(any(r[0] == "r0" and r[1] == "nvcc" and r[2] == "merge_path.cu"
+                  for r in intro["mz_compile_log"]),
+              f"deploy: no merge_path build or load shipped: {intro['mz_compile_log']}")
         check(("r0", "1", "active") in intro["mz_cluster_replicas"], "deploy: r0 not connected")
         check({("q1", "r0", "hydrated"), ("order_lines_idx", "r0", "hydrated")}
               <= set(intro["mz_hydration_statuses"]), "deploy: views not hydrated")
@@ -3288,6 +3597,25 @@ def _deploy_run(root: str, device: str, sf: float, churn: int, ticks: int, span:
         fin = _settled_metrics(http, 'mz_merge_path_launches_total{replica="r0"}')
         out["launches_first_boot"] = int(fin['mz_merge_path_launches_total{replica="r0"}'])
         out["replica_peak_device_bytes"] = int(fin['mz_device_peak_bytes{replica="r0"}'])
+        # The replica process's span census (storage/persist/operators.SPANS,
+        # shipped as gauges): its index view pipelines (span_pipelining is
+        # on by default), its materialized view commits at its boundary.
+        spans = {k: int(fin[f'{k}{{replica="r0"}}']) for k in (
+            "mz_span_commits", "mz_span_boundary_readbacks", "mz_span_overflows",
+            "mz_spans_in_flight_max")}
+        if span_pipelining:
+            check(spans["mz_span_commits"] > 0
+                  and spans["mz_span_boundary_readbacks"] == spans["mz_span_commits"]
+                  and spans["mz_spans_in_flight_max"] == 1, f"deploy: replica spans {spans}")
+        else:
+            check(spans["mz_span_commits"] == 0, f"deploy: spans stepped a tick at a time {spans}")
+        out["span_pipelining"] = span_pipelining
+        out["replica_spans"] = spans
+        out["replica_flags_readbacks_per_span"] = (
+            spans["mz_span_boundary_readbacks"] / spans["mz_span_commits"]
+            if spans["mz_span_commits"] else None)
+        out["mz_span_epochs"] = intro["mz_span_epochs"]
+        out["mz_compile_log"] = intro["mz_compile_log"]
         last_frontier, last_state = last_q1
         stage("settle")
     finally:
@@ -3344,7 +3672,7 @@ def _deploy_run(root: str, device: str, sf: float, churn: int, ticks: int, span:
     return out
 
 
-def phase_deploy(torch, merge_kernel, card, serve: dict) -> dict:
+def phase_deploy(torch, merge_kernel, card, serve: dict, span_pipelining: bool = True) -> dict:
     """``deploy``: the port deployed as users deploy it, the replica in a
     process of its own on the card (module docstring)."""
     import tempfile
@@ -3354,9 +3682,15 @@ def phase_deploy(torch, merge_kernel, card, serve: dict) -> dict:
     # before the replica process takes its own share of the card.
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as root:
-        out = _deploy_run(root, "cuda", SERVE_SF, SERVE_CHURN, DEPLOY_TICKS, DEPLOY_SPAN,
-                          DEPLOY_PACED, DEPLOY_RESUMED)
+    from materialize_tpu_torch.utils.dyncfg import COMPUTE_CONFIGS
+
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            out = _deploy_run(root, "cuda", SERVE_SF, SERVE_CHURN, DEPLOY_TICKS, DEPLOY_SPAN,
+                              DEPLOY_PACED, DEPLOY_RESUMED, span_pipelining=span_pipelining)
+    finally:
+        # The SET landed in this process's flags too (the coordinator's).
+        COMPUTE_CONFIGS.update({"span_pipelining": None})
     check(out["launches_first_boot"] > 0 and out["launches_recovery_boot"] > 0,
           f"deploy: the replica processes launched merge_path "
           f"{out['launches_first_boot']}/{out['launches_recovery_boot']} times")
@@ -3400,10 +3734,9 @@ def main(argv=None) -> int:
     if args.serve_only:
         q1 = phase_q1(torch, merge_kernel, card, sf=0.1)
         mark("build+q1")
-        serve, _rows = serve_phases(torch, merge_kernel, card, q1,
-                                    span_pipelining=(False, True))
+        serve, _rows = serve_phases(torch, merge_kernel, card, q1)
         mark("serve")
-        phase_deploy(torch, merge_kernel, card, serve)
+        phase_deploy(torch, merge_kernel, card, serve[0])
         mark("deploy")
         emit({"phase": "done", "wall_s": time.perf_counter() - t0, "card": card,
               "phase_s": {name: t - prev for (_, prev), (name, t) in zip(marks, marks[1:])}})
@@ -3423,8 +3756,8 @@ def main(argv=None) -> int:
         lambda ca, cb, out: (min(ca, 8), min(cb, 8)))
     phase_path_modes(torch, merge_kernel, card, "q1_vs_plain_path", q1_config)
     mark("q1")
-    paths["serve"], rows_by_path["serve"] = serve_phases(torch, merge_kernel, card,
-                                                         paths["q1"])
+    (paths["serve"], paths["serve_pipelined"]), rows_by_path["serve"] = serve_phases(
+        torch, merge_kernel, card, paths["q1"])
     mark("serve+kernel_shape+vs_plain")
     paths["deploy"] = phase_deploy(torch, merge_kernel, card, paths["serve"])
     mark("deploy")
@@ -3459,9 +3792,10 @@ def main(argv=None) -> int:
     phase_new_path_modes(torch, merge_kernel, card, "auction_vs_plain_path",
                          _small_auction)
     mark("auction")
+    # 8 churn ticks, not 16: the script's time limit (PERF.md §4).
     paths["pagerank"] = phase_pagerank(
         torch, merge_kernel, card, "pagerank", n_nodes=2000, n_edges=10000,
-        per_tick=64, state_cap=1 << 14, ticks_churn=16, profile_ticks=1,
+        per_tick=64, state_cap=1 << 14, ticks_churn=8, profile_ticks=1,
         small_check=True)
     mark("pagerank")
     # 2 churn ticks, not 8: the script's time limit (PERF.md §6).

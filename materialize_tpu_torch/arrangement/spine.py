@@ -21,6 +21,8 @@ new tensors, so rollback checkpoints hold plain references.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -365,6 +367,24 @@ def compact_level(spine: Spine, level: int):
     out = spine.with_run(hi_i, cons, cons_lanes)
     out = out.with_run(lo_i, lo.replace(count=torch.zeros_like(lo.count)))
     return out, overflow
+
+
+def clone_state_tree(tree):
+    """Copy every tensor of a state tree (tuples and lists of
+    arrangements, spines, batches and tensors) into fresh storage; the
+    tree's other values are shared."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(clone_state_tree(x) for x in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(clone_state_tree(x) for x in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        new = copy.copy(tree)
+        for f in dataclasses.fields(tree):
+            object.__setattr__(new, f.name, clone_state_tree(getattr(tree, f.name)))
+        return new
+    return tree
 
 
 def compact_spine(spine: Spine):

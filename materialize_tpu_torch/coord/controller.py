@@ -22,10 +22,10 @@ answer from the original target. ``peek_routing = 'broadcast'``
 restores the legacy fan-out for comparison.
 
 Subprocess replicas piggyback trace spans, metrics, lag records,
-hydration status and compaction stats on their Frontiers reports; the
-controller ingests them, deduping by pid (``utils/trace.py``,
-``coord/freshness.py``). The reference's compile records have no
-counterpart in eager torch: no port replica ships any.
+hydration status, compaction stats and compile records (the native
+library builds and loads of ``utils/compile_ledger.py``) on their
+Frontiers reports; the controller ingests them, deduping by pid
+(``utils/trace.py``, ``coord/freshness.py``, the compile ledger).
 """
 
 from __future__ import annotations
@@ -705,6 +705,31 @@ class ComputeController:
         )
         self._stop = threading.Event()
         self._absorber.start()
+        # In-process dictionary rebalance (repr/schema.py): the command
+        # history's MIR literals hold string codes; remap them so a
+        # later reconnect replays valid plans. (A separate-process
+        # replica keeps its own dictionary and is not affected.)
+        from ..repr.schema import GLOBAL_DICT
+
+        def _on_rebalance(remap, _self=self):
+            from ..expr.remap import remap_relation
+            import dataclasses as _dc
+
+            with _self._lock:
+                for name, cmd in list(_self._dataflows.items()):
+                    desc = cmd.get("desc")
+                    if desc is None:
+                        continue
+                    new_expr = remap_relation(desc.expr, remap)
+                    if new_expr is not desc.expr:
+                        cmd = dict(cmd)
+                        cmd["desc"] = _dc.replace(
+                            desc, expr=new_expr
+                        )
+                        _self._dataflows[name] = cmd
+
+        self._rebalance_listener = _on_rebalance
+        GLOBAL_DICT.add_rebalance_listener(_on_rebalance)
 
     # -- replica management --------------------------------------------------
     def add_replica(self, name: str, addr: tuple[str, int]) -> None:
@@ -1337,6 +1362,11 @@ class ComputeController:
                         from ..utils.trace import TRACER
 
                         TRACER.ingest(spans, process=replica)
+                    compiles = msg.get("compiles")
+                    if compiles:
+                        from ..utils.compile_ledger import LEDGER
+
+                        LEDGER.ingest(compiles, process=replica)
                     fresh = msg.get("freshness")
                     if fresh:
                         # Lag records merge into the process-global
@@ -1477,6 +1507,9 @@ class ComputeController:
     def shutdown(self) -> None:
         self._stop.set()
         self._peek_batcher._fail_queued("controller shut down")
+        from ..repr.schema import GLOBAL_DICT
+
+        GLOBAL_DICT.remove_rebalance_listener(self._rebalance_listener)
         with self._lock:
             clients = list(self.replicas.values())
         for rc in clients:

@@ -18,7 +18,7 @@ The port's copy plans with the port's own frontend and optimizer
 device it is given (``device=``, default ``"cuda"``). Not ported yet,
 each raising with its ROADMAP item: the introspection relations that
 read JAX compile and program state (``coord/introspection.py``), sinks
-(item 16) and the EXPLAIN ANALYSIS blocks (items 6b and 14).
+(item 16) and the EXPLAIN ANALYSIS blocks (item 14).
 """
 
 from __future__ import annotations
@@ -423,17 +423,29 @@ class Coordinator:
         from ..repr.schema import DictExhausted
 
         with self._lock:
+            before = self._net_durable
             try:
                 plan = plan_statement(sql, self.catalog)
                 return self._sequence(plan, sql=sql)
-            except DictExhausted as e:
-                # Planning ran a string-label gap dry. The reference
-                # rebalances the dictionary and replans; the port's
-                # dictionary cannot rebalance (item 6b: expr/remap.py).
-                raise NotImplementedError(
-                    "dictionary rebalance is not ported (ROADMAP Queue 1 "
-                    f"item 6b: expr/remap.py): {e}"
-                ) from e
+            except DictExhausted:
+                # Planning (or an in-process replica this statement
+                # drove) ran a string-label gap dry. Rebalance the
+                # process dictionary — listeners remap the controller's
+                # command history and queue rebuilds on in-process
+                # replica workers — then replan from SQL text, which
+                # re-encodes literals under the new labeling. Only safe
+                # when the failed attempt left no NET durable state
+                # (DDL compensation retracts its record on failure;
+                # a completed table write cannot be undone -> re-raise).
+                if self._net_durable != before:
+                    raise
+                # Cached transient dataflows hold exprs labeled under
+                # the OLD dictionary: their fingerprints go stale and
+                # must not serve post-rebalance replans.
+                self._flush_transient_peeks()
+                GLOBAL_DICT.rebalance()
+                plan = plan_statement(sql, self.catalog)
+                return self._sequence(plan, sql=sql)
 
     def _sequence(
         self, plan, sql: str, replay: bool = False, record: dict | None = None
@@ -573,7 +585,7 @@ class Coordinator:
                 # blocks) reads subsystems the port lacks.
                 raise NotImplementedError(
                     "EXPLAIN ANALYSIS is not ported (ROADMAP Queue 1 "
-                    "items 6b and 14)"
+                    "item 14)"
                 )
             return ExecuteResult(
                 "text", text=text, columns=("explain",)
@@ -1518,12 +1530,16 @@ class Coordinator:
                 return e
             return _rewrite_children(e, subst)
 
-        # Dispatch under the sequencing lock: the plan is pure
-        # Constants over coordinator snapshots — bounded rows, no source
-        # waits — stepped once on the coordinator's device.
-        df = Dataflow(subst(expr), device=self.device)
-        df.step({})
-        rows = _decode_peek_rows(df.output_batch(), df)
+        from ..utils.lockcheck import allow_dispatch
+
+        with allow_dispatch("introspection constants"):
+            # Sanctioned dispatch under the sequencing lock: the plan is
+            # pure Constants over coordinator snapshots — bounded rows,
+            # no source waits — stepped once on the coordinator's device
+            # (the lockcheck dispatch-under-lock rule would flag it).
+            df = Dataflow(subst(expr), device=self.device)
+            df.step({})
+            rows = _decode_peek_rows(df.output_batch(), df)
         return ExecuteResult(
             "rows",
             rows=_finish(rows, plan.order_by,

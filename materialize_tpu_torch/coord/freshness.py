@@ -12,10 +12,9 @@ counter IS the timestamp), so the honest, measurable lag definition is
 — the maintenance delay the view adds on top of ingest, measured on
 one clock (``time.monotonic``). :func:`lag_ms` is THE definition;
 every lag number in the system (span commits in
-``storage/persist/operators.py``, SUBSCRIBE delivery lag in
-``coord/subscribe.py``) routes through it — one definition, one clock.
-(The reference's pipelined executor, ``render/span_exec.py``, is ROADMAP
-Queue 1 item 6b in the port.)
+``storage/persist/operators.py`` and ``render/span_exec.py``, SUBSCRIBE
+delivery lag in ``coord/subscribe.py``) routes through it — one
+definition, one clock.
 
 The :class:`FreshnessRecorder` mirrors the tracer's shape
 (``utils/trace.py``): a bounded process-global ring, a ship queue for

@@ -12,11 +12,12 @@ ordinary dataflow renderer, so the FULL SQL surface (joins, aggregates,
 ORDER BY) works over them.
 
 In the port every relation is registered with the reference's schema.
-Five read state the port does not have and raise ``NotImplementedError``
+Three read state the port does not have and raise ``NotImplementedError``
 naming their ROADMAP item when selected (:data:`UNPORTED`): the JAX
-donation and sharding verdicts, the XLA compile ledger, the program bank
-and the pipelined executor's span epochs. ``mz_recovery`` has no
-``compile`` scope: no program bank serves compiles in eager torch.
+donation and sharding verdicts and the program bank. ``mz_compile_log``
+lists the port's native library builds and loads
+(``utils/compile_ledger.py``). ``mz_recovery`` has no ``compile`` scope:
+no program bank serves compiles in eager torch.
 """
 
 from __future__ import annotations
@@ -35,10 +36,6 @@ def _enc(s: str) -> int:
 # Relations over reference state with no counterpart in the port yet:
 # name -> where their source waits.
 UNPORTED = {
-    "mz_span_epochs": (
-        "ROADMAP Queue 1 item 6b: render/span_exec.py (the pipelined "
-        "executor's committed span epochs)"
-    ),
     "mz_donation": (
         "ROADMAP Queue 1 item 14: analysis/donation.py (JAX buffer "
         "donation verdicts)"
@@ -46,10 +43,6 @@ UNPORTED = {
     "mz_sharding": (
         "ROADMAP Queue 1 item 8: analysis/shard_prop.py (SPMD sharding "
         "verdicts)"
-    ),
-    "mz_compile_log": (
-        "ROADMAP Queue 1 item 6b: utils/compile_ledger.py (the XLA "
-        "compile ledger)"
     ),
     "mz_program_bank": (
         "ROADMAP Queue 2 item 6: the program bank has no counterpart in "
@@ -190,11 +183,11 @@ INTROSPECTION_SCHEMAS: dict[str, Schema] = {
     ),
     "mz_compile_log": Schema(
         [
-            # Every XLA compile anywhere in the deployment:
-            # program kind, owning dataflow, render fingerprint, tier
-            # vector, wall seconds, and whether the (kind,
-            # fingerprint, tier) key was seen before ("hit" = the
-            # recompile a program bank would have served).
+            # Every native library build or load anywhere in the
+            # deployment: the compiler (nvcc, g++), the library's
+            # source, its source-and-flags fingerprint, the flags, wall
+            # seconds, and "miss" (built) or "hit" (an earlier build
+            # loaded). The column names are the reference's.
             Column("process", S),
             Column("kind", S),
             Column("dataflow", S),
@@ -341,6 +334,35 @@ def snapshot(coord, name: str) -> list[tuple]:
             f"introspection relation {name!r} is not ported "
             f"({UNPORTED[name]})"
         )
+    if name == "mz_span_epochs":
+        # The committed span boundaries: per (dataflow, replica), the
+        # monotone span-epoch counter frontier reports ride on — what
+        # peeks and compaction sequence against.
+        with coord.controller._lock:
+            snap = {
+                df: dict(per)
+                for df, per in coord.controller.span_epochs.items()
+            }
+        return [
+            (_enc(df), _enc(rep), e)
+            for df, per in sorted(snap.items())
+            for rep, e in sorted(per.items())
+        ]
+    if name == "mz_compile_log":
+        from ..utils.compile_ledger import LEDGER
+
+        return [
+            (
+                _enc(r.process),
+                _enc(r.kind),
+                _enc(r.name),
+                _enc(r.fingerprint),
+                _enc(r.tier),
+                float(r.seconds),
+                _enc(r.cache),
+            )
+            for r in LEDGER.records()
+        ]
     if name == "mz_objects":
         rows = []
         for i, it in enumerate(sorted(

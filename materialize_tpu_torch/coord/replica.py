@@ -21,12 +21,14 @@ stays on the worker thread (``_worker_loop``); peek responses cross the
 protocol as Python rows, never as tensors. A subprocess replica ships
 its observability on its Frontiers reports (``ship_observability``):
 trace spans, /metrics families (the merge-path kernel's launch count and
-the replica's peak device bytes among them), lag records and compaction
-stats; the reference's compile records have no counterpart in eager
-torch and none ship. Not ported yet, each raising with its ROADMAP
-item: SPMD workers (item 8), async compile and hot swap (Queue 2 item 6:
-the program bank has no counterpart in eager torch), and the
-dictionary-rebalance rebuild (item 6b: expr/remap.py).
+the replica's peak device bytes among them), lag records, compaction
+stats and compile records (its native library builds and loads,
+``utils/compile_ledger.py``). A string-dictionary label gap run dry
+rebalances the dictionary, remaps every installed description's codes
+(``expr/remap.py``) and rebuilds every dataflow from durable state. Not
+ported yet, each raising with its ROADMAP item: SPMD workers (item 8),
+async compile and hot swap (Queue 2 item 6: the program bank has no
+counterpart in eager torch).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import time as _time
 
 from .. import resolve_device
 from ..render.dataflow import Dataflow
+from ..repr.schema import DictExhausted
 from ..storage.persist import (
     IndexSource,
     FileBlob,
@@ -130,7 +133,8 @@ class ReplicaWorker:
         # rebuilds == 0 — reconciliation as a counted invariant.
         self._recovery: dict[str, dict] = {}
         self._recovery_dirty: set = set()
-        # Observability piggybacks: completed trace spans queue for the
+        # Observability piggybacks: completed trace spans and compile-
+        # ledger records (native library builds and loads) queue for the
         # Frontiers report; /metrics snapshots ship on a throttle, only
         # when changed. Shipping is enabled only for SUBPROCESS replicas
         # (ship_observability, set by the `-m ...coord.replica` entry
@@ -140,9 +144,11 @@ class ReplicaWorker:
         # over loopback for the controller's pid-dedupe to drop (and
         # double-report metrics, which carry no pid).
         if ship_observability:
+            from ..utils.compile_ledger import LEDGER as _LEDGER
             from ..utils.trace import TRACER as _TRACER
             from .freshness import FRESHNESS as _FRESHNESS
 
+            _LEDGER.enable_ship()
             _TRACER.enable_ship()
             _FRESHNESS.enable_ship()
         self._ship_observability = bool(ship_observability)
@@ -156,6 +162,23 @@ class ReplicaWorker:
         self._metrics_last_ship = 0.0
         self._metrics_last: list | None = None
         self._stop = threading.Event()
+        # A rebalance initiated ELSEWHERE in this process (e.g. the
+        # coordinator replanning after a planning-time exhaustion)
+        # invalidates our device-resident codes too: queue the remaps
+        # and rebuild from the worker loop (single-threaded owner).
+        self._pending_remaps: list[dict] = []
+        from ..utils.locks import tracked_lock
+
+        self._remap_lock = tracked_lock("replica.remap")
+
+        def _on_rebalance(remap, _self=self):
+            with _self._remap_lock:
+                _self._pending_remaps.append(remap)
+
+        from ..repr.schema import GLOBAL_DICT
+
+        self._rebalance_listener = _on_rebalance
+        GLOBAL_DICT.add_rebalance_listener(_on_rebalance)
 
     # -- serving -------------------------------------------------------------
     def serve(self, listen_sock: socket.socket) -> None:
@@ -239,6 +262,9 @@ class ReplicaWorker:
 
     def stop(self) -> None:
         self._stop.set()
+        from ..repr.schema import GLOBAL_DICT
+
+        GLOBAL_DICT.remove_rebalance_listener(self._rebalance_listener)
 
     def _serve_session(self, conn: socket.socket, nonce: int) -> None:
         cmd_q: queue.Queue = queue.Queue()
@@ -280,6 +306,8 @@ class ReplicaWorker:
                     worked = True
             except queue.Empty:
                 pass
+            if self._drain_pending_remaps(conn):
+                worked = True
             from ..utils.dyncfg import COMPUTE_CONFIGS, SPAN_PIPELINING
 
             pipelined = SPAN_PIPELINING(COMPUTE_CONFIGS)
@@ -307,9 +335,13 @@ class ReplicaWorker:
                     # (fresh dataflow state; hydrate resumes exactly).
                     self._rebuild_cascade(name)
                     worked = True
-                except Exception as e:
-                    # DictExhausted lands here too: the port's dictionary
-                    # cannot rebalance (item 6b), so the dataflow halts.  # halt!-analog, scoped to the df
+                except DictExhausted:
+                    # A step's string-table build ran a label gap dry:
+                    # rebalance and rebuild everything (scoped recovery,
+                    # not a halt — all state is durable or rebuildable).
+                    self._recover_dict_exhaustion(conn)
+                    worked = True
+                except Exception as e:  # halt!-analog, scoped to the df
                     self.dataflows.pop(name, None)
                     inst.view.expire()
                     # A runtime failure is a freshness stall, not just
@@ -319,7 +351,14 @@ class ReplicaWorker:
                         conn, f"dataflow {name!r} failed: {e!r}"
                     )
                     worked = True
-            worked |= self._serve_peeks(conn)
+            try:
+                worked |= self._serve_peeks(conn)
+            except DictExhausted:
+                # A peek's string work can run a gap dry too: same
+                # recovery as the step path. The peek stays pending and
+                # is served after the rebuild.
+                self._recover_dict_exhaustion(conn)
+                worked = True
             worked |= self._report_frontiers(conn)
             if not worked:
                 _time.sleep(0.002)  # park
@@ -437,14 +476,91 @@ class ReplicaWorker:
                 )
                 raise
 
+    def _drain_pending_remaps(self, conn) -> bool:
+        """Apply rebalances initiated elsewhere in this process: remap
+        installed descs through every queued remap (in order) and
+        rebuild all dataflows once."""
+        with self._remap_lock:
+            remaps, self._pending_remaps = self._pending_remaps, []
+        if not remaps:
+            return False
+        for remap in remaps:
+            self._remap_descs(remap)
+        self._rebuild_all(conn, "external rebalance")
+        return True
+
     def _recover_dict_exhaustion(self, conn) -> dict:
-        """The reference rebalances the string dictionary, remaps the
-        codes in every installed description and rebuilds every
-        dataflow. The port's dictionary cannot rebalance."""
-        raise NotImplementedError(
-            "dictionary rebalance and rebuild are not ported "
-            "(ROADMAP Queue 1 item 6b: expr/remap.py)"
+        """String-dictionary gap exhaustion recovery (repr/schema.py
+        DictExhausted): rebalance the label space, remap the string
+        codes embedded in every installed description's MIR, and rebuild
+        ALL dataflows in install order (publishers precede subscribers
+        in command history, so index imports resolve). Device state is
+        rebuilt from durable shards, which store actual strings
+        (storage/persist/codec.py) — codes re-enter via decode under the
+        new labeling. In-process rebalance listeners (controller command
+        history, sibling workers' descs) fire inside rebalance()."""
+        from ..repr.schema import GLOBAL_DICT
+
+        remap = GLOBAL_DICT.rebalance()
+        # Our rebalance's remap (and any earlier/concurrent ones) sit in
+        # the listener queue in CHRONOLOGICAL order; applying them FIFO
+        # composes correctly no matter how they interleaved. Drain up to
+        # and including our own.
+        with self._remap_lock:
+            queued, self._pending_remaps = self._pending_remaps, []
+        applied_own = False
+        for r in queued:
+            self._remap_descs(r)
+            if r is remap:
+                applied_own = True
+        if not applied_own:
+            self._remap_descs(remap)
+        self._rebuild_all(conn, "dictionary rebalance")
+        return remap
+
+    def _rebuild_all(self, conn, why: str) -> None:
+        """Expire + rebuild every installed dataflow from its (already
+        remapped) description, tolerating per-dataflow failures: one
+        broken rebuild must not leave the rest expired. Failed ones are
+        dropped (their stale-marker fingerprint makes reconnect
+        reconciliation reinstall them from history)."""
+        from ..repr.schema import GLOBAL_DICT
+
+        for name, inst in list(self.dataflows.items()):
+            inst.view.expire()
+        failed = []
+        for name, inst in list(self.dataflows.items()):
+            try:
+                self.dataflows[name] = self._build(inst.desc)
+                self._count_recovery(name, "rebuilds")
+            except Exception as e:
+                failed.append(name)
+                self.dataflows.pop(name, None)
+                self._send_status(
+                    conn,
+                    f"rebuild of {name!r} after {why} failed: {e!r}",
+                )
+        self._send_status(
+            conn,
+            f"dictionary epoch {GLOBAL_DICT.epoch}: "
+            f"{len(self.dataflows)} dataflows rebuilt after {why}"
+            + (f"; {len(failed)} failed: {failed}" if failed else ""),
         )
+
+    def _remap_descs(self, remap: dict) -> None:
+        import dataclasses as _dc
+
+        from ..expr.remap import remap_relation
+
+        for name, inst in list(self.dataflows.items()):
+            new_expr = remap_relation(inst.desc.expr, remap)
+            if new_expr is not inst.desc.expr:
+                inst.desc = _dc.replace(inst.desc, expr=new_expr)
+                # Never-matching marker until the REBUILD succeeds: a
+                # remapped-but-not-rebuilt dataflow must not pass
+                # reconnect reconciliation (its device state still
+                # holds old-labeling codes).
+                inst.fingerprint = b"\x00stale-remap"
 
     def _dependents_of(self, name: str) -> list[str]:
         """Installed dataflows that index-import `name`, transitively
@@ -630,6 +746,65 @@ class ReplicaWorker:
             else:
                 self.dataflows[desc.name] = self._build(desc)
                 self._count_recovery(desc.name, "installs")
+        except DictExhausted:
+            # Dense string insertions (e.g. a generative function's
+            # table over a polluted dictionary) ran a label gap dry.
+            # Rebalance + rebuild everything, then retry the
+            # install with remapped codes. Each rebalance evens ALL
+            # current strings, so repeated attempts make monotone
+            # progress; the bound guards a pathological treadmill.
+            import dataclasses as _dc
+
+            from ..expr.remap import remap_relation
+
+            desc2, err = desc, None
+            for _attempt in range(4):
+                try:
+                    # A REPLACEMENT keeps the old dataflow in place
+                    # through the rebuild-all (its subscribers must
+                    # resolve their index imports); only a fresh
+                    # install attempt is dropped first.
+                    if existing is None:
+                        self.dataflows.pop(desc.name, None)
+                    remap = self._recover_dict_exhaustion(conn)
+                    # The incoming desc was planned pre-rebalance:
+                    # remap its codes too (the recovery pass only
+                    # covers already-installed descs).
+                    new_expr = remap_relation(desc2.expr, remap)
+                    if new_expr is not desc2.expr:
+                        desc2 = _dc.replace(desc2, expr=new_expr)
+                    if existing is not None:
+                        self._rebuild_cascade(
+                            desc2.name, new_desc=desc2
+                        )
+                    else:
+                        self.dataflows[desc2.name] = self._build(
+                            desc2
+                        )
+                        self._count_recovery(
+                            desc2.name, "installs"
+                        )
+                    err = None
+                    break
+                except DictExhausted as e:
+                    err = (
+                        f"CreateDataflow {desc.name!r} failed "
+                        f"after dictionary rebalance: {e!r}"
+                    )
+                except Exception as e:
+                    err = (
+                        f"CreateDataflow {desc.name!r} failed "
+                        f"after dictionary rebalance: {e!r}"
+                    )
+                    break
+            if err is None:
+                self._send_installed(conn, desc.name, None)
+            else:
+                if existing is None:
+                    self.dataflows.pop(desc.name, None)
+                self._set_hydration(desc.name, "stalled", error=err)
+                self._send_status(conn, err)
+                self._send_installed(conn, desc.name, err)
         except Exception as e:
             # A bad plan must not kill the replica: report and skip
             # (scoped halt!; the reference would crash-loop the whole
@@ -935,11 +1110,13 @@ class ReplicaWorker:
         # present (empty in steady state / tracing off); the /metrics
         # snapshot ships on the metrics_report_ms throttle and only when
         # some value changed. Subprocess replicas only (see __init__).
-        spans, metrics = [], None
+        spans, compiles, metrics = [], [], None
         if self._ship_observability:
+            from ..utils.compile_ledger import LEDGER
             from ..utils.trace import TRACER
 
             spans = TRACER.drain_shippable()
+            compiles = LEDGER.drain_shippable()
             metrics = self._metrics_snapshot()
         # Freshness piggyback: hydration status transitions ship on
         # EVERY report path (dirty-set — the controller board is keyed
@@ -972,13 +1149,14 @@ class ReplicaWorker:
             from ..storage.persist.compactor import STATS as _CSTATS
 
             compactions = _CSTATS.take_dirty()
-        if (changed or recovery or spans or metrics or freshness
-                or compactions):
+        if (changed or recovery or spans or compiles or metrics
+                or freshness or compactions):
             ctp.send_msg(
                 conn,
                 ctp.frontiers(
                     changed, records, epochs, self.replica_id,
-                    recovery=recovery, spans=spans, metrics=metrics,
+                    recovery=recovery, spans=spans, compiles=compiles,
+                    metrics=metrics,
                     arrangement_bytes=abytes, freshness=freshness,
                     compactions=compactions,
                 ),
@@ -1026,8 +1204,9 @@ def _sample_device_metrics(device) -> None:
     """Copy this process's device facts into its registry: the
     merge-path kernel's launch count (``ops/merge_kernel.LAUNCHES``,
     which only its wrapper bumps, at a launch) as a counter, the kernel
-    library's load seconds, and the peak bytes torch's allocator held on
-    the replica's card (0 on the CPU)."""
+    library's load seconds, the peak bytes torch's allocator held on
+    the replica's card (0 on the CPU), and the span census
+    (``storage/persist/operators.SPANS``)."""
     import torch
 
     from ..ops import merge_kernel
@@ -1053,6 +1232,20 @@ def _sample_device_metrics(device) -> None:
         "gauge", "mz_device_peak_bytes",
         "peak device bytes torch's allocator held in this process",
     ).set(float(peak))
+    from ..storage.persist.operators import SPANS
+
+    for key, name, help_ in (
+        ("committed", "mz_span_commits",
+         "spans the maintained views of this process committed"),
+        ("boundary_readbacks", "mz_span_boundary_readbacks",
+         "flags readbacks taken at those spans' boundaries"),
+        ("overflows", "mz_span_overflows",
+         "those spans whose flags showed an overflow (rolled back, grown "
+         "and replayed)"),
+        ("max_inflight", "mz_spans_in_flight_max",
+         "most spans one view held dispatched past its committed frontier"),
+    ):
+        REGISTRY.get_or_create("gauge", name, help_).set(float(SPANS[key]))
 
 def serve_forever(
     port: int,

@@ -239,7 +239,7 @@ class Join(RelationExpr):
     """Multiway equi-join. ``equivalences``: classes of scalar
     expressions over the concatenated columns of all inputs, asserted
     equal. ``implementation``: "auto" | "linear" | "delta" (auto: delta
-    for at least ``plan.decisions.DELTA_JOIN_MIN_INPUTS`` inputs)."""
+    for at least ``delta_join_min_inputs`` (dyncfg) inputs)."""
 
     inputs: tuple
     equivalences: tuple  # tuple of tuples of ScalarExpr

@@ -14,8 +14,9 @@ Where the reference passes the tables into its traced step as inputs
 dictionary's current version when it evaluates the call. So a nested
 call (``upper(trim(x))``) finds the strings the inner call added, and
 the reference's pass count (``collect_keys``'s depth) is not needed.
-The port's dictionary cannot rebalance: a gap that runs out raises
-``DictExhausted`` (ROADMAP Queue 1 item 6b).
+A gap that runs out raises ``DictExhausted``; the replica then
+rebalances the dictionary and rebuilds its dataflows (tables are kept
+per dictionary epoch, so none built on the old labelling is reused).
 
 Strings are coded in ``GLOBAL_DICT`` unless ``dictionary_scope(d)`` says
 the data (and the plan's string literals, ``plan_statement(...,

@@ -15,10 +15,10 @@ the plain versions the tests hold the library against.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -32,14 +32,17 @@ _lib = None
 _LOCK = threading.Lock()
 
 
-def _compile() -> Path:
-    """Compile (or reuse) the shared library; returns its path. Raises
+def _compile() -> tuple:
+    """Compile (or reuse) the shared library; returns its path, whether
+    it was built now and the build's fingerprint. Raises
     ``RuntimeError`` when g++ fails or is missing."""
+    from ..utils.compile_ledger import source_fingerprint
+
     src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
+    digest = source_fingerprint(src, CXX_FLAGS)
     so_path = BUILD_DIR / f"libmtnative-{digest}.so"
     if so_path.exists():
-        return so_path
+        return so_path, False, digest
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # Per-process tmp name: concurrent first builds (test workers) must
     # not interleave writes into one file.
@@ -57,7 +60,7 @@ def _compile() -> Path:
             f"{proc.stdout}{proc.stderr}"
         )
     os.replace(tmp, so_path)
-    return so_path
+    return so_path, True, digest
 
 
 def lib():
@@ -67,7 +70,9 @@ def lib():
         return _lib
     with _LOCK:
         if _lib is None:
-            so = ctypes.CDLL(str(_compile()))
+            t0 = time.perf_counter()
+            path, built, digest = _compile()
+            so = ctypes.CDLL(str(path))
             so.mtn_crc32c.restype = ctypes.c_uint32
             so.mtn_crc32c.argtypes = [ctypes.c_char_p, ctypes.c_size_t]
             so.mtn_vbyte_encode_i64.restype = ctypes.c_int64
@@ -88,6 +93,11 @@ def lib():
                 ctypes.c_size_t, ctypes.c_void_p, ctypes.c_void_p,
             ]
             _lib = so
+            from ..utils.compile_ledger import LEDGER
+
+            LEDGER.record("g++", SOURCE.name, digest, " ".join(CXX_FLAGS),
+                          time.perf_counter() - t0,
+                          cache="miss" if built else "hit")
     return _lib
 
 

@@ -17,7 +17,6 @@ fallback from here to them.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
 import subprocess
@@ -62,13 +61,17 @@ def _nvcc() -> str:
 def _compile():
     """Compile ``SOURCE`` with nvcc into a shared library under
     ``BUILD_DIR`` (named by a hash of the source and flags; an existing
-    one is reused). Returns (path, compiler log, seconds)."""
+    one is reused). Returns (path, compiler log, seconds, whether it was
+    built now, the build's fingerprint)."""
+    from ..utils.compile_ledger import source_fingerprint
+
     src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = source_fingerprint(src, NVCC_FLAGS)
     lib_path = BUILD_DIR / f"lib{SOURCE.stem}-{digest}.so"
     t0 = time.perf_counter()
     log = ""
-    if not lib_path.exists():
+    built = not lib_path.exists()
+    if built:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_suffix(f".so.tmp{os.getpid()}")
         proc = subprocess.run(
@@ -79,7 +82,7 @@ def _compile():
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
         os.replace(tmp, lib_path)
-    return lib_path, log, time.perf_counter() - t0
+    return lib_path, log, time.perf_counter() - t0, built, digest
 
 
 def build():
@@ -87,12 +90,12 @@ def build():
     entry point ``merge_path`` with its argument types. Records the
     build's seconds, the seconds to build (if needed) and load the
     library, and the compiler's ``-Xptxas -v`` report in
-    ``BUILD_INFO``."""
+    ``BUILD_INFO``, and the build or load in the compile ledger."""
     global _FN
     with _LOCK:
         if _FN is None:
             t0 = time.perf_counter()
-            path, log, seconds = _compile()
+            path, log, seconds, built, digest = _compile()
             fn = ctypes.CDLL(str(path)).merge_path
             fn.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -102,8 +105,13 @@ def build():
             ]
             fn.restype = ctypes.c_int
             _FN = fn
+            load_seconds = time.perf_counter() - t0
             BUILD_INFO.update(path=str(path), seconds=seconds, log=log,
-                              load_seconds=time.perf_counter() - t0)
+                              load_seconds=load_seconds)
+            from ..utils.compile_ledger import LEDGER
+
+            LEDGER.record("nvcc", SOURCE.name, digest, " ".join(NVCC_FLAGS),
+                          load_seconds, cache="miss" if built else "hit")
         return _FN
 
 

@@ -1,10 +1,12 @@
-"""The plan decisions the port's slices need (the port's copy of part of
-``materialize_tpu/plan/decisions.py`` and of ``plan/lir.py:ReducePlan``):
-the capacity quantization menu, the ingest modes of the output index and
-of operator-state spines, the Reduce, TopK and Threshold plans, the join
-implementation and the linear join's stage keys. Capacities must match
-the reference's tier for tier, so overflow, rollback and replay land on
-the same ticks in both packages."""
+"""The MIR→LIR plan decisions, shared by EXPLAIN and the render layer
+(the port's copy of ``materialize_tpu/plan/decisions.py``).
+
+Single source of truth: render/dataflow.py and ops/reduce.py import these
+functions, so the printed physical plan (``EXPLAIN PHYSICAL PLAN``,
+plan/lowering.py) is exactly what executes. Capacities must match the
+reference's tier for tier, so overflow, rollback and replay land on the
+same ticks in both packages.
+"""
 
 from __future__ import annotations
 
@@ -12,15 +14,24 @@ from dataclasses import dataclass
 
 from ..expr import relation as mir
 from ..expr.scalar import ColumnRef
+from .lir import (
+    JoinPlan,
+    LinearStagePlan,
+    ReducePlan,
+    ThresholdPlan,
+    TopKPlan,
+)
 
-# Append-slot ring length (tracks the default compaction cadence).
+# Append-slot ring length: must cover every insert between level-0 folds
+# (render/dataflow.py _check_slot_ring), so it tracks the default
+# compaction cadence (Dataflow._compact_every).
 INGEST_RING_SLOTS = 8
 
+# Capacity-tier quantization: every capacity snaps to this pow2 menu
+# (the reference keys its program bank on it; the port keeps the same
+# tiers so overflows land on the same ticks). The floor matches
+# repr/batch.capacity_tier's default minimum.
 QUANT_MENU_FLOOR = 256
-
-# A join of at least this many inputs renders as a delta join (the
-# reference's ``delta_join_min_inputs`` dyncfg default).
-DELTA_JOIN_MIN_INPUTS = 3
 
 
 def quantize_cap(n: int, minimum: int = QUANT_MENU_FLOOR) -> int:
@@ -31,31 +42,79 @@ def quantize_cap(n: int, minimum: int = QUANT_MENU_FLOOR) -> int:
     return cap
 
 
-def ingest_mode(state_capacity: int, tail_capacity: int = 1024) -> str:
-    """Spine hot-path ingest: 'append_slot' (each delta lands in a slot,
-    O(delta) per step) once the state tier is at least 8x the ingest
-    tier, else 'merge' (every step merges into run 0). The reference's
-    'auto' rule; its dyncfg override is not carried over."""
-    return "append_slot" if state_capacity >= 8 * tail_capacity else "merge"
+def quantization_menu(
+    floor: int = QUANT_MENU_FLOOR, ceiling: int = 1 << 24
+) -> tuple:
+    """The full rung menu (doc/EXPLAIN surface)."""
+    out, cap = [], max(int(floor), 1)
+    while cap <= ceiling:
+        out.append(cap)
+        cap *= 2
+    return tuple(out)
 
 
-def state_ingest_mode(state_capacity: int, tail_capacity: int = 1024) -> str:
-    """Ingest for operator-state spines (the delta join's arrangements):
-    the same 'auto' rule as the output index, on one device."""
-    return ingest_mode(state_capacity, tail_capacity)
+def _spmd_gate(mode: str, spmd: bool, spmd_safe) -> str:
+    """The SPMD slot gate: under SPMD, append-slot ingest is enabled
+    only where a shard-spec prover has verdicted the per-device slot
+    cursor shard-local (``spmd_safe`` True); an unproven (None) or
+    refuted (False) verdict resolves to merge. Single-device dataflows
+    (spmd=False), the only kind the port has (ROADMAP Queue 1 item 8),
+    are unaffected."""
+    if spmd and mode == "append_slot" and spmd_safe is not True:
+        return "merge"
+    return mode
 
 
-@dataclass(frozen=True)
-class ReducePlan:
-    """How a Reduce executes. ``kind``: Distinct (no aggregates),
-    Accumulable (every aggregate folds into per-group accumulators),
-    Hierarchical, Basic or Collation (a mix). The positions say which
-    aggregates take which path."""
+def ingest_mode(
+    state_capacity: int,
+    tail_capacity: int = 1024,
+    spmd: bool = False,
+    spmd_safe=None,
+) -> str:
+    """Spine hot-path ingest decision. 'append_slot': each arranged
+    delta lands in a run-0 append slot — O(delta) per step, with the
+    level-0 fold absorbing the ring on its amortized cadence. 'merge':
+    every step merges into run 0 — O(run0) per step, fine while run 0
+    is delta-sized. The ``arrangement_ingest_mode`` dyncfg forces one;
+    its 'auto' takes append-slot once the state tier is at least 8x the
+    ingest tier."""
+    from ..utils.dyncfg import (
+        ARRANGEMENT_INGEST_MODE,
+        COMPUTE_CONFIGS,
+    )
 
-    kind: str
-    accumulable: tuple = ()
-    hierarchical: tuple = ()
-    basic: tuple = ()
+    mode = ARRANGEMENT_INGEST_MODE(COMPUTE_CONFIGS)
+    if mode == "auto":
+        mode = (
+            "append_slot"
+            if state_capacity >= 8 * tail_capacity
+            else "merge"
+        )
+    return _spmd_gate(mode, spmd, spmd_safe)
+
+
+def state_ingest_mode(
+    state_capacity: int,
+    tail_capacity: int = 1024,
+    spmd: bool = False,
+    spmd_safe=None,
+) -> str:
+    """Ingest decision for OPERATOR-STATE spines (the delta join's
+    arrangements): the same dyncfg and the same 'auto' rule as the
+    output index (ingest_mode)."""
+    from ..utils.dyncfg import (
+        ARRANGEMENT_INGEST_MODE,
+        COMPUTE_CONFIGS,
+    )
+
+    mode = ARRANGEMENT_INGEST_MODE(COMPUTE_CONFIGS)
+    if mode == "auto":
+        mode = (
+            "append_slot"
+            if state_capacity >= 8 * tail_capacity
+            else "merge"
+        )
+    return _spmd_gate(mode, spmd, spmd_safe)
 
 
 def plan_reduce(aggregates) -> ReducePlan:
@@ -79,45 +138,17 @@ def plan_reduce(aggregates) -> ReducePlan:
 
 def join_implementation(expr: mir.Join) -> str:
     """Resolve ``implementation='auto'``: delta for at least
-    ``DELTA_JOIN_MIN_INPUTS`` inputs, linear otherwise."""
+    ``delta_join_min_inputs`` (dyncfg) inputs, linear otherwise."""
     impl = expr.implementation
     if impl == "auto":
-        impl = "delta" if len(expr.inputs) >= DELTA_JOIN_MIN_INPUTS else "linear"
+        from ..utils.dyncfg import COMPUTE_CONFIGS, DELTA_JOIN_MIN_INPUTS
+
+        impl = (
+            "delta"
+            if len(expr.inputs) >= DELTA_JOIN_MIN_INPUTS(COMPUTE_CONFIGS)
+            else "linear"
+        )
     return impl
-
-
-@dataclass(frozen=True)
-class TopKPlan:
-    """How a TopK executes. One sorted arrangement serves every kind;
-    ``kind`` records whether the input is monotonic (MonotonicTop1,
-    MonotonicTopK) or may retract (Basic)."""
-
-    kind: str
-    group_key: tuple = ()
-    limit: int | None = None
-    offset: int = 0
-
-
-def plan_topk(expr: mir.TopK, input_monotonic: bool) -> TopKPlan:
-    if input_monotonic and expr.limit == 1 and not expr.offset:
-        kind = "MonotonicTop1"
-    elif input_monotonic:
-        kind = "MonotonicTopK"
-    else:
-        kind = "Basic"
-    return TopKPlan(kind, tuple(expr.group_key), expr.limit, expr.offset)
-
-
-@dataclass(frozen=True)
-class ThresholdPlan:
-    """How a Threshold executes: through an arrangement on all columns
-    (the one kind, "Basic")."""
-
-    kind: str = "Basic"
-
-
-def plan_threshold(expr: mir.Threshold) -> ThresholdPlan:
-    return ThresholdPlan()
 
 
 def join_stage_keys(expr: mir.Join, offsets: list, stage: int):
@@ -147,6 +178,46 @@ def join_stage_keys(expr: mir.Join, offsets: list, stage: int):
                     ">2-member equivalence classes need residual filters"
                 )
     return tuple(left_key), tuple(right_key), consumed
+
+
+def plan_join(expr: mir.Join) -> JoinPlan:
+    impl = join_implementation(expr)
+    if impl == "delta":
+        from ..ops.delta_join import _plan_pipelines
+
+        arities = [i.schema().arity for i in expr.inputs]
+        pipelines, arr_specs = _plan_pipelines(
+            len(expr.inputs), arities, expr.equivalences
+        )
+        return JoinPlan(
+            "Delta",
+            n_pipelines=len(pipelines),
+            arrangements=tuple((j, tuple(k)) for j, k in arr_specs),
+        )
+    offsets = [0]
+    for i in expr.inputs:
+        offsets.append(offsets[-1] + i.schema().arity)
+    stages = []
+    for s in range(1, len(expr.inputs)):
+        lk, rk, _ = join_stage_keys(expr, offsets, s)
+        stages.append(LinearStagePlan(lk, rk))
+    return JoinPlan("Linear", stages=tuple(stages))
+
+
+def plan_topk(expr: mir.TopK, input_monotonic: bool) -> TopKPlan:
+    if input_monotonic and expr.limit == 1 and not expr.offset:
+        kind = "MonotonicTop1"
+    elif input_monotonic:
+        kind = "MonotonicTopK"
+    else:
+        kind = "Basic"
+    return TopKPlan(
+        kind, tuple(expr.group_key), expr.limit, expr.offset
+    )
+
+
+def plan_threshold(expr: mir.Threshold) -> ThresholdPlan:
+    return ThresholdPlan()
 
 
 # -- the peek fast path (coord/peek.py serves what this recognizes) ---------
@@ -305,3 +376,21 @@ def peek_fast_path(
             projection,
         )
     return PeekPlan("scan", node.name, (), projection)
+
+
+# -- physical monotonicity (plan/interpret/physically_monotonic.rs) ----------
+
+
+def monotonic(expr: mir.RelationExpr, source_monotonic=frozenset()):
+    """Can this collection ever retract? Delegates to the monotonicity
+    lattice (analysis/monotonic.py), which threads facts through
+    Let/LetRec bindings via an environment. Sources are append-only iff
+    named in `source_monotonic`; every source is assumed non-negative
+    either way."""
+    from ..analysis.monotonic import SOURCE_DEFAULT, TOP, analyze
+
+    return analyze(
+        expr,
+        source_facts={n: TOP for n in source_monotonic},
+        default_source=SOURCE_DEFAULT,
+    ).append_only

@@ -55,6 +55,7 @@ from .. import resolve_device
 from ..arrangement.spine import (
     Arrangement,
     Spine,
+    clone_state_tree,
     compact_depth,
     compact_level,
     insert,
@@ -82,11 +83,19 @@ from ..plan.decisions import (
     quantize_cap,
     state_ingest_mode,
 )
+from ..plan.lir import JoinPlan, LinearStagePlan
 from ..repr.batch import Batch, capacity_tier
 from ..repr.schema import DIFF_DTYPE, ERR_SCHEMA
 
 # Error deltas are shrunk to this tier before the err arrangement insert.
 ERR_DELTA_CAP = 2048
+
+
+def _donation_supported() -> bool:
+    """Whether a span's carry can be donated to the next span. Eager
+    torch has no donation: every step returns fresh state tensors (the
+    reference answers false on its CPU backend too)."""
+    return False
 
 
 class _RenderContext:
@@ -119,6 +128,10 @@ class _RenderContext:
         # The dataflow's first processed time (its as_of), where a
         # Constant emits its rows; set by the first dispatch.
         self.first_time: int | None = None
+        # The physical plan each Reduce and Join rendered, read from the
+        # operators built (op, plan text as EXPLAIN PHYSICAL PLAN prints
+        # it): the runtime side of plan/lowering.py's LIR.
+        self.lir: list = []
 
     def new_slot(self, init: tuple) -> int:
         self.slots.append(init)
@@ -256,6 +269,7 @@ def _build(expr: mir.RelationExpr, ctx: _RenderContext):
 
     if isinstance(expr, mir.Reduce):
         op = ReduceOp(expr.input.schema(), expr.group_key, expr.aggregates)
+        ctx.lir.append(("Reduce", f"{op.plan.describe()} group={list(expr.group_key)}"))
         slot = ctx.new_slot(op.init_state(ctx.state_cap, ctx.device))
         inner = _build(expr.input, ctx)
 
@@ -390,6 +404,9 @@ def _build_join_delta(expr: mir.Join, ctx: _RenderContext):
     slot and the join site are taken before the inputs are built, as
     the reference takes them."""
     op = DeltaJoinOp(tuple(i.schema() for i in expr.inputs), expr.equivalences)
+    ctx.lir.append(("Join", JoinPlan(
+        "Delta", n_pipelines=len(op.pipelines),
+        arrangements=tuple((j, tuple(k)) for j, k in op.arr_specs)).describe()))
     slot = ctx.new_slot(op.init_state(ctx.state_cap, ingest_slots=ctx.ingest_slots,
                                       device=ctx.device))
     jsite = ctx.new_join_site()
@@ -433,6 +450,8 @@ def _build_join_linear(expr: mir.Join, ctx: _RenderContext):
                                           device=ctx.device))
         stages.append((op, slot, ctx.new_join_site()))
         acc_schema = op.out_schema
+    ctx.lir.append(("Join", JoinPlan("Linear", stages=tuple(
+        LinearStagePlan(op.left_key, op.right_key) for op, _s, _j in stages)).describe()))
     if len(consumed_all) != len(expr.equivalences):
         # An equality inside one input would go unenforced.
         raise NotImplementedError(
@@ -665,6 +684,10 @@ class Dataflow:
         self._defer_log: list = []
         self._defer_flags = None
         self._defer_cflags = None
+        # The pipelined span executor (render/span_exec.py) or a
+        # maintained view's span pipeline, when one is attached: state
+        # reads sequence through its barrier (``span_barrier``).
+        self._span_exec = None
 
     # -- schedule -----------------------------------------------------------
     @staticmethod
@@ -944,6 +967,25 @@ class Dataflow:
         return (list(self.states), self.output, self.err_output, self._time,
                 self._compact_tick)
 
+    def _clone_checkpoint(self):
+        """A rollback checkpoint whose tensors are fresh copies. The
+        reference needs it before a donated span, whose carry buffers
+        die at dispatch. The port's steps return fresh state tensors, so
+        a reference checkpoint (``_checkpoint``) is already safe; this
+        one is taken when donation is requested, and is what a carry
+        updated in place would need."""
+        states, out, err = clone_state_tree(
+            (tuple(self.states), self.output, self.err_output)
+        )
+        return (list(states), out, err, self._time, self._compact_tick)
+
+    def _window_checkpoint(self, donate: bool) -> None:
+        """Open a defer window's checkpoint before its first dispatch."""
+        if self._defer_ck is None:
+            self._defer_ck = (
+                self._clone_checkpoint() if donate else self._checkpoint()
+            )
+
     def _restore(self, ck) -> None:
         states, self.output, self.err_output, self._time, self._compact_tick = ck
         self.states = list(states)
@@ -953,14 +995,21 @@ class Dataflow:
         """Feed one micro-batch per source; returns the output delta."""
         return self.run_steps([inputs])[-1]
 
-    def run_steps(self, inputs_list: list, defer_check: bool = False) -> list:
+    def run_steps(self, inputs_list: list, defer_check: bool = False,
+                  donate: bool = False) -> list:
         """Feed several micro-batches. Synchronous by default: one flags
         readback at the end, and on overflow rollback, growth and replay.
         With ``defer_check`` even that readback waits for
-        ``check_flags``; the returned deltas are provisional until then."""
+        ``check_flags``; the returned deltas are provisional until then.
+        ``donate`` asks for a cloned window checkpoint (see
+        ``render/span_exec.py``: nothing is donated in eager torch)."""
+        from ..utils.lockcheck import device_dispatch
+
+        self.span_barrier()
+        device_dispatch("run_steps")
         self._check_slot_ring()
         if defer_check:
-            return self._defer(inputs_list, flush_first=False)
+            return self._defer(inputs_list, flush_first=False, donate=donate)
         self.check_flags()
         while True:
             ck = self._checkpoint()
@@ -972,11 +1021,15 @@ class Dataflow:
             for k in over:
                 self._grow_for(k)
 
-    def run_span(self, inputs_list: list) -> list:
+    def run_span(self, inputs_list: list, donate: bool = False) -> list:
         """Feed a span of micro-batches with deferred overflow checks.
         The span length must be a multiple of ``_compact_every``; the due
         folds run between its chunks. Returns the per-step output deltas
         (provisional until ``check_flags``)."""
+        from ..utils.lockcheck import device_dispatch
+
+        self.span_barrier()
+        device_dispatch("run_span")
         ce = self._compact_every
         if len(inputs_list) % ce:
             raise ValueError(
@@ -984,11 +1037,11 @@ class Dataflow:
                 f"compact_every={ce}"
             )
         self._check_slot_ring()
-        return self._defer(inputs_list, flush_first=True)
+        return self._defer(inputs_list, flush_first=True, donate=donate)
 
-    def _defer(self, inputs_list: list, flush_first: bool) -> list:
-        if self._defer_ck is None:
-            self._defer_ck = self._checkpoint()
+    def _defer(self, inputs_list: list, flush_first: bool,
+               donate: bool = False) -> list:
+        self._window_checkpoint(donate)
         deltas, sfl, cfl = self._dispatch(inputs_list, flush_first)
         self._defer_log.append((inputs_list, flush_first))
         if sfl is not None:
@@ -1028,6 +1081,57 @@ class Dataflow:
                     self._grow_for(k)
         return True
 
+    # -- pipelined span boundaries (render/span_exec.py) ----------------------
+    #
+    # Dispatch span K+1, THEN read span K's accumulated overflow flags:
+    # the copy of K's flags was queued on the stream right after K's
+    # work, so waiting for it blocks exactly until K finished while K+1
+    # is already queued behind it. One snapshot readback per span is the
+    # span's whole device->host traffic.
+
+    def flags_snapshot(self):
+        """The OR-accumulated deferred overflow flags AS OF NOW, their
+        copy to the host already queued. Flags accumulate monotonically,
+        so a snapshot taken after dispatching span K covers every span
+        <= K and nothing after. On a card the copy goes into pinned host
+        memory without blocking, and an event marks its completion."""
+        parts = [f for f in (self._defer_flags, self._defer_cflags)
+                 if f is not None]
+        if not parts:
+            return None
+        fused = torch.cat(parts) if len(parts) > 1 else parts[0]
+        if fused.device.type != "cuda":
+            return (fused, None)
+        host = torch.empty(fused.shape, dtype=fused.dtype, pin_memory=True)
+        host.copy_(fused, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return (host, event)
+
+    def read_flags_snapshot(self, snap) -> bool:
+        """ONE device->host readback of a flags snapshot; True if any
+        overflow occurred up to the snapshot point (the caller then runs
+        :meth:`check_flags` for the rollback and replay). Blocks until
+        the snapshot's span has finished: the pipelined executor's one
+        sync point a span."""
+        if snap is None:
+            return False
+        host, event = snap
+        if event is not None:
+            event.synchronize()
+        self._readbacks += 1
+        return bool(host.any())
+
+    def span_barrier(self) -> None:
+        """Sequence a state read against span boundaries: with a
+        pipelined span executor attached, an in-flight span's frontier
+        is provisional, so complete and commit it before reading
+        dataflow state. No-op without an executor or from the
+        executor's own dispatch."""
+        ex = self._span_exec
+        if ex is not None and not ex.in_dispatch:
+            ex.sync()
+
     # -- reads --------------------------------------------------------------
     def _compact_now(self) -> None:
         """Fold every slot and run into the base, growing on overflow."""
@@ -1045,6 +1149,7 @@ class Dataflow:
     def output_batch(self) -> Batch:
         """Consolidated single-run view of the output index (forces a full
         compaction first)."""
+        self.span_barrier()
         self.check_flags()
         self._compact_now()
         return self.output.base
@@ -1052,7 +1157,10 @@ class Dataflow:
     def output_records(self) -> int:
         """Approximate maintained row count (every run and ingest slot;
         rows whose diffs cancel across runs count until the next fold).
-        Introspection only: one small device->host read."""
+        Introspection only: one small device->host read. Not behind the
+        span barrier, as in the reference: the replica reports it with
+        every frontier change, and syncing there would serialize the
+        double buffer; it may count rows an in-flight span inserts."""
         counts = [b.count for b in self.output.runs_b + tuple(self.output.slots)]
         return int(torch.stack(counts).sum().item())
 
@@ -1067,6 +1175,7 @@ class Dataflow:
         no err site skips the readback."""
         if not self._has_errors:
             return []
+        self.span_barrier()
         self.check_flags()
         acc: dict = {}
         for row in self.err_output.batch.to_rows():

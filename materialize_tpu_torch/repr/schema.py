@@ -122,18 +122,16 @@ class Schema:
 
 class DictExhausted(RuntimeError):
     """A gap in the label space ran out between two dense neighbours.
-    The reference then rebalances its dictionary and recodes the
-    literals it holds (``expr/remap.py``); the port's dictionary cannot
-    rebalance, so the error stands (ROADMAP Queue 1 item 6b)."""
-
-
-_NO_REBALANCE = "; the port's dictionary cannot rebalance (ROADMAP Queue 1 item 6b: expr/remap.py)"
+    Recoverable: callers that own device-resident state catch this,
+    call ``rebalance()``, remap host-side literals (``expr/remap.py``),
+    and rebuild their dataflows (durable state is safe — persist parts
+    store the actual strings)."""
 
 
 class DictSnapshot:
-    """A read view of the dictionary (``StringDictionary.snapshot``). The
-    port's dictionary never relabels, so a view shares its maps; persist
-    takes one per part, as the reference does."""
+    """An epoch-coherent read view of the dictionary
+    (``StringDictionary.snapshot``): it decodes codes of ITS generation
+    even after a later rebalance has relabelled the live dictionary."""
 
     __slots__ = ("_codes", "_by_code", "_sorted", "epoch")
 
@@ -159,7 +157,10 @@ class StringDictionary:
     space (integer order of codes == lexicographic order of strings).
     Codes depend on what was encoded before in the process, so two
     processes (or the port and the reference) only agree on codes for
-    data they exchange as codes."""
+    data they exchange as codes. A gap that runs dry raises
+    ``DictExhausted``; ``rebalance`` then relabels every string evenly
+    (order kept) and tells the registered listeners the {old: new}
+    remap."""
 
     MIN_LABEL = -(1 << 62)
     MAX_LABEL = 1 << 62
@@ -169,15 +170,71 @@ class StringDictionary:
         self._codes: dict = {}
         self._by_code: dict = {}
         self.version = 0  # bumped on every insert (the string tables' key)
-        # The reference's relabeling epoch; the port never rebalances, so
-        # it stays 0 (persist and the replica compare it as the reference
-        # does).
+        # Relabeling epoch: bumped by rebalance(). Every holder of codes
+        # outside this object (string tables, device arrangements, MIR
+        # literals) must treat a changed epoch as total invalidation.
         self.epoch = 0
-        self._lock = threading.Lock()
+        self._lock = threading.RLock()
+        # Process-wide recovery hooks: called (with the old->new remap)
+        # inside rebalance() so in-process holders of codes (controller
+        # command history, replica dataflows) can remap and rebuild.
+        self._listeners: list = []
 
     def snapshot(self) -> DictSnapshot:
+        """An epoch-coherent read view. rebalance() REBINDS the internal
+        maps (never mutates them in place), so a snapshot taken before a
+        rebalance keeps decoding pre-rebalance codes while the live
+        dictionary serves the new labelling; inserts of the same epoch
+        are visible to it."""
         with self._lock:
-            return DictSnapshot(self._codes, self._by_code, list(self._sorted), self.epoch)
+            return DictSnapshot(self._codes, self._by_code, self._sorted, self.epoch)
+
+    def lock(self):
+        """The dictionary's reentrant lock, held by rebalance() for the
+        whole relabel-and-listeners cycle."""
+        return self._lock
+
+    def add_rebalance_listener(self, fn) -> None:
+        with self._lock:
+            self._listeners.append(fn)
+
+    def remove_rebalance_listener(self, fn) -> None:
+        with self._lock:
+            if fn in self._listeners:
+                self._listeners.remove(fn)
+
+    def rebalance(self) -> dict:
+        """Reassign every code evenly across the label space (order
+        preserved) after gap exhaustion. Returns the {old: new} remap.
+
+        Device-resident arrangements and host caches keyed by code
+        become garbage: registered listeners fire synchronously (under
+        the lock) so the process's holders can remap host literals and
+        schedule dataflow rebuilds. Another process's dictionary (a
+        subprocess replica's) is not reached: it meets its own
+        exhaustion on its own."""
+        with self._lock:
+            n = len(self._sorted)
+            span = self.MAX_LABEL - self.MIN_LABEL
+            remap: dict = {}
+            new_codes: dict = {}
+            new_by_code: dict = {}
+            for i, s in enumerate(self._sorted):
+                new = self.MIN_LABEL + (i + 1) * span // (n + 1)
+                remap[self._codes[s]] = new
+                new_codes[s] = new
+                new_by_code[new] = s
+            # REBIND (never mutate) so pre-rebalance snapshots stay
+            # coherent: _sorted is rebound too because encode() inserts
+            # into it in place.
+            self._codes = new_codes
+            self._by_code = new_by_code
+            self._sorted = list(self._sorted)
+            self.version += 1
+            self.epoch += 1
+            for fn in list(self._listeners):
+                fn(remap)
+            return remap
 
     @staticmethod
     def _frac(lo_s, hi_s, s: str) -> float:
@@ -218,7 +275,7 @@ class StringDictionary:
             gap = hi - lo
             if gap < 2:
                 raise DictExhausted(
-                    f"label space exhausted between {lo_s!r} and {hi_s!r}" + _NO_REBALANCE
+                    f"label space exhausted between {lo_s!r} and {hi_s!r}"
                 )
             code = lo + max(1, min(gap - 1, int(gap * self._frac(lo_s, hi_s, s))))
             self._sorted.insert(i, s)
@@ -255,7 +312,7 @@ class StringDictionary:
                 if hi - lo <= len(run):
                     raise DictExhausted(
                         f"bulk insert of {len(run)} strings does not fit in gap "
-                        f"{hi - lo} at {run[0]!r}" + _NO_REBALANCE
+                        f"{hi - lo} at {run[0]!r}"
                     )
             for lo, hi, run in runs:
                 for j, s in enumerate(run, 1):

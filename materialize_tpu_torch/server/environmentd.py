@@ -103,16 +103,27 @@ class Environment:
         self._replica_seq = n_replicas
         self._down = False
         self.coord = None
+        # The shutdown is registered before the first replica is
+        # spawned: an exit at any later point (a SIGTERM that lands
+        # after this constructor returns but before its caller could
+        # register anything) still stops every replica process.
+        atexit.register(self.shutdown)
         try:
             self._boot(n_replicas, workers, tick_interval, device,
                        pg_port, http_port)
         except BaseException:
             # Never serve, or leave a process behind, without the
             # replicas this deployment spawned.
+            self._down = True
+            atexit.unregister(self.shutdown)
             if self.coord is not None:
                 self.coord.shutdown()
             for rec in self.replica_records.values():
                 self._stop_record(rec)
+            for p in self.procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=5)
             raise
 
     def _boot(self, n_replicas, workers, tick_interval, device, pg_port,
@@ -450,6 +461,7 @@ class Environment:
         if self._down:
             return report
         self._down = True
+        atexit.unregister(self.shutdown)
         self.autoscaler.stop()
         # In-process thread replicas stop via their worker handle (the
         # subprocess ones get the terminate -> kill loop below).
@@ -532,7 +544,8 @@ def main() -> None:
 
     def _terminate(signum, frame):
         # SIGTERM ends the deployment cleanly: the exit runs the atexit
-        # shutdown, which stops the replica processes this one started
+        # shutdown that ``Environment`` registers before its first
+        # spawn, which stops the replica processes this one started
         # (the reference's process dies on the signal and leaves them).
         raise SystemExit(0)
 
@@ -546,7 +559,6 @@ def main() -> None:
         tick_interval=args.tick_interval,
         device=args.device,
     )
-    atexit.register(env.shutdown)
     if args.recover:
         import json as _json
 
@@ -558,11 +570,13 @@ def main() -> None:
         f"http=127.0.0.1:{env.http.port} data={args.data_dir}",
         flush=True,
     )
-    try:
-        signal.pause()
-    except (KeyboardInterrupt, AttributeError):
-        while True:
-            _time.sleep(3600)
+    # Serve until SIGTERM (or SIGINT). Not ``signal.pause()``: the kernel
+    # may hand a process-directed signal to any thread of this process,
+    # and then pause() in the main thread never returns, while the
+    # Python handler runs only once the main thread executes again. A
+    # short sleep bounds that wait.
+    while True:
+        _time.sleep(0.2)
 
 
 if __name__ == "__main__":

@@ -421,13 +421,20 @@ def _explain(
         from ..transform.optimizer import optimize
 
         m = optimize(m)
-    if stmt.stage in ("physical", "analysis"):
-        # Port: LIR (plan/lir.py, plan/lowering.py) and the analysis
-        # report are not ported.
+    if stmt.stage == "analysis":
+        # The static-analysis report (typecheck, monotonicity facts,
+        # LIR plan-decision consistency) needs analysis/.
         raise NotImplementedError(
-            f"EXPLAIN {stmt.stage.upper()} PLAN is not ported (ROADMAP "
-            "Queue 1 item 13: plan/{lir,lowering}.py)"
+            "EXPLAIN ANALYSIS PLAN is not ported (ROADMAP Queue 1 item "
+            "14: analysis/typecheck.py)"
         )
+    if stmt.stage == "physical":
+        # LIR: the operator-level physical plans (ReducePlan/TopKPlan/
+        # JoinPlan) the render layer chooses, lowered by the shared
+        # decision functions (plan/decisions.py).
+        from ..plan import explain_lir, lower_mir
+
+        return ExplainPlan("physical", explain_lir(lower_mir(m)))
     return ExplainPlan(stmt.stage, explain_mir(m))
 
 

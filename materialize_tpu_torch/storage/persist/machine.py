@@ -10,6 +10,7 @@ the background duties (``internal/compact.rs``, ``internal/gc.rs``).
 
 from __future__ import annotations
 
+import threading
 import time as _time
 from dataclasses import replace
 
@@ -62,6 +63,7 @@ class Machine:
         self.blob = blob
         self.consensus = consensus
         self._last_merge_bytes = (0, 0)  # (input, output) of last merge
+        self._state_lock = threading.Lock()
         self._state = self._load_or_init()
 
     # -- state plumbing ----------------------------------------------------
@@ -79,8 +81,18 @@ class Machine:
     def reload(self) -> ShardState:
         head = self.consensus.head(self.shard)
         assert head is not None
-        self._state = ShardState.from_bytes(head.data)
-        return self._state
+        return self._install(ShardState.from_bytes(head.data))
+
+    def _install(self, st: ShardState) -> ShardState:
+        """Cache ``st`` unless a newer state is cached already, and
+        return the cached state. Threads share a shard's Machine (a
+        table's writer and its SUBSCRIBE tail): a reload that read the
+        head before another thread's CaS landed must not put the older
+        state back, or the writer appends at a stale upper."""
+        with self._state_lock:
+            if st.seqno >= self._state.seqno:
+                self._state = st
+            return self._state
 
     @property
     def state(self) -> ShardState:
@@ -101,7 +113,7 @@ class Machine:
             if self.consensus.compare_and_set(
                 self.shard, st.seqno, VersionedData(new.seqno, new.to_bytes())
             ):
-                self._state = new
+                self._install(new)
                 # Push notification (pubsub.py): wake in-process
                 # waiters (wait_for_upper, compactor listeners) the
                 # moment the CaS lands.

@@ -17,11 +17,11 @@ oracles, and reconciliation is a counted invariant (``mz_recovery``
 rebuilds == 0 for fingerprint-unchanged dataflows).
 
 The port's copy runs over the port's ``Dataflow`` on the device the
-replica names. It steps synchronously: ``step`` and ``step_span`` through
-``_step_span_sync`` (one flags readback a span). The reference's
-pipelined span path needs ``render/span_exec.py`` and the freshness
-plane needs ``coord/freshness.py``; both wait for ROADMAP Queue 1 item
-6b. Donation and sharding verdicts have no counterpart in eager torch.
+replica names. ``step_span`` pipelines index views (span K+1 dispatched
+before span K's one flags readback, ``_step_span_pipelined``) and
+commits sinked views at their own boundary (``_step_span_sync``), as the
+reference routes them. Donation and sharding verdicts have no
+counterpart in eager torch.
 """
 
 from __future__ import annotations
@@ -42,6 +42,14 @@ from .machine import Fenced, UpperMismatch
 # mask, time, diff and count of every batch built from host arrays
 # (``updates_to_batch``). A serving run sets these to 0 and reads them.
 H2D = {"batches": 0, "copies": 0, "bytes": 0}
+
+# Span census of this process's maintained views: spans committed, the
+# flags readbacks taken at their boundaries (an overflow's rollback and
+# replay read more, counted apart as overflows), and the most spans one
+# view held dispatched past its committed frontier once its step
+# returned. A serving run sets these to 0 and reads them; a replica
+# ships them as /metrics gauges.
+SPANS = {"committed": 0, "boundary_readbacks": 0, "overflows": 0, "max_inflight": 0}
 
 
 class SinkConflict(RuntimeError):
@@ -430,6 +438,34 @@ class IndexSource:
         )
 
 
+class _ViewSpanBarrier:
+    """Adapter registering a MaintainedView's span pipeline as its
+    dataflow's ``_span_exec`` barrier: df-level state reads
+    (``output_batch``/``run_steps``/``peek_errors`` call
+    ``span_barrier()``) then commit the view's in-flight span first —
+    the same contract render/span_exec's executor provides — instead of
+    relying only on the view-level ``sync_spans()`` call sites.
+    ``in_dispatch`` is raised around the view's own span dispatch so
+    dispatching never self-syncs (which would serialize the double
+    buffer).
+
+    The view's pipeline re-implements the boundary protocol rather than
+    wrapping a SpanExecutor: the executor drives ``run_span`` (spans a
+    multiple of the compaction cadence long), while the view needs
+    per-tick deltas and frontier bookkeeping from ``run_steps`` trains —
+    the shared pieces (flags snapshots, one-readback commit, window
+    rollback) live in ``Dataflow``."""
+
+    __slots__ = ("view", "in_dispatch")
+
+    def __init__(self, view: "MaintainedView"):
+        self.view = view
+        self.in_dispatch = False
+
+    def sync(self) -> None:
+        self.view.sync_spans()
+
+
 class MaintainedView:
     """An installed dataflow maintained between shards: sources -> step ->
     optional output shard. One shard per source name; with a sink, the
@@ -497,14 +533,26 @@ class MaintainedView:
         # in the sink. Appends behind the durable upper skip benignly
         # (identical content by determinism + 1-timestamp chunks).
         self._upper = 0
-        # The monotone span counter reported with every Frontiers
-        # message (the port commits every span at its own boundary).
+        # Pipelined span state: the DISPATCHED frontier runs ahead of
+        # the committed one by at most one span; `_inflight_span` holds
+        # (flags snapshot, [(t, delta)], target, input-arrival monotonic
+        # stamp) until its boundary readback commits it. `span_epoch` is
+        # the monotone span counter peeks and compaction decisions
+        # sequence against (reported with every Frontiers message).
+        self._dispatched = 0
+        self._inflight_span = None
+        self._window_ticks: list = []
         self.span_epoch = 0
+        # Register as the dataflow's span barrier: any df-level state
+        # read sequences through sync_spans() automatically.
+        self._barrier = _ViewSpanBarrier(self)
+        dataflow._span_exec = self._barrier
         try:
             self.hydrate()
         except BaseException:
             self.expire()  # release reader holds of a failed build
             raise
+        self._dispatched = self._upper
 
     @property
     def upper(self) -> int:
@@ -916,6 +964,7 @@ class MaintainedView:
             self._publish(0, out)
             self._record_history(0, out)
             self._upper = 1
+            self._dispatched = 1
             self._record_freshness(1, arrived)
             return True
         target = None
@@ -949,18 +998,34 @@ class MaintainedView:
         self._publish(t, out)
         self._record_history(t, out)
         self._upper = target
+        self._dispatched = target
         self._record_freshness(target, arrived)
         return True
 
-    # -- span stepping ------------------------------------------------------
+    # -- pipelined span stepping -------------------------------------------
     #
     # The per-tick step() pays one flags readback per tick (run_steps'
-    # synchronous overflow check). step_span() processes up to
-    # span_max_ticks READY micro-batches as one deferred dispatch train
-    # and commits them with ONE boundary readback. The reference
-    # pipelines index views (span K+1 dispatched before span K's
-    # readback); the port commits every span synchronously until
-    # render/span_exec.py lands (ROADMAP Queue 1 item 6b).
+    # synchronous overflow check) and leaves the device idle while the
+    # host fetches the next chunk. step_span() processes up to
+    # span_max_ticks READY micro-batches as one deferred dispatch
+    # train and commits them with ONE boundary readback — overlapped,
+    # for index (sink-less) views, with the NEXT span's ingest and
+    # dispatch: the commit readback for span K runs after span K+1 is
+    # already queued on the device (double buffering, at most one span
+    # in flight ahead of the committed frontier). Peeks, AS OF reads,
+    # and subscriber snapshots sequence against COMMITTED span
+    # boundaries via sync_spans() — they never observe a half-applied
+    # span.
+
+    def _span_donation(self) -> bool:
+        """Whether this view's span trains request donation (the
+        ``span_donation`` dyncfg, render/span_exec.resolve_donation);
+        eager torch donates nothing, so a request only clones the
+        window's rollback checkpoint. A window keeps the decision it
+        started with."""
+        from ...render.span_exec import resolve_donation
+
+        return resolve_donation(None)
 
     def donation_info(self) -> dict | None:
         """No provenance/donation verdict in the port (the reference's
@@ -974,15 +1039,23 @@ class MaintainedView:
     def step_span(
         self, max_ticks: int | None = None, timeout: float = 0.0
     ) -> bool:
-        """Span-batched stepping, committed synchronously at the span
-        boundary: one flags readback per span. Views the span protocol
-        cannot cover — pure constants — take the per-tick step."""
+        """Span-batched stepping. Sinked views commit synchronously at
+        the span boundary (durability needs the deltas host-side
+        anyway); index views pipeline (deferred commit). Views the span
+        protocol cannot cover — pure constants, basic-aggregate sinks —
+        fall back to the per-tick step."""
         from ...utils.dyncfg import COMPUTE_CONFIGS, SPAN_MAX_TICKS
 
         if max_ticks is None:
             max_ticks = max(int(SPAN_MAX_TICKS(COMPUTE_CONFIGS)), 1)
         if not self.sources or self._sink_finalizes:
             return self.step(timeout)
+        if self.writer is None:
+            # Index views pipeline: deferred commit, device-resident
+            # history, at most one span in flight.
+            return self._step_span_pipelined(max_ticks, timeout)
+        # Sinked views commit synchronously at the span boundary — still
+        # one flags readback per span instead of one per tick.
         return self._step_span_sync(max_ticks, timeout)
 
     def _gather_ready_ticks(
@@ -1028,9 +1101,14 @@ class MaintainedView:
             self.df.time = ticks[0][0]
         deltas = self.df.run_steps(
             [inp for _, inp in ticks], defer_check=True,
+            donate=self._span_donation(),
         )
+        r0 = self.df._readbacks
         if self.df.check_flags():
             deltas = self.df.replayed_deltas
+            SPANS["overflows"] += 1
+        SPANS["boundary_readbacks"] += min(self.df._readbacks - r0, 1)
+        SPANS["committed"] += 1
         lo = lower
         for (t, _), out in zip(ticks, deltas):
             out = self.df.gather_delta(out)
@@ -1039,9 +1117,109 @@ class MaintainedView:
             self._record_history(t, out)
             lo = t + 1
             self._upper = lo
+        self._dispatched = lo
         self.span_epoch += 1
         self._record_freshness(lo, arrived)
         return True
+
+    def _step_span_pipelined(
+        self, max_ticks: int, timeout: float
+    ) -> bool:
+        """Index-view span: dispatch span K+1, then commit span K at
+        its boundary readback — the readback waits for K while K+1
+        executes. The committed frontier (`upper`, what peeks see)
+        trails the dispatched one by at most one span."""
+        from ...utils.dyncfg import COMPUTE_CONFIGS, SPAN_WINDOW_SPANS
+
+        lower = self._dispatched
+        ticks = self._gather_ready_ticks(lower, max_ticks, timeout)
+        if not ticks:
+            # No new input: drain the in-flight span so the committed
+            # frontier (and peeks waiting on it) still progresses.
+            return self._commit_inflight()
+        arrived = _time.monotonic()
+        if (
+            len(self.df._defer_log)
+            >= int(SPAN_WINDOW_SPANS(COMPUTE_CONFIGS))
+        ):
+            # Rollback-window boundary: commit the in-flight span,
+            # then validate + clear the defer log (bounds replay
+            # memory). One extra readback per window, amortized; the
+            # pipeline refills on this very dispatch.
+            self.sync_spans()
+            if self.df._defer_ck is not None and self.df.check_flags():
+                self._recover_window()
+            self._window_ticks = []
+        if self.df._defer_ck is None:
+            self._window_ticks = []
+        if self.df.time != ticks[0][0]:
+            self.df.time = ticks[0][0]
+        # Our own dispatch must not self-sync through the registered
+        # span barrier (that would serialize the double buffer).
+        from ...utils.trace import TRACER
+
+        t_wall = _time.time()
+        t0 = _time.perf_counter()
+        self._barrier.in_dispatch = True
+        try:
+            deltas = self.df.run_steps(
+                [inp for _, inp in ticks],
+                defer_check=True,
+                donate=self._span_donation(),
+            )
+        finally:
+            self._barrier.in_dispatch = False
+        if TRACER.enabled("debug"):
+            TRACER.record(
+                "view.span.dispatch", t_wall,
+                _time.perf_counter() - t0, level="debug",
+                ticks=len(ticks),
+            )
+        snap = self.df.flags_snapshot()
+        entries = [(t, out) for (t, _), out in zip(ticks, deltas)]
+        self._window_ticks.extend(entries)
+        prev = self._inflight_span
+        self._inflight_span = (snap, entries, ticks[-1][0] + 1, arrived)
+        self._dispatched = ticks[-1][0] + 1
+        if prev is not None:
+            self._commit_span(prev)
+        SPANS["max_inflight"] = max(SPANS["max_inflight"],
+                                    int(self._inflight_span is not None))
+        return True
+
+    def _commit_span(self, handle) -> None:
+        """The span boundary: ONE flags readback; clean commits publish
+        the span's deltas (device handoff), record history, and advance
+        the committed frontier; an overflow triggers the whole-window
+        rollback+replay."""
+        from ...utils.trace import TRACER
+
+        snap, entries, target, arrived = handle
+        t_wall = _time.time()
+        t0 = _time.perf_counter()
+        r0 = self.df._readbacks
+        overflow = self.df.read_flags_snapshot(snap)
+        SPANS["boundary_readbacks"] += self.df._readbacks - r0
+        SPANS["committed"] += 1
+        if overflow:
+            SPANS["overflows"] += 1
+            self._recover_window()
+            return
+        for t, out in entries:
+            self._publish(t, out)
+            self._record_history(t, out)
+            self._upper = t + 1
+        self.span_epoch += 1
+        self._record_freshness(target, arrived)
+        if TRACER.enabled("debug"):
+            # The span-commit cadence record: boundary readback wait +
+            # publish, at DEBUG so the default level keeps the per-span
+            # path recorder-free.
+            TRACER.record(
+                "view.span.commit", t_wall,
+                _time.perf_counter() - t0, level="debug",
+                ticks=len(entries), epoch=self.span_epoch,
+            )
 
     def _record_freshness(self, frontier: int, arrived: float) -> None:
         """Committed-span-boundary lag recording: wallclock_lag_ms =
@@ -1057,10 +1235,45 @@ class MaintainedView:
             lag_ms(arrived),
         )
 
+    def _commit_inflight(self) -> bool:
+        handle, self._inflight_span = self._inflight_span, None
+        if handle is None:
+            return False
+        self._commit_span(handle)
+        return True
+
+    def _recover_window(self) -> None:
+        """An overflow rolled the defer window back and replayed it
+        against grown tiers (render/dataflow.check_flags). Spans
+        committed earlier in the window were validated clean at their
+        own boundary — the replay reproduces their deltas identically
+        (steps are pure) — so only the uncommitted tail publishes."""
+        if self.df._defer_ck is not None:
+            self.df.check_flags()
+        replayed = getattr(self.df, "replayed_deltas", [])
+        for (t, _old), out in zip(self._window_ticks, replayed):
+            if t >= self._upper:
+                self._publish(t, out)
+                self._record_history(t, out)
+                self._upper = t + 1
+        self._upper = max(self._upper, self._dispatched)
+        self._inflight_span = None
+        self._window_ticks = []
+        self.span_epoch += 1
+
     def sync_spans(self) -> None:
-        """The read barrier. The port never leaves a span in flight
-        (every span commits at its own boundary), so reads always see a
-        committed span boundary and there is nothing to complete."""
+        """The read barrier: complete + commit the in-flight span, so
+        callers (peeks, AS OF reads, subscriber snapshots, DML)
+        observe a committed span boundary — never a half-applied
+        span. No-op when nothing is in flight, and exactly ONE
+        readback otherwise: the boundary commit's clean snapshot
+        already proves every span <= it valid (flags OR-accumulate),
+        so the serving path never pays a second validation round trip
+        — window teardown happens at the span loop's own boundary
+        (_step_span_pipelined) or inside df.check_flags when a
+        df-level reader forces it."""
+        if self._inflight_span is not None:
+            self._commit_inflight()
 
     def _publish(self, t: int, out: Batch) -> None:
         """Push this step's output delta to index-import subscribers

@@ -104,9 +104,7 @@ class ConfigSet:
 COMPUTE_CONFIGS = ConfigSet()
 
 # Where the readers of the port's unported flags wait.
-ITEM_13 = "ROADMAP Queue 1 item 13: the rest of plan/decisions.py"
 ITEM_14 = "ROADMAP Queue 1 item 14: analysis/"
-SPAN_EXEC = "ROADMAP Queue 1 item 6b: render/span_exec.py"
 PROGRAM_BANK = (
     "ROADMAP Queue 2 item 6: the program bank has no counterpart in "
     "eager torch"
@@ -124,7 +122,6 @@ ENABLE_TEMPORAL_FILTERS = Config(
 DELTA_JOIN_MIN_INPUTS = Config(
     "delta_join_min_inputs", 3,
     "minimum join breadth for the delta-join plan (vs linear)",
-    unported=ITEM_13,
 ).register(COMPUTE_CONFIGS)
 
 ARRANGEMENT_COMPACTION_BATCHES = Config(
@@ -203,7 +200,6 @@ ARRANGEMENT_INGEST_MODE = Config(
     "fold absorbs the ring on its amortized cadence), 'merge' merges "
     "into run 0 every step (O(run0)); 'auto' picks append_slot for "
     "big-state arrangements (plan/decisions.ingest_mode)",
-    unported=ITEM_13,
 ).register(COMPUTE_CONFIGS)
 
 COMPUTE_RETAIN_HISTORY = Config(
@@ -271,13 +267,13 @@ PEEK_TS_CACHE_MS = Config(
 
 # -- the async pipelined control plane ------------
 
-# The port defaults this OFF: the pipelined span path needs
-# render/span_exec.py, which waits for ROADMAP Queue 1 item 6b. Off, the
-# replica steps each view per tick (``MaintainedView.step``); on, it
-# steps every ready tick of a view as one span committed synchronously
-# at its one flags readback (``MaintainedView._step_span_sync``).
+# On (the reference's default), the replica steps every ready tick of a
+# view as one span: an index view pipelines (span K commits at its one
+# flags readback after span K+1 is dispatched,
+# ``MaintainedView._step_span_pipelined``), a sinked view commits at its
+# own boundary (``_step_span_sync``). Off, each view steps per tick.
 SPAN_PIPELINING = Config(
-    "span_pipelining", False,
+    "span_pipelining", True,
     "replica worker loop: step maintained views in SPANS of up to "
     "span_max_ticks ready micro-batches with deferred overflow checks "
     "— the span's ticks dispatch asynchronously and the span commits "
@@ -300,23 +296,16 @@ SPAN_WINDOW_SPANS = Config(
     "checkpoint and input log are retained across this many committed "
     "spans, then validated and cleared (bounds replay memory; the "
     "boundary validation is the window's one extra sync point)",
-    unported=SPAN_EXEC,
 ).register(COMPUTE_CONFIGS)
 
 SPAN_DONATION = Config(
     "span_donation", "auto",
-    "donate the span program's carry (operator states, output spine, "
-    "err arrangement, device time) to XLA so each span's outputs "
-    "reuse the previous span's state buffers instead of allocating + "
-    "copying state-sized arrays per dispatch. 'auto' = on for TPU "
-    "backends; 'off' forces off; 'on' forces on WHERE the backend "
-    "honors donation (CPU ignores donate_argnums, and jaxlib crashes "
-    "lowering large donated programs on the forced multi-device host "
-    "platform; reported state always reflects the EFFECTIVE value). "
-    "The rollback checkpoint is CLONED to fresh buffers before the "
-    "first donated dispatch of a window — donated buffers are never "
-    "read back",
-    unported=SPAN_EXEC,
+    "request donation of the span's carry (operator states, output "
+    "spine, err arrangement) to the next span. Eager torch has no "
+    "donation: every step returns fresh state tensors, so 'auto' "
+    "resolves off and 'on' only clones each window's rollback "
+    "checkpoint to fresh tensors (render/span_exec.py); reported "
+    "state always reflects the EFFECTIVE value, which is off",
 ).register(COMPUTE_CONFIGS)
 
 # -- the persistent AOT program bank ------------------------------

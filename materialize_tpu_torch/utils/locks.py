@@ -1,19 +1,11 @@
-"""Plain locks where the reference takes tracked ones.
+"""The control plane's lock constructors.
 
-The reference wraps its control-plane locks in ``utils/lockcheck.py``
-(lock-order checking and a happens-before race detector, the analysis
-lane). The port takes plain ``threading`` locks; the checker waits for
-ROADMAP Queue 1 item 14.
+Every lock of the coordination plane is built here by name, so that
+``utils/lockcheck.py`` records its acquisition order (cycles, and a
+sequencing lock held across a device dispatch) when recording is on.
+Recording is off by default and then costs one bool check an acquire.
 """
 
 from __future__ import annotations
 
-import threading
-
-
-def tracked_lock(name: str, **_kw) -> threading.Lock:
-    return threading.Lock()
-
-
-def tracked_rlock(name: str, **_kw) -> threading.RLock:
-    return threading.RLock()
+from .lockcheck import tracked_lock, tracked_rlock  # noqa: F401

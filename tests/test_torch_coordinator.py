@@ -18,10 +18,14 @@ reference.
   with each delta once.
 - Every unported piece the slice reaches raises, naming its ROADMAP item;
   so does a SET of a registered flag the port does not read, to any value
-  but its default.
+  but its default. The pieces ported since answer: ``mz_span_epochs``,
+  ``mz_compile_log`` (the native library's build and load) and the span
+  and plan flags.
 """
 
 from __future__ import annotations
+
+import os
 
 import pytest
 
@@ -150,12 +154,10 @@ def test_unported_pieces_raise_naming_their_item(tmp_path):
         plan_error = mod("port", "sql.hir").PlanError
         cases = {
             # Introspection relations over state the port does not have.
-            "SELECT * FROM mz_span_epochs": (NotImplementedError, "item 6b: render/span_exec.py"),
             "SELECT * FROM mz_donation": (NotImplementedError, "item 14"),
             "SELECT * FROM mz_sharding": (NotImplementedError, "item 8"),
-            "SELECT * FROM mz_compile_log": (NotImplementedError, "item 6b: utils/compile_ledger.py"),
             "SELECT * FROM mz_program_bank": (NotImplementedError, "Queue 2 item 6"),
-            "EXPLAIN ANALYSIS SELECT * FROM st": (NotImplementedError, "item"),
+            "EXPLAIN ANALYSIS SELECT * FROM st": (NotImplementedError, "item 14"),
             "CREATE SINK s FROM st INTO KAFKA (BROKER 'b', TOPIC 't')": (
                 NotImplementedError, "item 16"),
             # Source options are validated at CREATE time: the adapter's
@@ -166,15 +168,11 @@ def test_unported_pieces_raise_naming_their_item(tmp_path):
         # Flags the port registers but does not read: the default is
         # accepted, any other value raises naming where the reader waits.
         unported = {
-            "delta_join_min_inputs": ("2", "item 13"),
-            "arrangement_ingest_mode": ("'merge'", "item 13"),
             "optimizer_typecheck": ("true", "item 14"),
             "buffer_sanitizer": ("true", "item 14"),
             "race_detector": ("true", "item 14"),
             "fused_merge": ("'lax'", "Queue 3"),
             "cached_run_lanes": ("false", "Queue 3"),
-            "span_window_spans": ("4", "item 6b: render/span_exec.py"),
-            "span_donation": ("'on'", "item 6b: render/span_exec.py"),
             "program_bank_path": ("'/x'", "Queue 2 item 6"),
             "enable_async_compile": ("true", "Queue 2 item 6"),
         }
@@ -187,8 +185,23 @@ def test_unported_pieces_raise_naming_their_item(tmp_path):
             with pytest.raises(exc, match=item):
                 c.execute(sql)
         assert c.execute("SELECT * FROM st").kind == "rows"  # the session lives on
-        # The rest of the introspection relations answer.
+        # The rest of the introspection relations answer, those ported
+        # since included: the view's committed span epochs and the
+        # native library's load in this process.
         assert c.execute("SELECT name FROM mz_objects WHERE name = 'st'").rows == [("st",)]
+        c.execute("CREATE MATERIALIZED VIEW stv AS SELECT v FROM st")
+        c.execute("INSERT INTO st VALUES (1)")
+        assert c.execute("SELECT * FROM stv").rows == [(1,)]
+        epochs = c.execute("SELECT dataflow, replica, span_epoch FROM mz_span_epochs").rows
+        assert [(d, r) for d, r, _e in epochs if d == "stv"] == [("stv", "r0")]
+        assert "Reduce Accumulable group=[0]" in c.execute(
+            "EXPLAIN PHYSICAL PLAN FOR SELECT v, count(*) FROM st GROUP BY v").text
+        # The span and plan flags have their readers: any value is taken.
+        for sql in ("SET span_window_spans = 4", "SET span_donation = 'on'",
+                    "SET delta_join_min_inputs = 2", "SET arrangement_ingest_mode = 'merge'"):
+            c.execute(sql)
+        assert dyncfg.SPAN_WINDOW_SPANS(dyncfg.COMPUTE_CONFIGS) == 4
+        assert dyncfg.DELTA_JOIN_MIN_INPUTS(dyncfg.COMPUTE_CONFIGS) == 2
         for name in unported:
             default = configs[name].default
             literal = f"'{default}'" if isinstance(default, str) else str(default).lower()
@@ -197,14 +210,15 @@ def test_unported_pieces_raise_naming_their_item(tmp_path):
             n: configs[n].default for n in unported}
     finally:
         cl.shutdown()
+        mod("port", "utils.dyncfg").COMPUTE_CONFIGS.update({
+            n: None for n in ("span_window_spans", "span_donation",
+                              "delta_join_min_inputs", "arrangement_ingest_mode")})
     replica = mod("port", "coord.replica")
     protocol = mod("port", "coord.protocol")
     loc = protocol.PersistLocation(str(tmp_path / "b2"), str(tmp_path / "c2.db"))
     with pytest.raises(NotImplementedError, match="item 8"):
         replica.ReplicaWorker(location=loc, workers=2, device="cpu")
-    w = replica.ReplicaWorker(location=loc, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6b: expr/remap.py"):
-        w._recover_dict_exhaustion(None)
+    replica.ReplicaWorker(location=loc, device="cpu").stop()
     sources = mod("port", "coord.sources")
     with pytest.raises(NotImplementedError, match="item 16"):
         sources.KafkaAdapter({})
@@ -217,3 +231,32 @@ def test_unported_pieces_raise_naming_their_item(tmp_path):
         d.capture_basic_multisets()
     with pytest.raises(NotImplementedError, match="item 15"):
         d.finalize_basic_columns([], [])
+
+
+def test_compile_log_records_the_native_library_build_and_load(tmp_path, monkeypatch):
+    """``mz_compile_log`` lists the port's native library builds: a g++
+    build into an empty build directory is a ``miss``, the next process's
+    load of that build a ``hit``, both with the source's fingerprint."""
+    native = mod("port", "native")
+    ledger = mod("port", "utils.compile_ledger").LEDGER
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "_lib", None)
+    n0 = len(ledger.records())
+    native.lib()  # builds
+    monkeypatch.setattr(native, "_lib", None)
+    native.lib()  # loads the build
+    recs = ledger.records()[n0:]
+    assert [(r.kind, r.name, r.cache) for r in recs] == [
+        ("g++", "mtnative.cpp", "miss"), ("g++", "mtnative.cpp", "hit")]
+    assert recs[0].fingerprint == recs[1].fingerprint
+    assert (tmp_path / "build" / f"libmtnative-{recs[0].fingerprint}.so").exists()
+    assert recs[0].seconds > recs[1].seconds > 0
+    cl = Cluster("port", str(tmp_path / "cl"))
+    try:
+        c = cl.coordinator()
+        rows = c.execute("SELECT process, kind, dataflow, fingerprint, cache FROM mz_compile_log").rows
+    finally:
+        cl.shutdown()
+    me = f"pid{os.getpid()}"
+    for r in recs:
+        assert (me, r.kind, r.name, r.fingerprint, r.cache) in rows

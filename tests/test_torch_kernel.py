@@ -212,6 +212,51 @@ def test_index_paths_agree_on_card():
 
 
 @pytest.mark.cuda
+def test_index_span_executor_matches_serial_on_card():
+    """The pipelined span executor (``render/span_exec.py``) over the
+    small index on the card: span K+1 dispatched before span K's one
+    flags readback. Its committed deltas, tick for tick, and its final
+    index equal the serial ``run_steps`` train's; the kernel launched."""
+    _need_card()
+    from materialize_tpu_torch.render.span_exec import SpanExecutor
+    from materialize_tpu_torch.workloads.index import index_config
+
+    runs = []
+    for pipelined in (False, True):
+        df, hydrate, churn = index_config(
+            sf=0.002, n_orders_per_tick=16, state_cap=1 << 12, out_levels=3,
+            ce=4, ratio=4, device="cuda",
+        )
+        h = hydrate()
+        n_h = len(h) - len(h) % 4
+        df.run_span(h[:n_h])
+        df.run_steps(h[n_h:])
+        df.check_flags()
+        spans = [[churn(8 * s + i, df.time + 8 * s + i)[0] for i in range(8)]
+                 for s in range(4)]
+        start = merge_kernel.LAUNCHES
+        deltas = []
+        if pipelined:
+            ex = SpanExecutor(df)
+            for sp in spans:
+                got = ex.submit(sp)
+                if got is not None:
+                    deltas.append([sorted(b.to_rows()) for b in got])
+            ex.sync()
+            ex.close()
+            st = ex.stats()
+            assert st["readbacks_per_span"] == 1.0 and st["max_inflight"] == 1
+        else:
+            for sp in spans:
+                deltas.append([sorted(b.to_rows()) for b in df.run_steps(sp)])
+        assert merge_kernel.LAUNCHES > start
+        runs.append((deltas, sorted(df.output_batch().to_rows())))
+    (serial, base_s), (piped, base_p) = runs
+    assert piped == serial[: len(piped)] and len(piped) == len(spans) - 1
+    assert base_p == base_s and len(base_s) > 0
+
+
+@pytest.mark.cuda
 def test_index_rollback_grow_replay_agree_on_card():
     """With a base one tier short (the layout of
     ``tests/test_torch_dataflow.py``), the second churn span's level-1

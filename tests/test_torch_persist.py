@@ -15,6 +15,9 @@
 - ``MaintainedView.step_span`` over a dataflow whose state tier
   overflows inside the span: the sink shard gets the replayed deltas
   exactly once.
+- A reload that read a shard's head before another thread's append
+  landed leaves the shared ``Machine`` at the newer state, so the writer
+  goes on appending at the shard's upper (the port's alone).
 """
 
 from __future__ import annotations
@@ -334,6 +337,27 @@ def test_machine_concurrent_cas_total_order(pkg):
     for t in ts:
         t.join(10)
     assert sum(oks) == 1
+
+
+def test_stale_reload_keeps_the_newer_cached_state():
+    # A table's writer and its SUBSCRIBE tail share the shard's Machine.
+    # The tail reads the head, the writer's append lands, then the
+    # tail's reload finishes with the head it read before the append.
+    pkg = Pkg("port")
+    c = pkg.client()
+    w = c.open_writer("s1", pkg.KV)
+    w.compare_and_append(*_updates([(1, 1, 1)]), 0, 1)
+    before = w.machine.consensus.head("s1")
+    w.compare_and_append(*_updates([(2, 2, 1)], t=1), 1, 2)
+    head = w.machine.consensus.head
+    w.machine.consensus.head = lambda key: before
+    try:
+        assert w.machine.reload().upper == 2
+    finally:
+        w.machine.consensus.head = head
+    assert w.upper == 2
+    w.compare_and_append(*_updates([(3, 3, 1)], t=2), w.upper, 3)
+    assert _content(c.open_reader("s1"), 2) == {(1, 1): 1, (2, 2): 1, (3, 3): 1}
 
 
 def test_sqlite_consensus_cas_across_connections(pkg, tmp_path):

@@ -9,7 +9,9 @@
   the two commands, ``python -m materialize_tpu_torch.coord.replica``
   and ``python -m materialize_tpu_torch.server.environmentd``, serve
   with ``--device cpu`` with neither ``jax`` nor ``materialize_tpu``
-  loaded, and exit non-zero with ``--device cuda`` and no card.
+  loaded, and exit non-zero with ``--device cuda`` and no card. A SIGTERM
+  that reaches ``environmentd`` right after its ``Environment`` is up
+  (before ``main()`` goes on) leaves no replica process behind.
 - The kernel's wrappers (``search_right``, ``merge_path``) and a merge
   forced to the kernel raise on CPU tensors.
 """
@@ -20,6 +22,7 @@ import ast
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import pytest
@@ -111,6 +114,13 @@ SLICE_MODULES = [
     "materialize_tpu_torch.coord.autoscaler",
     "materialize_tpu_torch.server.http",
     "materialize_tpu_torch.server.environmentd",
+    "materialize_tpu_torch.render.span_exec",
+    "materialize_tpu_torch.expr.remap",
+    "materialize_tpu_torch.utils.compile_ledger",
+    "materialize_tpu_torch.utils.lockcheck",
+    "materialize_tpu_torch.plan",
+    "materialize_tpu_torch.plan.lir",
+    "materialize_tpu_torch.plan.lowering",
 ]
 
 
@@ -246,6 +256,10 @@ def watch():
     loaded = sorted(m for m in ("jax", "jaxlib", "materialize_tpu") if m in sys.modules)
     print("LOADED", loaded, flush=True)
     if module.endswith("environmentd"):
+        # The port was free when the test chose it, so another process
+        # may listen on it first: signal only once main() handles SIGTERM.
+        while signal.getsignal(signal.SIGTERM) in (signal.SIG_DFL, None):
+            time.sleep(0.05)
         os.kill(os.getpid(), signal.SIGTERM)  # a clean shutdown
     else:
         os._exit(0)
@@ -295,3 +309,50 @@ def test_commands_refuse_cuda_without_a_card(module, tmp_path):
         pytest.skip("a CUDA card is present")
     rc, out, err = _entry(module, "cuda", tmp_path)
     assert rc != 0 and "LOADED" not in out and "cuda" in err, out + err[-2000:]
+
+
+# Runs environmentd's main() with a hook in this child only: the moment
+# ``Environment(...)`` returns, before main() goes on, the process sends
+# itself SIGTERM. The replica processes it spawned must not outlive it.
+_GAP = """
+import os, signal, sys, time
+from materialize_tpu_torch.server import environmentd
+init = environmentd.Environment.__init__
+
+def init_then_sigterm(self, *args, **kwargs):
+    init(self, *args, **kwargs)
+    print("REPLICAS", *[p.pid for p in self.procs], flush=True)
+    os.kill(os.getpid(), signal.SIGTERM)
+    time.sleep(60)  # the handler's SystemExit ends this
+
+environmentd.Environment.__init__ = init_then_sigterm
+sys.argv = ["environmentd"] + sys.argv[1:]
+environmentd.main()
+"""
+
+
+def test_sigterm_right_after_boot_leaves_no_replica(tmp_path):
+    args = ["--data-dir", str(tmp_path / "envd"), "--pg-port", str(_free_port()),
+            "--http-port", str(_free_port()), "--device", "cpu"]
+    proc = subprocess.run(
+        [sys.executable, "-c", _GAP, *args], cwd=ROOT, capture_output=True,
+        text=True, timeout=90, env={**os.environ, "OMP_NUM_THREADS": "1"},
+    )
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("REPLICAS")]
+    assert line, proc.stdout + proc.stderr[-2000:]
+    pids = [int(p) for p in line[0].split()[1:]]
+    assert proc.returncode == 0 and pids, proc.stdout + proc.stderr[-2000:]
+    deadline = time.monotonic() + 10
+    alive = pids
+    while alive and time.monotonic() < deadline:
+        alive = [p for p in pids if _alive(p)]
+        time.sleep(0.1)
+    assert not alive, f"replica processes {alive} outlived environmentd"
+
+
+def _alive(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().split(") ", 1)[1][0] != "Z"
+    except (FileNotFoundError, ProcessLookupError, IndexError):
+        return False

@@ -583,8 +583,9 @@ def test_error_guards_and_overflow_rows_are_exercised(wide_batches):
 def test_string_dictionary_bulk_insert_and_exhaustion():
     """The port's dictionary keeps code order equal to string order
     across ``encode`` and ``encode_bulk`` (which the string tables use),
-    bumps its version on each insert, and, having no rebalance, raises
-    ``DictExhausted`` naming its ROADMAP item where a gap runs out."""
+    bumps its version on each insert, and raises ``DictExhausted`` where
+    a gap runs out (its holders then rebalance it:
+    ``tests/test_torch_dict_rebalance.py``)."""
     class Tiny(tschema.StringDictionary):
         MIN_LABEL, MAX_LABEL = 0, 12
 
@@ -596,9 +597,9 @@ def test_string_dictionary_bulk_insert_and_exhaustion():
     items = d.items_sorted()
     assert [s for _, s in items] == sorted(["a", "b", "c", "m", "x"])
     assert [c for c, _ in items] == sorted(c for c, _ in items)
-    with pytest.raises(tschema.DictExhausted, match="item 6"):
+    with pytest.raises(tschema.DictExhausted, match="does not fit in gap"):
         d.encode_bulk(["n", "o", "p", "q", "r", "s"])
-    with pytest.raises(tschema.DictExhausted, match="item 6"):
+    with pytest.raises(tschema.DictExhausted, match="exhausted between"):
         for s in ("ma", "mb", "mc", "md", "me", "mf"):
             d.encode(s)
 

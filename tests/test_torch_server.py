@@ -385,6 +385,12 @@ def test_port_environmentd_with_a_subprocess_replica(envs, tmp_path):
             "SELECT dataflow, replica, samples FROM mz_wallclock_lag_summary"))[1][
             "results"][-1]["rows"] if row[0] == "depmv"], msg="lag records from the replica")
         assert lag[0][1] == "r0" and lag[0][2] >= 1
+        # The replica process's native library load, shipped on its
+        # Frontiers into the compile ledger.
+        compiles = _until(lambda: [row for row in _sql(http, (
+            "SELECT process, kind, dataflow, cache FROM mz_compile_log"))[1][
+            "results"][-1]["rows"] if row[0] == "r0"], msg="the replica's compile records")
+        assert ["r0", "g++", "mtnative.cpp", "hit"] in compiles, compiles
         ready = _until(lambda: (lambda x: x if x[0] == 200 else None)(
             _http(http, "/api/readyz")), msg="readyz")
         assert json.loads(ready[2])["ready"] is True

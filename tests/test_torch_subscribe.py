@@ -39,6 +39,7 @@ def clusters(tmp_path_factory):
         for pkg in PKGS:
             up[pkg] = Cluster(pkg, str(tmp_path_factory.mktemp(f"sub-{pkg}")))
             up[pkg].main = up[pkg].coordinator()
+            up[pkg].main.execute("CREATE TABLE cfgsync (x BIGINT)")
         yield up
     finally:
         for cl in up.values():
@@ -46,12 +47,21 @@ def clusters(tmp_path_factory):
 
 
 @pytest.fixture(autouse=True)
-def _reset_subscribe_dyncfg():
+def _reset_subscribe_dyncfg(clusters):
     yield
+    reset = {"subscribe_max_sessions": None, "subscribe_queue_depth": None,
+             "subscribe_slow_policy": None}
     for pkg in PKGS:
-        mod(pkg, "utils.dyncfg").COMPUTE_CONFIGS.update({
-            "subscribe_max_sessions": None, "subscribe_queue_depth": None,
-            "subscribe_slow_policy": None})
+        # Through the coordinator: the in-process replica applies a test's
+        # ``update_config`` to the same process-wide flags when its worker
+        # gets to the command, which on a loaded host can be after a reset
+        # made here directly. A reset sent down the same command stream
+        # lands after it, and a read through the replica (served after
+        # every command before it) waits until the reset has landed, so it
+        # cannot undo the next test's settings either.
+        main = clusters[pkg].main
+        main.update_config(reset)
+        main.execute("SELECT * FROM cfgsync")
 
 
 def _new_main(cl):

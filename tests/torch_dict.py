@@ -13,6 +13,9 @@ in the same worker fail (``DictExhausted``). Two pieces:
   version, so no cache built on the file's codes stays valid).
 - ``-p tests.torch_dict_probe``: a pytest plugin that fails the run
   when a ``test_torch_*`` file left the dictionary changed.
+- ``port_dict_restored``: the same for the port's own ``GLOBAL_DICT``,
+  for a file that rebalances it (a rebalance relabels every string the
+  process coded before).
 """
 
 from __future__ import annotations
@@ -36,8 +39,8 @@ def dict_state(d=None) -> dict:
 
 
 @contextlib.contextmanager
-def restored_reference_dict():
-    d = _dict()
+def restored_reference_dict(d=None):
+    d = d or _dict()
     with d._lock:
         saved = (list(d._sorted), dict(d._codes), dict(d._by_code), d.epoch)
     try:
@@ -54,4 +57,12 @@ def restored_reference_dict():
 @pytest.fixture(autouse=True, scope="module")
 def reference_dict_restored():
     with restored_reference_dict():
+        yield
+
+
+@pytest.fixture(scope="module")
+def port_dict_restored():
+    from materialize_tpu_torch.repr.schema import GLOBAL_DICT
+
+    with restored_reference_dict(GLOBAL_DICT):
         yield
