@@ -16,7 +16,12 @@ each printing one JSON line (any failure exits non-zero):
    optimizer on this machine (no JAX), Q21's plan equal to
    ``q21_plan()``, node counts and planning ms, and EXPLAIN PHYSICAL
    PLAN of Q7 and Q1 (printed), whose Join and Reduce lines must be the
-   plans the render layer builds for the same queries on the card;
+   plans the render layer builds for the same queries on the card; then
+   Q7, Q21 and Q1 planned again with ``optimizer_typecheck`` on (every
+   transform's output typechecked, ``analysis/typecheck.py``): no
+   transform blamed, each plan equal to the one planned with the flag
+   off, each ``analysis.report`` printed (typecheck, monotonicity, LIR
+   check), planning ms with the flag off and on;
 2. kernel against its plain torch versions, exactly: insertion points
    (``pos``) against ``search_right_torch`` for L in {1, 2, 3, 4, 5, 8,
    13, 25, 29}, random ``a_count`` (0 and m included), heavy duplicates, lanes on
@@ -109,7 +114,18 @@ each printing one JSON line (any failure exits non-zero):
     ``mz_span_epochs`` (both views past 0) and ``mz_compile_log`` (the
     replica's ``merge_path.cu`` build or load) are read over pgwire and
     printed; the replica process's shipped span census shows one flags
-    readback a span and at most one span in flight.
+    readback a span and at most one span in flight. A fourth view,
+    ``order_flags`` (``ORDER_FLAGS_SQL``: a STRING_AGG of the return
+    flags, an ARRAY_AGG of the line numbers and a COUNT by order, ~150,000
+    groups over ~600,000 multiset rows per aggregate, its sink finalizing
+    each changed group's strings a tick): 64 seeded orders looked up over
+    pgwire after hydration and after the paced ticks, and the whole view
+    once at the end (over ``/api/sql``), each against an oracle over the
+    generator's rows;
+    EXPLAIN ANALYSIS of ``SELECT * FROM order_flags``: ``typecheck: ok``,
+    a ``donation:`` line with ``wired=false`` and a ``sharding:`` line
+    with ``spmd=false workers=1`` for each of the three installed views,
+    and the compile block naming ``merge_path.cu``.
     Then shutdown (each replica process alive until then) and a recovery
     on the same directory: the catalog replayed, Q1 equal to the oracle,
     and Q1's subscription resumed at its last frontier exactly. Printed:
@@ -1602,7 +1618,45 @@ def phase_sql_plans(card) -> dict:
                   and len(joins[0].inputs) == 6, "Q7 is not one 6-input delta join")
     for name, sql in (("q7", Q7_SQL), ("q1", SERVE_Q1_SQL)):
         out[f"{name}_explain_physical"] = _explain_vs_render(sql, tpch_catalog(), name)
+    out.update(_typechecked_plans({"q7": Q7_SQL, "q21": Q21_SQL, "q1": SERVE_Q1_SQL}))
     emit(out)
+    return out
+
+
+def _typechecked_plans(queries: dict) -> dict:
+    """Each query planned again with ``optimizer_typecheck`` on (every
+    transform's output typechecked, the final plan's LIR decisions
+    checked): no transform may be blamed, and the plan must equal the
+    one planned with the flag off. Returns planning ms, best of 3, both
+    ways, and the static EXPLAIN ANALYSIS report of each."""
+    from materialize_tpu_torch.analysis import report
+    from materialize_tpu_torch.sql.plan import plan_statement
+    from materialize_tpu_torch.transform.optimizer import optimize
+    from materialize_tpu_torch.utils.dyncfg import COMPUTE_CONFIGS
+    from materialize_tpu_torch.workloads.tpch import tpch_catalog
+
+    out = {}
+    for name, sql in queries.items():
+        plans, ms = {}, {}
+        for flag in (False, True):
+            COMPUTE_CONFIGS.update({"optimizer_typecheck": flag})
+            try:
+                times = []
+                for _ in range(3):
+                    t = time.perf_counter()
+                    plans[flag] = optimize(plan_statement(sql, tpch_catalog()).expr)
+                    times.append((time.perf_counter() - t) * 1e3)
+            finally:
+                COMPUTE_CONFIGS.update({"optimizer_typecheck": None})
+            ms[flag] = min(times)
+        check(plans[True] == plans[False],
+              f"{name}: the plan with optimizer_typecheck on differs from the plan without")
+        text = report(plans[True])
+        check(text.startswith("typecheck: ok") and text.endswith("lir: ok"),
+              f"{name}: EXPLAIN ANALYSIS report {text!r}")
+        out[f"{name}_plan_ms_typecheck_off"] = ms[False]
+        out[f"{name}_plan_ms_typecheck_on"] = ms[True]
+        out[f"{name}_analysis"] = text.splitlines()
     return out
 
 
@@ -3167,6 +3221,14 @@ DEPLOY_TICKS, DEPLOY_SPAN, DEPLOY_PACED, DEPLOY_RESUMED = 32, 16, 16, 4
 # The query subscription's filter: 4,096 orders (the generator's keys are
 # dense), so its snapshot stays inside subscribe_queue_depth's 8,192 rows.
 DEPLOY_OL_MAX_KEY = 4096
+# The collection aggregates' view: one group an order (~150,000 at SF
+# 0.1), a STRING_AGG and an ARRAY_AGG over ~600,000 multiset rows each.
+ORDER_FLAGS_SQL = (
+    "CREATE MATERIALIZED VIEW order_flags AS SELECT l_orderkey, "
+    "string_agg(l_returnflag, ',') AS flags, array_agg(l_linenumber) AS lines, "
+    "count(*) AS n FROM lineitem GROUP BY l_orderkey"
+)
+DEPLOY_FLAG_LOOKUPS = 64
 
 
 def _copy_lines(payload: bytes) -> tuple:
@@ -3346,6 +3408,92 @@ def _check_order_lines(state, lines_qty, what: str) -> None:
     check(got == want, f"{what}: {len(got)} rows vs the oracle's {len(want)}")
 
 
+def _order_flags_oracle(parts, keys=None) -> dict:
+    """``order_flags`` over the live rows of ``parts`` (only the orders
+    ``keys`` when given): {orderkey text: (flags, lines, n)} as the wire
+    carries them: the return flags in string order joined by ',', the
+    line numbers ascending in braces, each repeated by its multiplicity,
+    and the row count."""
+    from materialize_tpu_torch.repr.schema import GLOBAL_DICT
+
+    key, line, flag, diff = _cols_of(parts, (0, 3, 8))
+    if keys is not None:
+        m = np.isin(key, np.asarray(keys, np.int64))
+        key, line, flag, diff = key[m], line[m], flag[m], diff[m]
+    codes = np.unique(flag)
+    # Flags by string (the engine's dictionary codes are in string order,
+    # in whichever process coded them); line numbers by value.
+    rank = np.argsort(np.argsort([GLOBAL_DICT.decode(int(c)) for c in codes]))
+    flag_rank = rank[np.searchsorted(codes, flag)]
+    texts = {}
+    for name, col, render in (
+        ("flags", flag_rank, np.array(sorted(GLOBAL_DICT.decode(int(c)) for c in codes))),
+        ("lines", line, None),
+    ):
+        # (order, value) pairs as one int64 (line numbers are 1..7, flag
+        # ranks 0..2), their net multiplicities, in (order, value) order.
+        pair, inv = np.unique(key * 16 + col, return_inverse=True)
+        mult = np.bincount(inv.reshape(-1), weights=diff, minlength=len(pair)).astype(np.int64)
+        check(bool((mult >= 0).all()), "order_flags oracle: a negative multiplicity")
+        pair, mult = pair[mult > 0], mult[mult > 0]
+        vals = pair % 16
+        elems = render[vals] if render is not None else vals.astype(str)
+        elems = np.repeat(elems, mult).tolist()
+        ks = np.repeat(pair // 16, mult)
+        starts = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
+        bounds = np.r_[starts, len(ks)].tolist()
+        texts[name] = {int(ks[a]): elems[a:b] for a, b in zip(bounds, bounds[1:])}
+    return {str(k): (",".join(f), "{" + ",".join(texts["lines"][k]) + "}", str(len(f)))
+            for k, f in texts["flags"].items()}
+
+
+def _check_order_flags(rows, want: dict, what: str) -> None:
+    got = {r[0]: tuple(r[1:]) for r in rows}
+    check(len(got) == len(rows), f"{what}: a key twice in order_flags")
+    bad = [k for k in set(got) | set(want) if got.get(k) != want.get(k)]
+    check(not bad, f"{what}: {len(bad)} of {len(want)} orders differ from the oracle, "
+          f"e.g. {[(k, got.get(k), want.get(k)) for k in sorted(bad)[:3]]}")
+
+
+def _flag_lookups(client, keys, want: dict, what: str) -> list:
+    """``SELECT * FROM order_flags WHERE l_orderkey = k`` for each key,
+    each against the oracle; returns the ms of each."""
+    ms = []
+    for k in keys:
+        (_c, rows, _t), dt = _timed(client, f"SELECT * FROM order_flags WHERE l_orderkey = {k}")
+        _check_order_flags(rows, {str(k): want[str(k)]} if str(k) in want else {},
+                           f"{what}: order {k}")
+        ms.append(dt)
+    return ms
+
+
+def _check_explain_analysis(text: str, views: tuple) -> dict:
+    """EXPLAIN ANALYSIS of a SELECT over ``order_flags``: the plan types,
+    and the live blocks cover every installed view: a donation line each
+    with ``wired=false``, a sharding line each with ``spmd=false
+    workers=1``, and the compile block names ``merge_path.cu``."""
+    lines = text.splitlines()
+    check(lines and lines[0].startswith("typecheck: ok"), f"EXPLAIN ANALYSIS: {lines[:1]}")
+    blocks, cur = {}, None
+    for ln in lines:
+        if not ln.startswith(" "):
+            cur = ln.split(":", 1)[0]
+            blocks[cur] = []
+        else:
+            blocks[cur].append(ln.strip())
+    for v in views:
+        don = [x for x in blocks.get("donation", []) if x.startswith(f"{v}@")]
+        check(don and all("wired=false" in x for x in don),
+              f"EXPLAIN ANALYSIS: donation lines of {v}: {don}")
+        sh = [x for x in blocks.get("sharding", []) if x.startswith(f"{v}@")]
+        check(sh and all("spmd=false workers=1" in x for x in sh),
+              f"EXPLAIN ANALYSIS: sharding lines of {v}: {sh}")
+    check(any("merge_path.cu" in x for x in blocks.get("compiles", [])),
+          f"EXPLAIN ANALYSIS: the compile block names no merge_path.cu: "
+          f"{blocks.get('compiles')}")
+    return {"lines": lines, "donation": blocks["donation"], "sharding": blocks["sharding"]}
+
+
 def _metric_samples(http_port: int) -> dict:
     """``/metrics`` as {sample with its labels: value} (the deployment's
     one scrape: the coordinator's registry merged with each replica's
@@ -3436,6 +3584,10 @@ def _deploy_run(root: str, device: str, sf: float, churn: int, ticks: int, span:
         http = env.http.port
         c = PgClient(env.pg.port)
         c.query("SET metrics_report_ms = 50")
+        # order_flags' point lookups differ in their literal, so the
+        # transient-SELECT cache never hits them; its default would keep 8
+        # of their dataflows installed, stepping every tick.
+        c.query("SET transient_peek_cache = 0")
         if not span_pipelining:
             c.query("SET span_pipelining = false")
         t = time.perf_counter()
@@ -3444,6 +3596,7 @@ def _deploy_run(root: str, device: str, sf: float, churn: int, ticks: int, span:
         c.query("CREATE MATERIALIZED VIEW q1 AS " + SERVE_Q1_SQL)
         c.query(SERVE_ORDER_LINES_SQL)
         c.query("CREATE INDEX order_lines_idx ON order_lines (l_orderkey)")
+        c.query(ORDER_FLAGS_SQL)
         _cols, first_q1, _tag = c.query("SELECT * FROM q1")
         out["hydrate_s"] = time.perf_counter() - t
         stage("boot_and_hydrate")
@@ -3458,6 +3611,12 @@ def _deploy_run(root: str, device: str, sf: float, churn: int, ticks: int, span:
             lq = _order_lines_small([part])
             ol_at.append((ol_at[-1][0] + lq[0], ol_at[-1][1] + lq[1]))
         _check_q1_wire(first_q1, None, "deploy: Q1 after hydration", q1_at[1])
+        # The collection aggregates after hydration: 64 seeded orders.
+        snap_keys = np.unique(_cols_of(snap, (0,))[0])
+        flag_keys = np.random.default_rng(12).choice(snap_keys, DEPLOY_FLAG_LOOKUPS,
+                                                     replace=False).tolist()
+        flag_ms = _flag_lookups(c, flag_keys, _order_flags_oracle(snap, flag_keys),
+                                "deploy: order_flags after hydration")
         stage("oracle")
         ol_sql = (f"SUBSCRIBE TO (SELECT l_orderkey, lines, qty FROM order_lines "
                   f"WHERE l_orderkey <= {DEPLOY_OL_MAX_KEY})")
@@ -3553,6 +3712,27 @@ def _deploy_run(root: str, device: str, sf: float, churn: int, ticks: int, span:
         check(len(intro["mz_subscriptions"]) == 3, "deploy: mz_subscriptions")
         check(any(r[0] == "q1" and r[1] == "r0" and int(r[2]) > 0
                   for r in intro["mz_wallclock_lag_summary"]), "deploy: no lag samples for q1")
+        # order_flags after the paced ticks: the same 64 orders, then the
+        # whole view, against the oracle at the source's frontier.
+        live_parts = snap + churn_parts[: src.t - 1]
+        flag_ms += _flag_lookups(c, flag_keys, _order_flags_oracle(live_parts, flag_keys),
+                                 "deploy: order_flags after the paced ticks")
+        # The whole view: first until its frontier passes the source's
+        # last tick (it steps a tick at a time), then the read itself over
+        # /api/sql (one response body: pgwire's one message a row between
+        # two threads of this interpreter took 43.5 s for 150,000 rows,
+        # PERF.md).
+        t_w = time.perf_counter()
+        env.coord.controller.wait_frontier("order_flags", src.t - 1, timeout=300)
+        catch_up_s = time.perf_counter() - t_w
+        t_w = time.perf_counter()
+        flag_rows = _http_sql(http, "SELECT * FROM order_flags")
+        full_ms = (time.perf_counter() - t_w) * 1e3
+        want_flags = _order_flags_oracle(live_parts)
+        _check_order_flags(flag_rows, want_flags, "deploy: the whole of order_flags")
+        _c, ex_rows, _t = c.query("EXPLAIN ANALYSIS SELECT * FROM order_flags")
+        explain = _check_explain_analysis("\n".join(r[0] for r in ex_rows),
+                                          ("q1", "order_lines_idx", "order_flags"))
         comp = intro["mz_compactions"]
         check(sum(int(r[3]) for r in comp) > 0, f"deploy: no background compaction: {comp}")
         check(all(int(r[4]) == 0 and int(r[5]) == 0 for r in comp),
@@ -3590,6 +3770,11 @@ def _deploy_run(root: str, device: str, sf: float, churn: int, ticks: int, span:
                             "merges_inline": sum(int(r[4]) for r in comp),
                             "coordinator": COMPACTION_STATS.totals()},
             "readyz": ready["checks"],
+            "order_flags": {"groups": len(want_flags), "lookups": len(flag_ms),
+                            "lookup_ms_p50": float(np.percentile(flag_ms, 50)),
+                            "lookup_ms_p99": float(np.percentile(flag_ms, 99)),
+                            "catch_up_s": catch_up_s, "whole_view_http_ms": full_ms},
+            "explain_analysis": explain,
         })
         for tl in tails.values():
             tl.close()
@@ -3689,8 +3874,8 @@ def phase_deploy(torch, merge_kernel, card, serve: dict, span_pipelining: bool =
             out = _deploy_run(root, "cuda", SERVE_SF, SERVE_CHURN, DEPLOY_TICKS, DEPLOY_SPAN,
                               DEPLOY_PACED, DEPLOY_RESUMED, span_pipelining=span_pipelining)
     finally:
-        # The SET landed in this process's flags too (the coordinator's).
-        COMPUTE_CONFIGS.update({"span_pipelining": None})
+        # The SETs landed in this process's flags too (the coordinator's).
+        COMPUTE_CONFIGS.update({"span_pipelining": None, "transient_peek_cache": None})
     check(out["launches_first_boot"] > 0 and out["launches_recovery_boot"] > 0,
           f"deploy: the replica processes launched merge_path "
           f"{out['launches_first_boot']}/{out['launches_recovery_boot']} times")

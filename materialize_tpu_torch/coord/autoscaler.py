@@ -34,6 +34,7 @@ from dataclasses import dataclass
 
 from collections import deque
 
+from ..utils import lockcheck as _lockcheck
 from ..utils.locks import tracked_lock
 from ..utils.retry import _dur
 
@@ -157,6 +158,7 @@ class AutoscaleLedger:
             f"{k}={evidence[k]}" for k in sorted(evidence)
         )
         with self._lock:
+            _lockcheck.shared_write("autoscale.events")
             self._events.append(
                 (float(at), str(action), str(replica), str(reason), ev)
             )
@@ -164,10 +166,12 @@ class AutoscaleLedger:
     def rows(self) -> list:
         """Newest-last (at, action, replica, reason, evidence)."""
         with self._lock:
+            _lockcheck.shared_read("autoscale.events")
             return list(self._events)
 
     def clear(self) -> None:
         with self._lock:
+            _lockcheck.shared_write("autoscale.events")
             self._events.clear()
 
 

@@ -38,6 +38,7 @@ import time as _time
 from collections import deque
 
 from . import protocol as ctp
+from ..utils import lockcheck as _lockcheck
 from ..utils import retry as retry_mod
 from .peek import PeekTimedOut, ServerBusy
 from .protocol import DataflowDescription
@@ -363,6 +364,7 @@ class PeekBatcher:
         # the flusher thread was a detector-confirmed race
         # (tests/test_racecheck.py pins it).
         with ctrl._lock:
+            _lockcheck.shared_write("controller.peek_events")
             ctrl._peek_events[peek_id] = ev
         spec = {
             "scan": bool(scan),
@@ -411,6 +413,7 @@ class PeekBatcher:
                     error = resp["error"]
         finally:
             with ctrl._lock:
+                _lockcheck.shared_write("controller.peek_events")
                 ctrl._peek_events.pop(batch.peek_id, None)
                 ctrl._peek_results.pop(batch.peek_id, None)
                 info = ctrl._inflight_peeks.pop(batch.peek_id, None)
@@ -499,6 +502,7 @@ class ReplicaClient:
 
     def stats(self) -> dict:
         with self._stats_lock:
+            _lockcheck.shared_read("controller.replica_stats")
             return {
                 "sessions": self.sessions,
                 "reconnects": max(self.sessions - 1, 0),
@@ -559,6 +563,9 @@ class ReplicaClient:
                     # attempt must win immediately, not probe one
                     # nonce per backoff cycle (recovery time).
                     with self._stats_lock:
+                        _lockcheck.shared_write(
+                            "controller.replica_stats"
+                        )
                         self.fenced += 1
                     retry_mod.fenced_epochs_total().inc()
                     self._nonce_counter.bump_past(
@@ -566,6 +573,7 @@ class ReplicaClient:
                     )
                 raise ctp.TransportError(f"hello rejected: {resp}")
             with self._stats_lock:
+                _lockcheck.shared_write("controller.replica_stats")
                 self.sessions += 1
                 reconnect = self.sessions > 1
             if reconnect:
@@ -744,6 +752,7 @@ class ComputeController:
         # mutating it outside _lock was a detector-confirmed race
         # (tests/test_racecheck.py pins it).
         with self._lock:
+            _lockcheck.shared_write("controller.replicas")
             self.replicas[name] = rc
             dataflows = list(self._dataflows)
         for df in dataflows:
@@ -751,10 +760,12 @@ class ComputeController:
 
     def drop_replica(self, name: str) -> None:
         with self._lock:
+            _lockcheck.shared_write("controller.replicas")
             rc = self.replicas.pop(name, None)
         if rc is not None:
             rc.stop()
         with self._lock:
+            _lockcheck.shared_write("controller.observed")
             for per_df in self.frontiers.values():
                 per_df.pop(name, None)
             for per_df in self.arrangement_records.values():
@@ -791,6 +802,7 @@ class ComputeController:
         # queue put, but a slow replica must not serialize the others
         # behind the controller lock.
         with self._lock:
+            _lockcheck.shared_read("controller.replicas")
             targets = list(self.replicas.values())
         for rc in targets:
             rc.send(cmd)
@@ -808,6 +820,7 @@ class ComputeController:
         from .freshness import FRESHNESS
 
         with self._lock:
+            _lockcheck.shared_read("controller.replicas")
             live = [
                 r
                 for r, rc in self.replicas.items()
@@ -844,6 +857,7 @@ class ComputeController:
         for r in self.route_candidates(dataflow):
             status = self.hydration.status((dataflow, r))
             with self._lock:
+                _lockcheck.shared_read("controller.observed")
                 frontier = self.frontiers.get(dataflow, {}).get(r, 0)
             if status in ("hydrated", "swapping") or frontier > 0:
                 out.append(r)
@@ -877,9 +891,11 @@ class ComputeController:
                 target = cands[0]
         avoided = 0
         with self._lock:
+            _lockcheck.shared_read("controller.replicas")
             rc = self.replicas.get(target) if target else None
             if rc is None:
                 target = None
+            _lockcheck.shared_write("controller.peek_events")
             self._inflight_peeks[peek_id] = {
                 "dataflow": dataflow,
                 "cmd": cmd,
@@ -919,6 +935,7 @@ class ComputeController:
         pol = retry_mod.policy("failover")
         max_hops = pol.attempts if pol.attempts > 0 else 3
         with self._lock:
+            _lockcheck.shared_write("controller.peek_events")
             info = self._inflight_peeks.get(peek_id)
             if (
                 info is None
@@ -937,6 +954,7 @@ class ComputeController:
             if r not in tried
         ]
         with self._lock:
+            _lockcheck.shared_write("controller.peek_events")
             info = self._inflight_peeks.get(peek_id)
             if (
                 info is None
@@ -958,6 +976,7 @@ class ComputeController:
                 self.routed_counts[nxt] = (
                     self.routed_counts.get(nxt, 0) + 1
                 )
+                _lockcheck.shared_read("controller.replicas")
                 rc = self.replicas.get(nxt)
             cmd = info["cmd"]
         peek_failovers_total().inc()
@@ -1003,6 +1022,7 @@ class ComputeController:
             self._broadcast(cmd)
             return
         with self._lock:
+            _lockcheck.shared_read("controller.replicas")
             targets = [
                 self.replicas[r]
                 for r in info["tried"]
@@ -1017,6 +1037,7 @@ class ComputeController:
         must not ride out the stall timer (the
         disconnect event, not the timeout, is the failover trigger)."""
         with self._lock:
+            _lockcheck.shared_read("controller.peek_events")
             doomed = [
                 pid
                 for pid, info in self._inflight_peeks.items()
@@ -1037,12 +1058,14 @@ class ComputeController:
         if timeout is None:
             timeout = pol.budget if pol.budget > 0 else 10.0
         with self._lock:
+            _lockcheck.shared_read("controller.replicas")
             known = name in self.replicas
             if known:
                 self._draining.add(name)
         if not known:
             return {"drained": False, "moved": 0}
         with self._lock:
+            _lockcheck.shared_read("controller.peek_events")
             pids = [
                 pid
                 for pid, info in self._inflight_peeks.items()
@@ -1054,6 +1077,7 @@ class ComputeController:
         deadline = _time.monotonic() + timeout
         while _time.monotonic() < deadline:
             with self._lock:
+                _lockcheck.shared_read("controller.peek_events")
                 still = any(
                     info["target"] == name
                     for info in self._inflight_peeks.values()
@@ -1069,6 +1093,7 @@ class ComputeController:
         connection state, lifecycle state (active|draining), and how
         many reads routed to it."""
         with self._lock:
+            _lockcheck.shared_read("controller.replicas")
             items = sorted(self.replicas.items())
             draining = set(self._draining)
             routed = dict(self.routed_counts)
@@ -1130,6 +1155,7 @@ class ComputeController:
             # replica gets the dataflow from history replay later, and
             # must not stall DDL (chaos kills replicas mid-run).
             with self._lock:
+                _lockcheck.shared_read("controller.replicas")
                 connected = [
                     r
                     for r, rc in self.replicas.items()
@@ -1180,6 +1206,7 @@ class ComputeController:
 
     def drop_dataflow(self, name: str) -> None:
         with self._lock:
+            _lockcheck.shared_write("controller.observed")
             self._dataflows.pop(name, None)
             self.frontiers.pop(name, None)
             self.arrangement_records.pop(name, None)
@@ -1220,6 +1247,7 @@ class ComputeController:
         # absorber walks this map under _lock, so the insert must be
         # under it too.
         with self._lock:
+            _lockcheck.shared_write("controller.peek_events")
             self._peek_events[peek_id] = ev
         with TRACER.span(
             "controller.peek", dataflow=dataflow, peek_id=peek_id
@@ -1253,6 +1281,7 @@ class ComputeController:
                 # the absorber's lock: later duplicate responses cannot
                 # leak. Cancels go to the replicas that saw the peek.
                 with self._lock:
+                    _lockcheck.shared_write("controller.peek_events")
                     self._peek_events.pop(peek_id, None)
                     self._peek_results.pop(peek_id, None)
                     info = self._inflight_peeks.pop(peek_id, None)
@@ -1301,8 +1330,10 @@ class ComputeController:
                 with self._lock:
                     # A dropped replica may still have queued reports:
                     # discard them or they pin the definite frontier.
+                    _lockcheck.shared_read("controller.replicas")
                     known = replica in self.replicas
                     if known:
+                        _lockcheck.shared_write("controller.observed")
                         for df, upper in msg["uppers"].items():
                             self.frontiers.setdefault(df, {})[
                                 replica
@@ -1395,6 +1426,7 @@ class ComputeController:
             elif kind == "PeekResponse":
                 pid = msg["peek_id"]
                 with self._lock:
+                    _lockcheck.shared_write("controller.peek_events")
                     ev = self._peek_events.get(pid)
                     if ev is not None and pid not in self._peek_results:
                         self._peek_results[pid] = msg  # first wins
@@ -1408,6 +1440,8 @@ class ComputeController:
         a replica that has not reported yet (still hydrating) counts as
         0, so the definite frontier never overstates."""
         with self._lock:
+            _lockcheck.shared_read("controller.replicas")
+            _lockcheck.shared_read("controller.observed")
             if not self.replicas:
                 return 0
             per = self.frontiers.get(dataflow, {})
@@ -1419,6 +1453,7 @@ class ComputeController:
         two reads straddling an increment are separated by at least
         one committed span."""
         with self._lock:
+            _lockcheck.shared_read("controller.observed")
             per = self.span_epochs.get(dataflow)
             return max(per.values()) if per else 0
 
@@ -1426,6 +1461,7 @@ class ComputeController:
         """The serving frontier: MAX over replicas (some replica can
         answer at this time)."""
         with self._lock:
+            _lockcheck.shared_read("controller.observed")
             per = self.frontiers.get(dataflow)
             return max(per.values()) if per else 0
 
@@ -1439,6 +1475,7 @@ class ComputeController:
         from .freshness import FRESHNESS
 
         with self._lock:
+            _lockcheck.shared_read("controller.replicas")
             live = [
                 r
                 for r, rc in self.replicas.items()
@@ -1494,6 +1531,8 @@ class ComputeController:
         per-dataflow install/rebuild/reconcile counts the replicas
         piggyback on their frontier reports."""
         with self._lock:
+            _lockcheck.shared_read("controller.replicas")
+            _lockcheck.shared_read("controller.observed")
             dataflows = {
                 df: {rep: dict(v) for rep, v in per.items()}
                 for df, per in self.recovery_stats.items()
@@ -1511,6 +1550,7 @@ class ComputeController:
 
         GLOBAL_DICT.remove_rebalance_listener(self._rebalance_listener)
         with self._lock:
+            _lockcheck.shared_read("controller.replicas")
             clients = list(self.replicas.values())
         for rc in clients:
             rc.stop()

@@ -16,9 +16,8 @@ reference (simple, and all the heavy lifting is async underneath).
 The port's copy plans with the port's own frontend and optimizer
 (``sql/``, ``transform/``) and evaluates introspection reads on the
 device it is given (``device=``, default ``"cuda"``). Not ported yet,
-each raising with its ROADMAP item: the introspection relations that
-read JAX compile and program state (``coord/introspection.py``), sinks
-(item 16) and the EXPLAIN ANALYSIS blocks (item 14).
+each raising with its ROADMAP item: the program bank's introspection
+relation (``coord/introspection.py``) and sinks (item 16).
 """
 
 from __future__ import annotations
@@ -246,6 +245,289 @@ class Coordinator:
     # -- replicas -----------------------------------------------------------
     def add_replica(self, name: str, addr) -> None:
         self.controller.add_replica(name, addr)
+
+    def _donation_analysis_text(self) -> str:
+        """Provenance/donation verdicts for every installed
+        catalog-named dataflow (the EXPLAIN ANALYSIS live block;
+        mz_donation serves ALL installed dataflows relationally,
+        transient-SELECT cache installs included — those carry
+        session-scoped generated names, which would make EXPLAIN
+        output nondeterministic). A dataflow whose replica has not
+        reported a verdict yet prints as pending rather than being
+        omitted — the surface always covers the full install set."""
+        named = {it.name for it in self.catalog.items.values()}
+        named |= set(self.peekable.values())
+        with self.controller._lock:
+            installed = sorted(
+                n for n in self.controller._dataflows if n in named
+            )
+            verdicts = {
+                df: dict(per)
+                for df, per in (
+                    self.controller.donation_verdicts.items()
+                )
+            }
+        lines = ["donation:"]
+        if not installed:
+            lines.append("  (no dataflows installed)")
+        for name in installed:
+            per = verdicts.get(name)
+            if not per:
+                lines.append(
+                    f"  {name}: pending (no replica verdict yet)"
+                )
+                continue
+            for rep, v in sorted(per.items()):
+                from ..analysis.donation import verdict_display
+
+                donated, prov = verdict_display(v)
+                lines.append(
+                    f"  {name}@{rep}: "
+                    f"safe={str(bool(v.get('safe'))).lower()} "
+                    f"requested="
+                    f"{str(bool(v.get('requested'))).lower()} "
+                    f"wired={str(bool(v.get('wired'))).lower()} "
+                    f"donated=[{donated}] provenance({prov})"
+                )
+        return "\n".join(lines)
+
+    def _sharding_analysis_text(self) -> str:
+        """Shard-spec prover reports for every installed catalog-named
+        dataflow (the EXPLAIN ANALYSIS `sharding:` block;
+        mz_sharding serves the same rows relationally). Same coverage
+        discipline as the donation block: a dataflow whose replica has
+        not reported yet prints as pending, never omitted."""
+        from ..analysis.shard_prop import sharding_display
+
+        named = {it.name for it in self.catalog.items.values()}
+        named |= set(self.peekable.values())
+        with self.controller._lock:
+            installed = sorted(
+                n for n in self.controller._dataflows if n in named
+            )
+            verdicts = {
+                df: dict(per)
+                for df, per in (
+                    self.controller.sharding_verdicts.items()
+                )
+            }
+        lines = ["sharding:"]
+        if not installed:
+            lines.append("  (no dataflows installed)")
+        for name in installed:
+            per = verdicts.get(name)
+            if not per:
+                lines.append(
+                    f"  {name}: pending (no replica report yet)"
+                )
+                continue
+            for rep, v in sorted(per.items()):
+                census, blame = sharding_display(v)
+                line = (
+                    f"  {name}@{rep}: "
+                    f"spmd={str(bool(v.get('spmd'))).lower()} "
+                    f"workers={int(v.get('workers') or 1)} "
+                    f"ingest={v.get('ingest_mode')} "
+                    f"safe={str(bool(v.get('safe'))).lower()} "
+                    f"comm({census})"
+                )
+                if blame:
+                    line += f" blame[{blame}]"
+                lines.append(line)
+        return "\n".join(lines)
+
+    def _recovery_analysis_text(self) -> str:
+        """Crash-recovery observability (the EXPLAIN ANALYSIS
+        `recovery:` block; mz_recovery serves the same rows
+        relationally): what the last boot replayed, each replica's
+        session/fence counters, and the per-dataflow
+        install/rebuild/reconcile counts — reconciliation as a counted
+        invariant (rebuilds == 0 across restart when fingerprints are
+        unchanged)."""
+        r = self.recovery
+        coord_line = (
+            "  coordinator: "
+            f"catalog_replayed={int(r['catalog_replayed'])} "
+            f"dyncfg_replayed={int(r['dyncfg_replayed'])} "
+            f"replay_failures={int(r['replay_failures'])}"
+        )
+        # recovery_ms is wall-clock; on a fresh boot (nothing replayed)
+        # it measures bootstrap overhead, not recovery, so EXPLAIN
+        # omits it to stay deterministic for SLT — mz_recovery always
+        # serves it relationally.
+        if any((r["catalog_replayed"], r["dyncfg_replayed"],
+                r["replay_failures"])):
+            coord_line += f" recovery_ms={r['recovery_ms']:.1f}"
+        lines = ["recovery:", coord_line]
+        snap = self.controller.recovery_snapshot()
+        for name, st in sorted(snap["replicas"].items()):
+            lines.append(
+                f"  replica {name}: sessions={st['sessions']} "
+                f"reconnects={st['reconnects']} "
+                f"fenced={st['fenced']} "
+                f"connected={str(bool(st['connected'])).lower()}"
+            )
+        named = {it.name for it in self.catalog.items.values()}
+        named |= set(self.peekable.values())
+        for df, per in sorted(snap["dataflows"].items()):
+            if df not in named:
+                continue
+            for rep, v in sorted(per.items()):
+                lines.append(
+                    f"  {df}@{rep}: "
+                    f"installs={int(v.get('installs', 0))} "
+                    f"rebuilds={int(v.get('rebuilds', 0))} "
+                    f"reconciles={int(v.get('reconciles', 0))} "
+                    f"hydrate_ms={float(v.get('hydrate_ms', 0)):.1f}"
+                )
+        return "\n".join(lines)
+
+    def _compile_analysis_text(self) -> str:
+        """The compile ledger's EXPLAIN ANALYSIS block: the port's
+        builds and loads of its native libraries (``merge_path.cu`` by
+        nvcc, ``mtnative.cpp`` by g++), this process's and those its
+        replica processes shipped. The reference records one XLA compile
+        per dataflow program and scopes the block to the installed
+        catalog-named dataflows; a port library serves every dataflow,
+        so the block lists every library once any such dataflow is
+        installed (``mz_compile_log`` serves each record)."""
+        from ..utils.compile_ledger import LEDGER
+
+        named = {it.name for it in self.catalog.items.values()}
+        named |= set(self.peekable.values())
+        with self.controller._lock:
+            installed = any(n in named for n in self.controller._dataflows)
+        recs = LEDGER.records() if installed else []
+        lines = ["compiles:"]
+        if not recs:
+            lines.append("  (no compiles recorded for installed "
+                         "dataflows)")
+            return "\n".join(lines)
+        libs: dict = {}
+        for r in recs:
+            k = libs.setdefault((r.kind, r.name), [0, 0, 0.0])
+            k[0 if r.cache == "miss" else 1] += 1
+            k[2] += r.seconds
+        for (kind, name), (misses, hits, secs) in sorted(libs.items()):
+            lines.append(
+                f"  {kind} {name}: compiles={misses + hits} "
+                f"misses={misses} hits={hits} seconds={secs:.3f}"
+            )
+        s = LEDGER.summary()
+        lines.append(
+            f"  total: compiles={s['compiles']} "
+            f"misses={s['misses']} hits={s['hits']} "
+            f"seconds={s['seconds']:.3f}"
+        )
+        return "\n".join(lines)
+
+    def _freshness_analysis_text(self) -> str:
+        """The freshness plane's EXPLAIN ANALYSIS block:
+        per installed catalog-named dataflow and replica, the
+        hydration status and the windowed wallclock-lag rollup — the
+        same scoping discipline as the donation/compile blocks
+        (transient SELECT installs are excluded; mz_wallclock_lag_*
+        and mz_hydration_statuses serve everything relationally)."""
+        from .freshness import FRESHNESS
+
+        named = {it.name for it in self.catalog.items.values()}
+        named |= set(self.peekable.values())
+        with self.controller._lock:
+            installed = sorted(
+                n for n in self.controller._dataflows if n in named
+            )
+        lines = ["freshness:"]
+        if not installed:
+            lines.append("  (no dataflows installed)")
+            return "\n".join(lines)
+        summary = FRESHNESS.summary()
+        board = {
+            (df, rep): (status, attempts, error)
+            for df, rep, status, _since, attempts, error
+            in self.controller.hydration_snapshot()
+        }
+        for df in installed:
+            reps = sorted(
+                {rep for (d, rep) in summary if d == df}
+                | {rep for (d, rep) in board if d == df}
+            )
+            if not reps:
+                lines.append(
+                    f"  {df}: pending (no replica report yet)"
+                )
+                continue
+            for rep in reps:
+                status, attempts, error = board.get(
+                    (df, rep), ("pending", 0, "")
+                )
+                line = f"  {df}@{rep}: status={status}"
+                if attempts:
+                    line += f" attempts={attempts}"
+                s = summary.get((df, rep))
+                if s is not None and s["samples"]:
+                    line += (
+                        f" lag_p50_ms={s['p50_ms']:.1f}"
+                        f" lag_p99_ms={s['p99_ms']:.1f}"
+                        f" samples={s['samples']}"
+                    )
+                if error:
+                    line += f" last_error={error!r}"
+                lines.append(line)
+        return "\n".join(lines)
+
+    def _replicas_analysis_text(self) -> str:
+        """The elastic read plane's EXPLAIN ANALYSIS block:
+        per installed catalog-named dataflow, the replica set with
+        hydration status + windowed lag and the CURRENT routing
+        target — routing decisions inspectable without reading
+        metrics. Same scoping discipline as the freshness block
+        (transients excluded; mz_cluster_replicas serves the replica
+        rows relationally)."""
+        from .freshness import FRESHNESS
+
+        named = {it.name for it in self.catalog.items.values()}
+        named |= set(self.peekable.values())
+        with self.controller._lock:
+            installed = sorted(
+                n for n in self.controller._dataflows if n in named
+            )
+        states = {
+            s["name"]: s for s in self.controller.replica_states()
+        }
+        lines = ["replicas:"]
+        if not installed:
+            lines.append("  (no dataflows installed)")
+            return "\n".join(lines)
+        summary = FRESHNESS.summary()
+        for df in installed:
+            target = self.controller.routing_target(df)
+            cands = self.controller.route_candidates(df)
+            parts = []
+            for rep in sorted(states):
+                st = states[rep]
+                status = (
+                    self.controller.hydration.status((df, rep))
+                    or "pending"
+                )
+                piece = f"{rep}:{status}"
+                if st["state"] == "draining":
+                    piece += "(draining)"
+                elif not st["connected"]:
+                    piece += "(disconnected)"
+                s = summary.get((df, rep))
+                if s is not None and s["samples"]:
+                    piece += f" lag_p50_ms={s['p50_ms']:.1f}"
+                parts.append(piece)
+            line = f"  {df}: [" + ", ".join(parts) + "]"
+            line += (
+                f" target={target}"
+                if target is not None
+                else " target=broadcast"
+            )
+            if len(cands) > 1:
+                line += " failover=[" + ", ".join(cands[1:]) + "]"
+            lines.append(line)
+        return "\n".join(lines)
 
     def _catalog_append(self, record: dict, diff: int) -> None:
         self._net_durable += 1 if diff > 0 else -1
@@ -580,12 +862,27 @@ class Coordinator:
         if isinstance(plan, ExplainPlan):
             text = plan.text
             if plan.stage == "analysis":
-                # The LIVE half of EXPLAIN ANALYSIS (donation, sharding,
-                # recovery, compile, subscribe, freshness and replica
-                # blocks) reads subsystems the port lacks.
-                raise NotImplementedError(
-                    "EXPLAIN ANALYSIS is not ported (ROADMAP Queue 1 "
-                    "item 14)"
+                # The LIVE half of EXPLAIN ANALYSIS: the
+                # buffer-provenance / donation-safety verdict and the
+                # shard-spec prover report of every INSTALLED dataflow,
+                # as last reported by the replicas (the plan-side half
+                # above is static and catalog-only).
+                text = (
+                    text
+                    + "\n"
+                    + self._donation_analysis_text()
+                    + "\n"
+                    + self._sharding_analysis_text()
+                    + "\n"
+                    + self._recovery_analysis_text()
+                    + "\n"
+                    + self._compile_analysis_text()
+                    + "\n"
+                    + self.subscribe_hub.analysis_text()
+                    + "\n"
+                    + self._freshness_analysis_text()
+                    + "\n"
+                    + self._replicas_analysis_text()
                 )
             return ExecuteResult(
                 "text", text=text, columns=("explain",)
@@ -1761,10 +2058,24 @@ class Coordinator:
         self, desc: DataflowDescription, unlocked: bool = True,
         durable: bool = True,
     ) -> None:
-        # The reference typechecks a DURABLE plan here (MIR/LIR,
-        # analysis/typecheck.py); the port's typechecker is ROADMAP
-        # Queue 1 item 14, so a bad plan surfaces as the replica's
-        # render error inside wait_installed.
+        # Last line of defense before a DURABLE plan ships to replicas:
+        # the MIR/LIR typechecker (analysis/typecheck.py). Catching an
+        # invalid plan here costs a DDL error; catching it replica-side
+        # costs a render failure inside wait_installed with a worse
+        # message. Transient peeks (durable=False) skip it — the check
+        # would sit on every slow-path SELECT's latency, and a broken
+        # transient plan fails the one peek, not a persisted object.
+        # Also skipped when the optimizer_typecheck dyncfg is on: every
+        # call site passes optimize() output straight here, and under
+        # the flag the optimizer already typechecked after each
+        # transform (naming the offender) and ran typecheck_lir.
+        from ..utils.dyncfg import COMPUTE_CONFIGS, OPTIMIZER_TYPECHECK
+
+        if durable and not OPTIMIZER_TYPECHECK(COMPUTE_CONFIGS):
+            from ..analysis import typecheck, typecheck_lir
+
+            typecheck(desc.expr)
+            typecheck_lir(desc.expr)
         # Transitive upstream shards: index imports contribute their
         # PUBLISHER's upstream so timestamp selection for reads over
         # shared arrangements still sees the real persist inputs.

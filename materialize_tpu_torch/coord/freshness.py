@@ -46,6 +46,7 @@ import time as _time
 from collections import deque
 from dataclasses import dataclass
 
+from ..utils import lockcheck as _lockcheck
 from ..utils.locks import tracked_lock
 
 # Bounded rings: the history holds the newest HISTORY_CAPACITY commit
@@ -205,6 +206,7 @@ class FreshnessRecorder:
             os.getpid(),
         )
         with self._lock:
+            _lockcheck.shared_write("freshness.lag_rings")
             self._buf.append(rec)
             key = (dataflow, replica)
             win = self._windows.get(key)
@@ -254,6 +256,7 @@ class FreshnessRecorder:
         if at is None:
             at = _time.time()
         with self._lock:
+            _lockcheck.shared_write("freshness.lag_rings")
             self._events.append((obj, replica, kind, float(lag), at))
 
     # -- ship / ingest (the Frontiers piggyback) ----------------------------
@@ -264,6 +267,7 @@ class FreshnessRecorder:
 
     def drain_shippable(self) -> list:
         with self._lock:
+            _lockcheck.shared_write("freshness.lag_rings")
             if not self._ship:
                 return []
             out, self._ship = list(self._ship), deque(
@@ -281,6 +285,7 @@ class FreshnessRecorder:
             if rec.pid == me:
                 continue
             with self._lock:
+                _lockcheck.shared_write("freshness.lag_rings")
                 self._buf.append(rec)
                 key = (rec.dataflow, rec.replica)
                 win = self._windows.get(key)
@@ -301,6 +306,7 @@ class FreshnessRecorder:
     def history_rows(self) -> list:
         """Newest-last (dataflow, replica, frontier, lag_ms, at)."""
         with self._lock:
+            _lockcheck.shared_read("freshness.lag_rings")
             return [
                 (r.dataflow, r.replica, r.frontier, r.lag_ms, r.at)
                 for r in self._buf
@@ -311,6 +317,7 @@ class FreshnessRecorder:
         are nearest-rank over the per-key window (pinned semantics:
         :func:`quantile`)."""
         with self._lock:
+            _lockcheck.shared_read("freshness.lag_rings")
             windows = {k: list(v) for k, v in self._windows.items()}
             latest = dict(self._latest)
         out = {}
@@ -332,6 +339,7 @@ class FreshnessRecorder:
     def latest(self, dataflow: str) -> dict:
         """replica -> (frontier, lag_ms, at) for one dataflow."""
         with self._lock:
+            _lockcheck.shared_read("freshness.lag_rings")
             return {
                 r: v
                 for (df, r), v in self._latest.items()
@@ -341,6 +349,7 @@ class FreshnessRecorder:
     def events_rows(self) -> list:
         """Newest-last (object, replica, kind, lag_ms, at)."""
         with self._lock:
+            _lockcheck.shared_read("freshness.lag_rings")
             return list(self._events)
 
     def breaching(self) -> set:
@@ -349,6 +358,7 @@ class FreshnessRecorder:
         (coord/autoscaler.py): a sustained non-empty set means the
         deployment is not keeping its freshness_slo_ms."""
         with self._lock:
+            _lockcheck.shared_read("freshness.lag_rings")
             return set(self._in_breach)
 
     def forget(self, dataflow: str) -> None:

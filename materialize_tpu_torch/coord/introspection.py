@@ -12,9 +12,12 @@ ordinary dataflow renderer, so the FULL SQL surface (joins, aggregates,
 ORDER BY) works over them.
 
 In the port every relation is registered with the reference's schema.
-Three read state the port does not have and raise ``NotImplementedError``
-naming their ROADMAP item when selected (:data:`UNPORTED`): the JAX
-donation and sharding verdicts and the program bank. ``mz_compile_log``
+One reads state the port does not have and raises ``NotImplementedError``
+naming its ROADMAP item when selected (:data:`UNPORTED`): the program
+bank. ``mz_donation`` and ``mz_sharding`` serve the replicas' donation
+verdicts (``analysis/donation.py``) and single-device sharding reports
+(``analysis/shard_prop.py``) with EXPLAIN ANALYSIS's formatters.
+``mz_compile_log``
 lists the port's native library builds and loads
 (``utils/compile_ledger.py``). ``mz_recovery`` has no ``compile`` scope:
 no program bank serves compiles in eager torch.
@@ -34,16 +37,8 @@ def _enc(s: str) -> int:
 
 
 # Relations over reference state with no counterpart in the port yet:
-# name -> where their source waits.
+# name -> where its source waits.
 UNPORTED = {
-    "mz_donation": (
-        "ROADMAP Queue 1 item 14: analysis/donation.py (JAX buffer "
-        "donation verdicts)"
-    ),
-    "mz_sharding": (
-        "ROADMAP Queue 1 item 8: analysis/shard_prop.py (SPMD sharding "
-        "verdicts)"
-    ),
     "mz_program_bank": (
         "ROADMAP Queue 2 item 6: the program bank has no counterpart in "
         "eager torch"
@@ -334,6 +329,72 @@ def snapshot(coord, name: str) -> list[tuple]:
             f"introspection relation {name!r} is not ported "
             f"({UNPORTED[name]})"
         )
+    if name == "mz_donation":
+        # The buffer-provenance prover's verdicts: per
+        # (dataflow, replica), whether the run_steps span train's
+        # carry is provably donatable, which parts actually donate
+        # (requested && safe), whether the backend wires the argnums,
+        # and the provenance class census of the scanned state tree.
+        with coord.controller._lock:
+            snap = {
+                df: dict(per)
+                for df, per in (
+                    coord.controller.donation_verdicts.items()
+                )
+            }
+        from ..analysis.donation import verdict_display
+
+        rows = []
+        for df, per in sorted(snap.items()):
+            for rep, v in sorted(per.items()):
+                donated, prov = verdict_display(v)
+                rows.append(
+                    (
+                        _enc(df),
+                        _enc(rep),
+                        int(bool(v.get("safe"))),
+                        int(bool(v.get("requested"))),
+                        int(bool(v.get("wired"))),
+                        _enc(donated),
+                        _enc(prov),
+                    )
+                )
+        return rows
+    if name == "mz_sharding":
+        # The shard-spec reports: per (dataflow,
+        # replica), whether the dataflow runs SPMD, how many workers,
+        # the prover-gated ingest mode, the SPMD-safety verdict of its
+        # slot-ring cursors (vacuously safe in merge mode), and the
+        # communication census (collective count + per-device bytes),
+        # with the offending collective sites in `blame` when refuted.
+        with coord.controller._lock:
+            snap = {
+                df: dict(per)
+                for df, per in (
+                    coord.controller.sharding_verdicts.items()
+                )
+            }
+        from ..analysis.shard_prop import sharding_display
+
+        rows = []
+        for df, per in sorted(snap.items()):
+            for rep, v in sorted(per.items()):
+                census = v.get("census") or {}
+                _ctext, blame = sharding_display(v)
+                rows.append(
+                    (
+                        _enc(df),
+                        _enc(rep),
+                        int(bool(v.get("spmd"))),
+                        int(v.get("workers") or 1),
+                        _enc(str(v.get("ingest_mode") or "")),
+                        int(bool(v.get("safe"))),
+                        int(census.get("collectives") or 0),
+                        int(census.get("bytes") or 0),
+                        _enc(blame),
+                    )
+                )
+        return rows
     if name == "mz_span_epochs":
         # The committed span boundaries: per (dataflow, replica), the
         # monotone span-epoch counter frontier reports ride on — what

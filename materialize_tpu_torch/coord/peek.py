@@ -307,15 +307,25 @@ def _point_groups(df, bound_cols: tuple, probes: list, served_t: int) -> list:
 
 def _host_filter_groups(view, bound_cols: tuple, probes: list,
                         scan: bool) -> list:
-    """Fallback for dataflows without the single-device gather path:
-    read the result batch once and filter host-side. Still no transient
-    dataflow, still one read amortized over the whole batch."""
+    """Fallback for dataflows without the single-device gather path
+    (basic-aggregate finalizers): read the result batch once and filter
+    host-side. Still no transient dataflow, still one read amortized
+    over the whole batch."""
     from ..storage.persist.operators import _host_updates
 
-    schema = view.df.out_schema
+    df = view.df
+    schema = df.out_schema
     cols, nulls, time, diff = _host_updates(view.result_batch())
+
+    def decode(cols, nulls, time, diff):
+        # Basic-aggregate digests become their groups' strings: only the
+        # rows this read returns are finalized.
+        if getattr(df, "_basic_finalizers", None):
+            cols = df.finalize_basic_columns(cols, nulls)
+        return decode_result_rows(schema, cols, nulls, time, diff)
+
     if scan:
-        return [_decode(schema, cols, nulls, time, diff)]
+        return [decode(cols, nulls, time, diff)]
     groups = []
     for p in probes:
         mask = np.ones(len(diff), dtype=bool)
@@ -325,8 +335,7 @@ def _host_filter_groups(view, bound_cols: tuple, probes: list,
             if nulls[j] is not None:
                 mask &= ~np.asarray(nulls[j])
         groups.append(
-            _decode(
-                schema,
+            decode(
                 [np.asarray(c)[mask] for c in cols],
                 [None if nl is None else np.asarray(nl)[mask] for nl in nulls],
                 time[mask],

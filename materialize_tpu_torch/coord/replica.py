@@ -1076,6 +1076,8 @@ class ReplicaWorker:
         changed = {}
         records = {}
         epochs = {}
+        donation = {}
+        sharding = {}
         abytes = {}
         for name, inst in self.dataflows.items():
             upper = inst.view.upper
@@ -1096,6 +1098,21 @@ class ReplicaWorker:
                 # pure metadata (shape * itemsize off the avals — no
                 # device read), same cadence as the row count.
                 abytes[name] = inst.view.device_bytes()
+            # Donation verdicts ride the frontier report only when the
+            # verdict changed (a new subscriber, a dyncfg flip): steady
+            # state ships nothing extra.
+            if inst.view._donation_dirty:
+                info = inst.view.donation_info()
+                if info is not None:
+                    donation[name] = info
+                inst.view._donation_dirty = False
+            # Sharding reports ride the same way: shipped once at
+            # install (a render-time fact), again only after a rebuild.
+            if inst.view._sharding_dirty:
+                info = inst.view.sharding_info()
+                if info is not None:
+                    sharding[name] = info
+                inst.view._sharding_dirty = False
         # Recovery counters ride the frontier report the
         # same way: only when they changed (install, rebuild,
         # reconciliation) — steady state ships nothing extra.
@@ -1149,12 +1166,13 @@ class ReplicaWorker:
             from ..storage.persist.compactor import STATS as _CSTATS
 
             compactions = _CSTATS.take_dirty()
-        if (changed or recovery or spans or compiles or metrics
-                or freshness or compactions):
+        if (changed or donation or sharding or recovery or spans
+                or compiles or metrics or freshness or compactions):
             ctp.send_msg(
                 conn,
                 ctp.frontiers(
                     changed, records, epochs, self.replica_id,
+                    donation=donation, sharding=sharding,
                     recovery=recovery, spans=spans, compiles=compiles,
                     metrics=metrics,
                     arrangement_bytes=abytes, freshness=freshness,

@@ -51,6 +51,7 @@ from collections import deque
 from ..expr import relation as mir
 from ..sql.hir import PlanError
 from .peek import ServerBusy
+from ..utils import lockcheck as _lockcheck
 from .protocol import DataflowDescription
 
 
@@ -413,6 +414,7 @@ class _SharedTail:
             )
             stamp = _time.monotonic()
             with self._lock:
+                _lockcheck.shared_read("subscribe.sessions")
                 self.readbacks += 1
                 self.spans += 1
                 self.frontier = upper
@@ -519,11 +521,13 @@ class _SharedTail:
                         self.frontier = max(
                             self.frontier, snapshot_at + 1
                         )
+            _lockcheck.shared_write("subscribe.sessions")
             self.sessions[session.session_id] = session
 
     def remove_session(self, session_id: int) -> bool:
         """Returns True when this tail just became empty."""
         with self._lock:
+            _lockcheck.shared_write("subscribe.sessions")
             self.sessions.pop(session_id, None)
             return not self.sessions
 
@@ -549,6 +553,7 @@ class _SharedTail:
 
     def stats(self) -> dict:
         with self._lock:
+            _lockcheck.shared_read("subscribe.sessions")
             return {
                 "label": self.label,
                 "sessions": len(self.sessions),
@@ -608,6 +613,7 @@ class SubscribeHub:
         n = 0
         for t in tails:
             with t._lock:
+                _lockcheck.shared_read("subscribe.sessions")
                 n += len(t.sessions)
         return n
 
@@ -873,6 +879,7 @@ class SubscribeHub:
         victims = []
         for t in affected:
             with t._lock:
+                _lockcheck.shared_read("subscribe.sessions")
                 victims.extend(t.sessions.values())
         for s in victims:
             self.close_session(s)
@@ -883,6 +890,7 @@ class SubscribeHub:
         victims = []
         for t in tails:
             with t._lock:
+                _lockcheck.shared_read("subscribe.sessions")
                 victims.extend(t.sessions.values())
         for s in victims:
             self.close_session(s)

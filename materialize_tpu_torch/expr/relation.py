@@ -56,6 +56,12 @@ class AggregateFunc(enum.Enum):
             AggregateFunc.LIST_AGG,
         )
 
+    @property
+    def preserves_nulls(self) -> bool:
+        """array_agg/list_agg keep NULL elements (pg semantics);
+        string_agg drops them."""
+        return self in (AggregateFunc.ARRAY_AGG, AggregateFunc.LIST_AGG)
+
 
 @dataclass(frozen=True)
 class AggregateExpr:

@@ -27,14 +27,22 @@ Hierarchical ones (MIN, MAX) keep one more part each: the sorted
 multiset of (group key, non-NULL value), queried before and after the
 step's insert (the group's first row is its MIN, its last row its MAX);
 part 0 still runs and its ``__rows__`` decides whether a group is alive.
-The basic collection aggregates raise ``NotImplementedError``: they need
-read-time finalizers (ROADMAP Queue 1 item 15).
+The basic (collection) aggregates STRING_AGG, ARRAY_AGG and LIST_AGG
+carry a digest pair in part 0 (``__a{j}_mix__``: the wrapping sum of
+``mix64(value) * diff``, which changes whenever the group's multiset
+does; ``__a{j}_nn__``: its element count), in the aggregates' order
+among the accumulable ones, and keep one more part each: the sorted
+multiset of (group key, value), maintained every step and never queried
+there. The output column is the digest; the variable-width result is
+made at the serving edge from the multiset (``render/dataflow.py``
+``finalize_basic_columns``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..arrangement.spine import Arrangement, insert, lookup_range
@@ -70,9 +78,12 @@ def _accum_cols(j: int, agg: AggregateExpr) -> list:
     if agg.func in (AggregateFunc.ANY, AggregateFunc.ALL):
         return [Column(f"__a{j}_cnt__", ColumnType.INT64),
                 Column(f"__a{j}_nn__", ColumnType.INT64)]
+    if agg.func.is_basic:
+        # The multiset digest (change detection) and the element count.
+        return [Column(f"__a{j}_mix__", ColumnType.INT64),
+                Column(f"__a{j}_nn__", ColumnType.INT64)]
     raise NotImplementedError(
-        f"aggregate {agg.func.value} is not ported (the collection "
-        "aggregates need read-time finalizers: ROADMAP Queue 1 item 15)"
+        f"{agg.func} is not accumulable (MIN/MAX keep a multiset part)"
     )
 
 
@@ -95,6 +106,53 @@ def _sum_err_batch(trans: torch.Tensor, out_time: int) -> Batch:
         count=torch.ones((), dtype=torch.int32, device=dev),
         schema=ERR_SCHEMA,
     )
+
+
+def _signed(u: int) -> int:
+    """A u64 constant as the int64 with the same bits."""
+    return u - (1 << 64) if u >= 1 << 63 else u
+
+
+# splitmix64's finalizer constants: the digest must be non-linear in the
+# values, or multisets with the same count and sum ({1, 4} and {2, 3})
+# would collide.
+_MIX_K1 = 0xBF58476D1CE4E5B9
+_MIX_K2 = 0x94D049BB133111EB
+# Pre-whitening: the finalizer fixes 0, so a bare mix(0) == 0 would make
+# zero-valued elements invisible to the digest.
+_MIX_PRE = 0xA5A5A5A5A5A5A5A5
+# The digest contribution of a NULL element of array_agg/list_agg (they
+# keep NULL elements): a fixed 64-bit constant.
+_NULL_DIGEST = -0x6512BD43D9CAA6E1  # int64
+
+
+def _shr(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Logical right shift of int64 lanes (torch's ``>>`` is
+    arithmetic): the u64 shift of the same bits."""
+    return (x >> k) & ((1 << (64 - k)) - 1)
+
+
+def _mix64_device(v: torch.Tensor) -> torch.Tensor:
+    """splitmix64 of each value's int64 bits, as int64: the u64 steps
+    of the reference in two's complement (products wrap mod 2^64, the
+    shifts are made logical)."""
+    x = v.to(torch.int64) ^ _signed(_MIX_PRE)
+    x = x ^ _shr(x, 33)
+    x = x * _signed(_MIX_K1)
+    x = x ^ _shr(x, 29)
+    x = x * _signed(_MIX_K2)
+    return x ^ _shr(x, 32)
+
+
+def _mix64_host(v) -> np.ndarray:
+    """``_mix64_device`` over host values, in numpy's u64."""
+    x = np.asarray(v, dtype=np.int64).astype(np.uint64) ^ np.uint64(_MIX_PRE)
+    x = x ^ (x >> np.uint64(33))
+    x = x * np.uint64(_MIX_K1)
+    x = x ^ (x >> np.uint64(29))
+    x = x * np.uint64(_MIX_K2)
+    x = x ^ (x >> np.uint64(32))
+    return x.astype(np.int64)
 
 
 def output_schema(input_schema: Schema, group_key, aggregates) -> Schema:
@@ -130,6 +188,15 @@ def delta_contributions(batch: Batch, group_key, aggregates, state_schema: Schem
             new = [(ev.values & nn).to(torch.int64) * diff, nn_i]
         elif agg.func is AggregateFunc.ALL:
             new = [(~ev.values & nn).to(torch.int64) * diff, nn_i]
+        elif agg.func.is_basic:
+            mixed = _mix64_device(torch.where(nn, ev.values.to(torch.int64), 0))
+            if agg.func.preserves_nulls:
+                # NULL elements stay: they add a fixed marker to the
+                # digest, and every element counts, so the result is
+                # NULL only for a group without elements.
+                new = [torch.where(nn, mixed, _NULL_DIGEST) * diff, diff]
+            else:
+                new = [torch.where(nn, mixed, 0) * diff, nn_i]
         else:
             _accum_cols(0, agg)  # raises, naming the aggregate
         cols.extend(new)
@@ -290,6 +357,8 @@ def accums_to_output(key_cols, key_nulls, accum_cols, aggregates) -> tuple:
             cols.append(v > 0)
         elif agg.func is AggregateFunc.ALL:
             cols.append(v == 0)
+        elif agg.func.is_basic:
+            cols.append(v)  # the digest; finalized at the serving edge
         else:
             _accum_cols(0, agg)  # raises, naming the aggregate
         nulls.append(nn == 0)
@@ -326,6 +395,42 @@ def minmax_contributions(batch: Batch, group_key, agg: AggregateExpr,
     )
 
 
+def basic_state_schema(input_schema: Schema, group_key, agg: AggregateExpr) -> Schema:
+    """State schema of one basic aggregate's multiset: array_agg and
+    list_agg keep NULL elements in a nullable value column (they sort
+    first); string_agg drops them, as MIN/MAX do."""
+    if not agg.func.preserves_nulls:
+        return minmax_state_schema(input_schema, group_key, agg)
+    cols = [input_schema[i] for i in group_key]
+    inner = agg.expr.typ(input_schema)
+    cols.append(Column("__v__", inner.ctype, True, inner.scale))
+    return Schema(cols)
+
+
+def basic_contributions(batch: Batch, group_key, agg: AggregateExpr,
+                        state_schema: Schema, time=None) -> Batch:
+    """Multiset updates of a basic aggregate: MIN/MAX's, except that a
+    NULL-preserving aggregate keeps NULL elements (value 0, null flag
+    set)."""
+    if not agg.func.preserves_nulls:
+        return minmax_contributions(batch, group_key, agg, state_schema, time)
+    cols = [batch.cols[i] for i in group_key]
+    nulls = [batch.nulls[i] for i in group_key]
+    ev = eval_expr(agg.expr, batch, time)
+    isnull = ev.null_mask()
+    dtype = torch_dtype(state_schema[len(group_key)].dtype)
+    cols.append(torch.where(isnull, 0, ev.values).to(dtype))
+    nulls.append(isnull)
+    return Batch(
+        cols=tuple(cols),
+        nulls=tuple(nulls),
+        time=batch.time,
+        diff=batch.diff,
+        count=batch.count,
+        schema=state_schema,
+    )
+
+
 def minmax_query(state: Arrangement, probe_lanes, is_max: bool):
     """The current MIN (or MAX) per probe group: the state is sorted by
     (key, value), so it is the first (last) row of the group's range.
@@ -344,10 +449,10 @@ def _or_zeros(mask, n: int, device) -> torch.Tensor:
 
 @dataclass
 class ReduceOp:
-    """A Reduce (``ReducePlan`` Accumulable, Distinct or Collation over
-    accumulable and hierarchical aggregates). State: part 0 the
-    accumulator Arrangement (always present: its ``__rows__`` column
-    decides liveness), parts 1.. one sorted multiset per MIN/MAX."""
+    """A Reduce (``ReducePlan`` Accumulable, Distinct, Basic or
+    Collation). State: part 0 the accumulator Arrangement (always
+    present: its ``__rows__`` column decides liveness), then one sorted
+    multiset per MIN/MAX, then one per basic aggregate."""
 
     input_schema: Schema
     group_key: tuple
@@ -363,24 +468,28 @@ class ReduceOp:
                 "plan_distinct_aggregates rewrite)"
             )
         self.plan = plan_reduce(self.aggregates)
-        if self.plan.basic:
-            raise NotImplementedError(
-                "the collection aggregates (STRING_AGG, ARRAY_AGG, LIST_AGG) "
-                "are not ported: they need read-time finalizers (ROADMAP "
-                "Queue 1 item 15)"
-            )
-        self.acc_aggs = tuple(self.aggregates[j] for j in self.plan.accumulable)
+        # The accumulator part carries the accumulable aggregates and the
+        # basic ones' digest pairs, in the aggregates' order.
+        self.acc_aggs = tuple(
+            a for a in self.aggregates if a.func.is_accumulable or a.func.is_basic
+        )
         self.hier_aggs = tuple(self.aggregates[j] for j in self.plan.hierarchical)
+        self.basic_aggs = tuple((j, self.aggregates[j]) for j in self.plan.basic)
         self.state_schema = accum_schema(self.input_schema, self.group_key,
                                          self.acc_aggs)
         self.mm_schemas = tuple(
             minmax_state_schema(self.input_schema, self.group_key, a)
             for a in self.hier_aggs
         )
+        self.basic_schemas = tuple(
+            basic_state_schema(self.input_schema, self.group_key, a)
+            for _, a in self.basic_aggs
+        )
         self.out_schema = output_schema(self.input_schema, self.group_key,
                                         self.aggregates)
         # Accumulator columns of SUM_INT sums (offsets past the key), the
-        # ones the sum-overflow error stream watches.
+        # ones the sum-overflow error stream watches (never a digest:
+        # its wrapping sum is no overflow).
         self._sum_cols = []
         off = 1
         for j, agg in enumerate(self.acc_aggs):
@@ -392,7 +501,7 @@ class ReduceOp:
         key = tuple(range(self.n_key))
         return tuple(
             Arrangement.empty(sch, key, capacity, device=device)
-            for sch in (self.state_schema,) + self.mm_schemas
+            for sch in (self.state_schema,) + self.mm_schemas + self.basic_schemas
         )
 
     def step(self, state: tuple, delta: Batch, out_time: int, errs=None):
@@ -441,6 +550,17 @@ class ReduceOp:
             mm_new.append(minmax_query(new_mm, probe, is_max))
             new_mm_states.append(new_mm)
 
+        # Basic multiset parts: maintained, never queried here (the
+        # digest in part 0 detects a change; the serving edge reads the
+        # multisets).
+        new_basic_states = []
+        base_p = 1 + len(self.hier_aggs)
+        for p, ((_j, agg), sch) in enumerate(zip(self.basic_aggs, self.basic_schemas),
+                                             start=base_p):
+            contrib_b = basic_contributions(delta, self.group_key, agg, sch, out_time)
+            new_b, overflow[p] = insert(state[p], contrib_b, state[p].capacity)
+            new_basic_states.append(new_b)
+
         key_cols = groups.cols[: self.n_key]
         key_nulls = groups.nulls[: self.n_key]
 
@@ -451,7 +571,7 @@ class ReduceOp:
             cols, nulls = list(key_cols), list(key_nulls)
             acc_i, mm_i = self.n_key, 0
             for agg in self.aggregates:
-                if agg.func.is_accumulable:
+                if agg.func.is_accumulable or agg.func.is_basic:
                     cols.append(acc_cols[acc_i])
                     nulls.append(acc_nulls[acc_i])
                     acc_i += 1
@@ -492,5 +612,5 @@ class ReduceOp:
             count=torch.full((), 2 * gcap, dtype=torch.int32, device=dev),
             schema=self.out_schema,
         )
-        return ((new_state_acc, *new_mm_states), compact(out, out_diff != 0),
-                overflow)
+        return ((new_state_acc, *new_mm_states, *new_basic_states),
+                compact(out, out_diff != 0), overflow)

@@ -3,8 +3,9 @@
 ``Constant``, ``Get``, ``Let``, ``LetRec``, ``Project``, ``Map``,
 ``FlatMap``, ``Filter`` (temporal predicates included), ``Union``,
 ``Negate``, ``Threshold``, ``ArrangeBy``, the delta and the linear
-``Join``, ``TopK`` and the ``Reduce`` with accumulable, MIN/MAX and
-float-sum aggregates).
+``Join``, ``TopK`` and the ``Reduce`` with accumulable, MIN/MAX,
+float-sum and basic collection aggregates, the last finalized at the
+serving edge: ``finalize_basic_columns``).
 
 The reference compiles one XLA step program and runs a span of steps
 as one ``lax.scan``; PyTorch runs eagerly, so here a span is a host
@@ -60,6 +61,7 @@ from ..arrangement.spine import (
     compact_level,
     insert,
     insert_tail,
+    lookup_range,
 )
 from ..expr import relation as mir
 from ..expr.linear import MapFilterProject, apply_mfp
@@ -85,7 +87,7 @@ from ..plan.decisions import (
 )
 from ..plan.lir import JoinPlan, LinearStagePlan
 from ..repr.batch import Batch, capacity_tier
-from ..repr.schema import DIFF_DTYPE, ERR_SCHEMA
+from ..repr.schema import DIFF_DTYPE, ERR_SCHEMA, Schema
 
 # Error deltas are shrunk to this tier before the err arrangement insert.
 ERR_DELTA_CAP = 2048
@@ -132,6 +134,11 @@ class _RenderContext:
         # operators built (op, plan text as EXPLAIN PHYSICAL PLAN prints
         # it): the runtime side of plan/lowering.py's LIR.
         self.lir: list = []
+        # Reduce sites with basic (collection) aggregates: (MIR node id,
+        # state slot, ReduceOp). The dataflow resolves them against its
+        # top-level expression into edge finalizers
+        # (``_resolve_basic_sites``).
+        self.basic_sites: list = []
 
     def new_slot(self, init: tuple) -> int:
         self.slots.append(init)
@@ -271,6 +278,8 @@ def _build(expr: mir.RelationExpr, ctx: _RenderContext):
         op = ReduceOp(expr.input.schema(), expr.group_key, expr.aggregates)
         ctx.lir.append(("Reduce", f"{op.plan.describe()} group={list(expr.group_key)}"))
         slot = ctx.new_slot(op.init_state(ctx.state_cap, ctx.device))
+        if op.basic_aggs:
+            ctx.basic_sites.append((id(expr), slot, op))
         inner = _build(expr.input, ctx)
 
         def run(states, inputs, time, errs):
@@ -624,6 +633,224 @@ def _build_letrec(expr: mir.LetRec, ctx: _RenderContext):
     return run
 
 
+def _scalar_col_refs(e, out: set) -> None:
+    from ..expr import scalar as ms
+
+    if isinstance(e, ms.ColumnRef):
+        out.add(e.index)
+        return
+    for f in getattr(e, "__dataclass_fields__", {}):
+        v = getattr(e, f)
+        if isinstance(v, ms.ScalarExpr):
+            _scalar_col_refs(v, out)
+        elif isinstance(v, tuple):
+            for x in v:
+                if isinstance(x, ms.ScalarExpr):
+                    _scalar_col_refs(x, out)
+
+
+def _resolve_basic_sites(expr: mir.RelationExpr, ctx) -> list:
+    """Resolve basic-aggregate Reduce sites against the dataflow's
+    top-level expression.
+
+    A basic aggregate's device column is an opaque digest; its real
+    (variable-width) value exists only at the serving edge. The digest
+    may flow to the output through Project/Map/Filter layers that do
+    not COMPUTE on it; anything else would leak digests into real
+    operators, so it raises. Returns
+    [(output col, state slot, state part, AggregateExpr, value Column,
+      key_out_cols)] where key_out_cols maps each group-key column to
+    its position in the OUTPUT schema (None if any key column was
+    projected away — finalization then falls back to digest-only
+    lookup).
+    """
+    if not ctx.basic_sites:
+        return []
+    chain = []
+    node = expr
+    while isinstance(node, (mir.Project, mir.Map, mir.Filter)):
+        chain.append(node)
+        node = node.input
+    sites = {nid: (slot, op) for (nid, slot, op) in ctx.basic_sites}
+    finalizers: list = []
+    if id(node) in sites:
+        slot, op = sites.pop(id(node))
+        pos: dict = {}
+        # Track the group-key columns through the chain too: when they
+        # all survive to the output, finalization keys its lookup by
+        # group key (digest demoted to a consistency check) — a 64-bit
+        # digest collision between two groups then raises instead of
+        # silently serving one group's result for the other.
+        keypos: dict = {k: k for k in range(op.n_key)}
+        for b, (j, agg) in enumerate(op.basic_aggs):
+            part = 1 + len(op.hier_aggs) + b
+            vcol = agg.expr.typ(op.input_schema)
+            pos[op.n_key + j] = (slot, part, agg, vcol)
+        for layer in reversed(chain):
+            if isinstance(layer, (mir.Map, mir.Filter)):
+                exprs = (
+                    layer.scalars
+                    if isinstance(layer, mir.Map)
+                    else layer.predicates
+                )
+                refs: set = set()
+                for e in exprs:
+                    _scalar_col_refs(e, refs)
+                if refs & set(pos):
+                    raise NotImplementedError(
+                        "string_agg/array_agg/list_agg results cannot "
+                        "feed scalar expressions or filters: the "
+                        "maintained device column is a digest, "
+                        "finalized only at the serving edge"
+                    )
+            else:  # Project
+                pos = {
+                    o: pos[srcidx]
+                    for o, srcidx in enumerate(layer.outputs)
+                    if srcidx in pos
+                }
+                inv = {}
+                for o, srcidx in enumerate(layer.outputs):
+                    for k, p in keypos.items():
+                        if p == srcidx and k not in inv:
+                            inv[k] = o
+                keypos = inv
+        key_out = (
+            tuple(keypos[k] for k in range(op.n_key))
+            if len(keypos) == op.n_key
+            else None
+        )
+        finalizers = [(o, *v, key_out) for o, v in pos.items()]
+    if sites:
+        raise NotImplementedError(
+            "string_agg/array_agg/list_agg must sit at the dataflow "
+            "output (optionally under Project/Map/Filter); composing "
+            "them into joins, further reduces, or other operators is "
+            "not supported"
+        )
+    return finalizers
+
+
+def _element_strings(vcol, vals: np.ndarray, vnulls, gdict) -> np.ndarray:
+    """The text of each multiset element (host side): each distinct
+    value rendered once, NULL elements (array_agg/list_agg keep them)
+    as pg's array NULL. ``gdict`` is the caller's dictionary snapshot."""
+    from ..repr.schema import ColumnType, days_to_date, ms_to_ts
+
+    def render(v) -> str:
+        if vcol.ctype is ColumnType.STRING:
+            return gdict.decode(int(v))
+        if vcol.ctype is ColumnType.BOOL:
+            return "t" if v else "f"
+        if vcol.ctype is ColumnType.DECIMAL and vcol.scale:
+            q = 10 ** vcol.scale
+            sign = "-" if v < 0 else ""
+            v = abs(int(v))
+            return f"{sign}{v // q}.{v % q:0{vcol.scale}d}"
+        if vcol.ctype is ColumnType.DATE:
+            return str(days_to_date(v))
+        if vcol.ctype is ColumnType.TIMESTAMP:
+            return str(ms_to_ts(v))
+        return str(int(v))
+
+    live = np.ones(len(vals), bool) if vnulls is None else ~np.asarray(vnulls, bool)
+    uniq, inv = np.unique(vals[live], return_inverse=True)
+    table = np.empty(len(uniq), dtype=object)
+    table[:] = [render(v) for v in uniq.tolist()]
+    out = np.empty(len(vals), dtype=object)
+    out[live] = table[inv.reshape(-1)]
+    out[~live] = "NULL"
+    return out
+
+
+def _finalize_basic_value(agg, parts: list) -> str:
+    """One group's result from its elements' text in multiset order,
+    each repeated by its multiplicity: string_agg joins them with its
+    separator, array_agg and list_agg render pg's ``{a,b}``."""
+    if agg.func is mir.AggregateFunc.STRING_AGG:
+        sep = agg.params[0] if agg.params else ""
+        return sep.join(parts)
+    return "{" + ",".join(parts) + "}"
+
+
+def _host_rows(b: Batch, idx=None) -> dict:
+    """Host view of a multiset batch's valid rows (or of the rows at
+    ``idx``, a device index tensor): columns, null flags and diffs,
+    brought over in one stacked copy (each tensor as int64 bits)."""
+    if idx is None:
+        n = int(b.count)
+        take = lambda t: t[:n]  # noqa: E731
+    else:
+        take = lambda t: t[idx]  # noqa: E731
+    parts = list(b.cols) + [x for x in b.nulls if x is not None] + [b.diff]
+    host = torch.stack([
+        take(t).view(torch.int64) if t.dtype == torch.float64 else take(t).to(torch.int64)
+        for t in parts
+    ]).cpu().numpy()
+    out = []
+    for row, t in zip(host, parts):
+        dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
+        out.append(row.view(np.float64) if t.dtype == torch.float64 else row.astype(dtype))
+    cols = out[: len(b.cols)]
+    flags = iter(out[len(b.cols):-1])
+    return {
+        "cols": cols,
+        "nulls": [None if x is None else next(flags) for x in b.nulls],
+        "diff": out[-1],
+    }
+
+
+def _key_tuples(kcols: list, knulls: list, rows) -> list:
+    """The group-key tuple of each of ``rows`` (None for a NULL key)."""
+    cols = []
+    for kc, nl in zip(kcols, knulls):
+        vals = kc[rows].tolist()
+        if nl is not None:
+            vals = [None if n else v for v, n in zip(vals, nl[rows].tolist())]
+        cols.append(vals)
+    return list(zip(*cols)) if cols else [() for _ in range(len(rows))]
+
+
+def _group_results(rows: dict, n_key: int, agg, vcol, gdict) -> tuple:
+    """(keys, digests, results) of the groups of key-sorted multiset
+    rows: groups are contiguous (rows sort by key, NULL keys first); a
+    group's digest is the wrapping sum of mix64(value) * diff the reduce
+    keeps (``_NULL_DIGEST`` for a NULL element), its result the text of
+    its elements in multiset order."""
+    from ..ops.reduce import _NULL_DIGEST, _mix64_host
+
+    cols, nulls, diffs = rows["cols"], rows["nulls"], rows["diff"]
+    keep = diffs != 0
+    vals = cols[n_key][keep].astype(np.int64)
+    if not len(vals):
+        return [], [], []
+    vnl = nulls[n_key]
+    vnl = vnl[keep] if vnl is not None else None
+    mult = diffs[keep]
+    kcols = [cols[k][keep] for k in range(n_key)]
+    knulls = [None if nulls[k] is None else nulls[k][keep] for k in range(n_key)]
+    change = np.zeros(len(vals), dtype=bool)
+    change[0] = True
+    for kc, nl in zip(kcols, knulls):
+        if nl is None:
+            change[1:] |= kc[1:] != kc[:-1]
+        else:
+            both = ~nl[1:] & ~nl[:-1]
+            change[1:] |= (nl[1:] != nl[:-1]) | (both & (kc[1:] != kc[:-1]))
+    starts = np.flatnonzero(change)
+    m = _mix64_host(vals).astype(np.uint64)
+    if vnl is not None:
+        m = np.where(vnl, np.int64(_NULL_DIGEST).astype(np.uint64), m)
+    digests = np.add.reduceat(m * mult.astype(np.uint64), starts).astype(np.int64)
+    # Each element repeated by its multiplicity, then each group's span.
+    rep = np.maximum(mult, 0)
+    elems = np.repeat(_element_strings(vcol, vals, vnl, gdict), rep).tolist()
+    edge = np.concatenate([[0], np.cumsum(rep)])
+    bounds = edge[np.append(starts, len(vals))].tolist()
+    results = [_finalize_basic_value(agg, elems[a:b]) for a, b in zip(bounds, bounds[1:])]
+    return _key_tuples(kcols, knulls, starts), digests.tolist(), results
+
+
 class Dataflow:
     """A maintained dataflow on one device: install once, feed update
     batches (``step``/``run_steps``/``run_span``), peek."""
@@ -647,6 +874,7 @@ class Dataflow:
         ctx = _RenderContext(self.state_cap, self.device)
         self._ctx = ctx
         self._run = _build(expr, ctx)
+        self._basic_finalizers = _resolve_basic_sites(expr, ctx)
         # One tuple of state parts per stateful operator (slot).
         self.states = list(ctx.slots)
         self.output = Spine.empty(
@@ -736,17 +964,141 @@ class Dataflow:
         dataflow gathers per-worker shards here)."""
         return out
 
-    def capture_basic_multisets(self):
-        raise NotImplementedError(
-            "basic aggregates (string_agg/array_agg/list_agg) are not "
-            "ported (ROADMAP Queue 1 item 15)"
-        )
+    # -- basic-aggregate edge finalization -----------------------------------
+    def capture_basic_multisets(self) -> dict:
+        """The pre-step multiset of every basic-aggregate finalizer: the
+        sink finalizes retraction rows against the state their digests
+        describe, which the post-step multiset no longer holds. A state
+        part is an immutable value (a step returns new tensors), so the
+        capture is the part itself: no copy, no readback."""
+        return {
+            fi: self.states[slot][part]
+            for fi, (_oc, slot, part, *_rest) in enumerate(self._basic_finalizers)
+        }
 
-    def finalize_basic_columns(self, *args, **kwargs):
-        raise NotImplementedError(
-            "basic aggregates (string_agg/array_agg/list_agg) are not "
-            "ported (ROADMAP Queue 1 item 15)"
-        )
+    def _basic_group_maps(self, multisets: dict | None = None) -> list:
+        """Per finalizer, {digest: result} over every group of the
+        multiset (or of a capture): the lookup of outputs that project
+        the group key away."""
+        from ..repr.schema import GLOBAL_DICT
+
+        gdict = GLOBAL_DICT.snapshot()
+        maps = []
+        for fi, (_oc, slot, part, agg, vcol, _ko) in enumerate(self._basic_finalizers):
+            arr = multisets[fi] if multisets is not None else self.states[slot][part]
+            _keys, digests, results = _group_results(
+                _host_rows(arr.batch), len(arr.key), agg, vcol, gdict)
+            maps.append(dict(zip(digests, results)))
+        return maps
+
+    def _basic_key_map(self, arr, keys: list, agg, vcol, gdict) -> dict:
+        """{group key: (digest, result)} of the groups ``keys`` name,
+        read from the multiset ``arr``: one search of the multiset for
+        the keys' row ranges, one gather of those rows."""
+        n_key = len(arr.key)
+        if n_key == 0:
+            rows = _host_rows(arr.batch)
+        else:
+            sch = Schema(tuple(arr.schema.columns[:n_key]))
+            cols, nulls = [], []
+            for k, col in enumerate(sch.columns):
+                nl = np.array([key[k] is None for key in keys], dtype=bool)
+                cols.append(np.array([0 if v is None else v for v in (key[k] for key in keys)],
+                                     dtype=col.dtype))
+                nulls.append(nl if col.nullable else None)
+            probe = Batch.from_numpy(sch, cols, np.zeros(len(keys), np.int64),
+                                     np.ones(len(keys), np.int64), nulls=nulls,
+                                     device=arr.batch.device)
+            lo, hi = lookup_range(arr, arr.probe_lanes(probe, range(n_key)))
+            lo, hi = torch.stack([lo[: len(keys)], hi[: len(keys)]]).cpu().numpy().astype(np.int64)
+            n = hi - lo
+            # Each key's rows in ascending order, keys in multiset order.
+            order = np.argsort(lo, kind="stable")
+            lo, n = lo[order], n[order]
+            idx = np.repeat(lo - np.cumsum(n) + n, n) + np.arange(int(n.sum()))
+            rows = _host_rows(arr.batch, torch.from_numpy(idx).to(arr.batch.device))
+        got_keys, digests, results = _group_results(rows, n_key, agg, vcol, gdict)
+        return dict(zip(got_keys, zip(digests, results)))
+
+    def finalize_basic_columns(self, cols, nulls, diffs=None,
+                               old_multisets=None) -> list:
+        """Edge finalization of basic aggregates: each digest value of
+        the host output columns becomes its group's result string (an
+        object column; ``decode_result_rows`` passes it through), made
+        from the maintained (key, value) multiset.
+
+        Where every group-key column reaches the output, only the groups
+        of the given rows are finalized, found by a search of the
+        multiset, and the lookup is by group key with the digest as a
+        consistency check (a digest collision between groups raises
+        instead of serving another group's result). Outputs that project
+        the key away look up by digest over every group.
+
+        With ``diffs`` and ``old_multisets`` (the sink's delta path),
+        retraction rows (diff < 0) resolve against the captured pre-step
+        multisets: their digests describe group states the current
+        multiset no longer holds."""
+        if not self._basic_finalizers:
+            return list(cols)
+        from ..repr.schema import GLOBAL_DICT
+
+        gdict = GLOBAL_DICT.snapshot()
+        cols = list(cols)
+        digest_maps: dict = {}  # pre-step (True) or current: {digest: result}s
+        for fi, (out_col, slot, part, agg, vcol, key_out) in enumerate(
+            self._basic_finalizers
+        ):
+            src = np.asarray(cols[out_col])
+            out = np.empty(len(src), dtype=object)
+            nl = nulls[out_col] if nulls else None
+            live = np.ones(len(src), dtype=bool) if nl is None else ~np.asarray(nl, bool)
+            retract = (
+                np.asarray(diffs) < 0
+                if diffs is not None and old_multisets is not None
+                else np.zeros(len(src), dtype=bool)
+            )
+            for old in (False, True):
+                rows_i = np.flatnonzero(live & (retract if old else ~retract))
+                if not len(rows_i):
+                    continue
+                arr = old_multisets[fi] if old else self.states[slot][part]
+                if key_out is None:
+                    if old not in digest_maps:
+                        digest_maps[old] = self._basic_group_maps(
+                            old_multisets if old else None)
+                    by_digest = digest_maps[old][fi]
+                    for i in rows_i:
+                        d = int(src[i])
+                        if d not in by_digest:
+                            raise RuntimeError(
+                                "basic-aggregate digest has no multiset "
+                                "group (digest/multiset divergence)"
+                            )
+                        out[i] = by_digest[d]
+                    continue
+                row_keys = _key_tuples(
+                    [np.asarray(cols[ko]) for ko in key_out],
+                    [None if nulls[ko] is None else np.asarray(nulls[ko], bool)
+                     for ko in key_out],
+                    rows_i)
+                by_key = self._basic_key_map(arr, list(dict.fromkeys(row_keys)),
+                                             agg, vcol, gdict)
+                for i, kt, d in zip(rows_i.tolist(), row_keys, src[rows_i].tolist()):
+                    hit = by_key.get(kt)
+                    if hit is None:
+                        raise RuntimeError(
+                            "basic-aggregate group has no multiset "
+                            "entry (state divergence)"
+                        )
+                    dig, res = hit
+                    if dig != d:
+                        raise RuntimeError(
+                            "basic-aggregate digest mismatch for group "
+                            f"{kt!r} (digest/multiset divergence)"
+                        )
+                    out[i] = res
+            cols[out_col] = out
+        return cols
 
     def _due_levels(self, tick: int) -> int:
         """Highest spine level due at compaction tick ``tick``."""
@@ -1041,6 +1393,12 @@ class Dataflow:
 
     def _defer(self, inputs_list: list, flush_first: bool,
                donate: bool = False) -> list:
+        if donate:
+            from ..analysis.donation import guard_read
+
+            # Re-dispatching a donated buffer as an operand is itself a
+            # use-after-donate (``buffer_sanitizer``; no-op when off).
+            guard_read(inputs_list, f"{self.name}.run_steps operands")
         self._window_checkpoint(donate)
         deltas, sfl, cfl = self._dispatch(inputs_list, flush_first)
         self._defer_log.append((inputs_list, flush_first))
@@ -1165,8 +1523,20 @@ class Dataflow:
         return int(torch.stack(counts).sum().item())
 
     def peek(self) -> list:
-        """The full maintained result (SELECT * FROM the index)."""
-        return self.output_batch().to_rows()
+        """The full maintained result (SELECT * FROM the index), with
+        basic-aggregate columns finalized into their result strings."""
+        b = self.output_batch()
+        if not self._basic_finalizers:
+            return b.to_rows()
+        n = int(b.count)
+        cols = [c[:n].cpu().numpy() for c in b.cols]
+        nulls = [None if x is None else x[:n].cpu().numpy() for x in b.nulls]
+        cols = self.finalize_basic_columns(cols, nulls)
+        cols = cols + [b.time[:n].cpu().numpy(), b.diff[:n].cpu().numpy()]
+        return [
+            tuple(x.item() if isinstance(x, np.generic) else x for x in row)
+            for row in zip(*cols)
+        ]
 
     def peek_errors(self) -> list:
         """The maintained err collection: [(err_code, count)] with count

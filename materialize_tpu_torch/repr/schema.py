@@ -373,11 +373,17 @@ def decode_result_rows(schema: Schema, cols, nulls, time, diff) -> list:
     import decimal as _dec
 
     out = []
+    # Edge-finalized basic-aggregate columns arrive as Python strings (an
+    # object array, ``finalize_basic_columns``): they never enter the
+    # dictionary.
+    pre_decoded = [getattr(c, "dtype", None) == np.dtype(object) for c in cols]
     for i in range(len(diff)):
         vals = []
         for j, col in enumerate(schema.columns):
             if nulls[j] is not None and bool(nulls[j][i]):
                 vals.append(None)
+            elif pre_decoded[j]:
+                vals.append(cols[j][i])
             elif col.ctype is ColumnType.STRING:
                 vals.append(GLOBAL_DICT.decode(int(cols[j][i])))
             elif col.ctype is ColumnType.DECIMAL and col.scale:

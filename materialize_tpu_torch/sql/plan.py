@@ -422,12 +422,59 @@ def _explain(
 
         m = optimize(m)
     if stmt.stage == "analysis":
-        # The static-analysis report (typecheck, monotonicity facts,
-        # LIR plan-decision consistency) needs analysis/.
-        raise NotImplementedError(
-            "EXPLAIN ANALYSIS PLAN is not ported (ROADMAP Queue 1 item "
-            "14: analysis/typecheck.py)"
+        # Static-analysis verdicts over the optimized plan: typecheck,
+        # monotonicity facts, LIR plan-decision consistency
+        # (analysis/), plus the peek fast-path decision
+        # (plan/decisions.peek_fast_path — the same recognizer the
+        # coordinator serves with).
+        from ..analysis import report
+        from ..plan.decisions import peek_fast_path
+        from ..utils.dyncfg import COMPUTE_CONFIGS, PEEK_FAST_PATH
+
+        peekable = set()
+        basic_names = set()
+        for it in getattr(catalog, "items", {}).values():
+            if it.kind == "materialized-view":
+                peekable.add(it.name)
+                d = it.definition
+                expr = (
+                    d.get("expr") if isinstance(d, dict) else None
+                )
+                if expr is not None and _defn_has_basic_aggs(
+                    expr, catalog
+                ):
+                    basic_names.add(it.name)
+            elif it.kind == "index" and isinstance(it.definition, dict):
+                on = it.definition.get("on")
+                if on is not None:
+                    peekable.add(on)
+                    on_it = getattr(catalog, "items", {}).get(on)
+                    if (
+                        on_it is not None
+                        and on_it.kind == "view"
+                        and _defn_has_basic_aggs(
+                            on_it.definition, catalog
+                        )
+                    ):
+                        # The coordinator always INLINES basic-agg
+                        # views (even indexed ones) — they serve slow.
+                        basic_names.add(on)
+        dec = (
+            peek_fast_path(m, frozenset(peekable))
+            if PEEK_FAST_PATH(COMPUTE_CONFIGS)
+            else None
         )
+        if dec is not None and dec.name in basic_names:
+            # The coordinator disqualifies basic-aggregate outputs
+            # (their maintained columns are digests finalized only at
+            # the serving edge) — print what actually serves.
+            dec = None
+        text = report(m) + "\npeek: " + (
+            dec.describe()
+            if dec is not None
+            else "slow path (transient dataflow render)"
+        )
+        return ExplainPlan("analysis", text)
     if stmt.stage == "physical":
         # LIR: the operator-level physical plans (ReducePlan/TopKPlan/
         # JoinPlan) the render layer chooses, lowered by the shared
@@ -436,6 +483,30 @@ def _explain(
 
         return ExplainPlan("physical", explain_lir(lower_mir(m)))
     return ExplainPlan(stmt.stage, explain_mir(m))
+
+
+def _defn_has_basic_aggs(expr, catalog, _seen=None) -> bool:
+    """Does this definition contain a basic (collection) aggregate,
+    resolving Get(view) transitively? Mirror of the coordinator's
+    _has_basic_aggs, local to keep sql free of coord imports."""
+    if isinstance(expr, mir.Reduce) and any(
+        a.func.is_basic for a in expr.aggregates
+    ):
+        return True
+    if isinstance(expr, mir.Get):
+        seen = _seen or set()
+        if expr.name in seen:
+            return False
+        it = getattr(catalog, "items", {}).get(expr.name)
+        if it is not None and it.kind == "view":
+            return _defn_has_basic_aggs(
+                it.definition, catalog, seen | {expr.name}
+            )
+        return False
+    return any(
+        _defn_has_basic_aggs(c, catalog, _seen)
+        for c in expr.children()
+    )
 
 
 def _fmt(node, indent: int = 0) -> str:

@@ -162,12 +162,32 @@ class TpchGenerator:
         self.n_part = max(int(200_000 * self.sf), 8)
         self.n_supplier = max(int(10_000 * self.sf), 4)
         self.n_customer = max(int(150_000 * self.sf), 8)
-        self._flag_codes = GLOBAL_DICT.encode_many(["R", "A", "N"])
-        self._status_codes = GLOBAL_DICT.encode_many(["F", "O"])
-        self._prio_codes = GLOBAL_DICT.encode_many(
-            ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW"]
-        )
         self._order_version: dict = {}
+        self._code_epoch = None
+
+    def _coded(self, attr: str, strings) -> np.ndarray:
+        """The dictionary codes of ``strings``, coded again after a
+        rebalance relabels the dictionary (the reference codes them once,
+        so a rebalance in its process leaves it writing stale codes)."""
+        if self._code_epoch != GLOBAL_DICT.epoch:
+            self._code_epoch = GLOBAL_DICT.epoch
+            self._codes = {}
+        if attr not in self._codes:
+            self._codes[attr] = GLOBAL_DICT.encode_many(strings)
+        return self._codes[attr]
+
+    @property
+    def _flag_codes(self) -> np.ndarray:
+        return self._coded("flag", ["R", "A", "N"])
+
+    @property
+    def _status_codes(self) -> np.ndarray:
+        return self._coded("status", ["F", "O"])
+
+    @property
+    def _prio_codes(self) -> np.ndarray:
+        return self._coded(
+            "prio", ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW"])
 
     def _mix64(self, *vals):
         """Counter-based splitmix64-style hash of broadcast keys."""

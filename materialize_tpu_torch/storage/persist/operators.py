@@ -31,6 +31,7 @@ import time as _time
 import numpy as np
 import torch
 
+from ...arrangement.spine import clone_state_tree
 from ...render.dataflow import Dataflow
 from ...repr.batch import Batch, capacity_tier
 from ...repr.schema import Schema
@@ -179,6 +180,11 @@ def _hist_host(entry):
     when iterating a history list — it memoizes the conversion."""
     if isinstance(entry, tuple):
         return entry
+    from ...analysis.donation import guard_read
+
+    # The rewind read under the buffer sanitizer: a retained delta is a
+    # step output, never the carry, so it must never be a donated leaf.
+    guard_read(entry, "multiversion-history")
     return _host_updates(entry)
 
 
@@ -275,10 +281,18 @@ class IndexSource:
         self.device = publisher.df.device
         self.host_transfers = 0  # observability for tests
         publisher.sync_spans()
-        # The port's carries are never donated (eager torch), so the
-        # base is the publisher's output batch itself.
+        self.base_cloned = False
         if self._device:
-            self.base_batch = publisher.df.output_batch()
+            base = publisher.df.output_batch()
+            if publisher.donation_requested():
+                # Copy-on-share: where the publisher's span train asks
+                # for donation, the subscriber keeps a clone of the base
+                # rather than an alias into the carry, so the
+                # publisher's donation verdict stays safe (eager torch
+                # donates nothing, but the contract is the reference's).
+                base = clone_state_tree(base)
+                self.base_cloned = True
+            self.base_batch = base
         else:
             self.host_transfers += 1
             self.base = _host_updates(publisher.result_batch())
@@ -335,6 +349,19 @@ class IndexSource:
             schema=b.schema,
         )
 
+    def _guard(self, tree) -> None:
+        """Use-after-donate guard on every device read this subscriber
+        makes: the base snapshot and pending deltas must never be
+        buffers a publisher's donated span killed (``buffer_sanitizer``;
+        no-op when off)."""
+        from ...analysis.donation import guard_read
+
+        guard_read(
+            tree,
+            f"IndexSource(subscriber of "
+            f"{getattr(self.publisher.df, 'name', 'df')!r})",
+        )
+
     def snapshot(self, as_of: int) -> "tuple[Batch, int]":
         if as_of < self.base_upper - 1:
             # Multiversion rewind: the publisher retains a bounded
@@ -350,6 +377,8 @@ class IndexSource:
                     f"[{pub.since}, {pub.upper})"
                 )
             self.frontier = as_of + 1
+            if self._device:
+                self._guard(self.base_batch)
             parts = [
                 _host_updates(self.base_batch)
                 if self._device
@@ -390,6 +419,7 @@ class IndexSource:
             from ...ops.sort import concat_batches
 
             parts = [self.base_batch] + self._take_until(as_of + 1)
+            self._guard(parts)
             b = concat_batches(parts) if len(parts) > 1 else parts[0]
             return (
                 self._forward_times(b, as_of).replace(schema=self.schema),
@@ -417,6 +447,7 @@ class IndexSource:
 
             if not parts:
                 return Batch.empty(self.schema, 256, device=self.device)
+            self._guard(parts)
             b = concat_batches(parts) if len(parts) > 1 else parts[0]
             return self._forward_times(b, target - 1).replace(
                 schema=self.schema
@@ -547,12 +578,31 @@ class MaintainedView:
         # read sequences through sync_spans() automatically.
         self._barrier = _ViewSpanBarrier(self)
         dataflow._span_exec = self._barrier
+        # Donation state: the provenance prover's verdict over this
+        # view's state, recomputed when the sharing structure (the
+        # subscriber set, the donation request) changes, and only
+        # between defer windows. Sharding state: the single-device
+        # report, a render-time fact. Both ride the next frontier report
+        # while dirty.
+        self._donation_sig = None
+        self._donation_info: dict | None = None
+        self._donation_dirty = False
+        self._sharding_info: dict | None = None
+        self._sharding_dirty = False
         try:
             self.hydrate()
         except BaseException:
             self.expire()  # release reader holds of a failed build
             raise
         self._dispatched = self._upper
+        # Decide now, so every installed dataflow has a verdict and a
+        # report from its first frontier report on (EXPLAIN ANALYSIS and
+        # mz_donation/mz_sharding are never blind on an idle dataflow).
+        self._span_donation()
+        from ...analysis.shard_prop import dataflow_sharding_report
+
+        self._sharding_info = dataflow_sharding_report(self.df)
+        self._sharding_dirty = True
 
     @property
     def upper(self) -> int:
@@ -1017,24 +1067,51 @@ class MaintainedView:
     # boundaries via sync_spans() — they never observe a half-applied
     # span.
 
-    def _span_donation(self) -> bool:
-        """Whether this view's span trains request donation (the
-        ``span_donation`` dyncfg, render/span_exec.resolve_donation);
-        eager torch donates nothing, so a request only clones the
-        window's rollback checkpoint. A window keeps the decision it
-        started with."""
+    def donation_requested(self) -> bool:
+        """Whether donation policy asks for a donated carry on this
+        view's span train: the ``span_donation`` dyncfg resolved by
+        ``render/span_exec.resolve_donation`` ('auto' is off in eager
+        torch)."""
         from ...render.span_exec import resolve_donation
 
         return resolve_donation(None)
 
+    def _span_donation(self) -> bool:
+        """The donation request of this view's next span train, with
+        the provenance verdict recomputed when the sharing signature
+        (request, subscriber set) changed and no defer window is open (a
+        window keeps the decision it started with). Eager torch donates
+        nothing, so a request only clones the window's rollback
+        checkpoint, and the reported verdict has ``wired`` false and no
+        part in ``donated`` (the reference's CPU backend reports the
+        same by default)."""
+        requested = self.donation_requested()
+        if getattr(self.df, "_defer_ck", None) is not None:
+            return requested
+        sig = (requested, tuple(id(s) for s in self._subscribers))
+        if sig != self._donation_sig:
+            from ...analysis.donation import view_verdict
+
+            name = getattr(self.df, "name", "df")
+            v = view_verdict(name, self, requested=requested)
+            self._donation_sig = sig
+            info = v.to_dict()
+            info["donated"] = []
+            info["wired"] = False
+            self._donation_info = info
+            self._donation_dirty = True
+        return requested
+
     def donation_info(self) -> dict | None:
-        """No provenance/donation verdict in the port (the reference's
-        ``analysis/donation.py`` proves donation of XLA carries)."""
-        return None
+        """The last provenance/donation verdict (frontier reports carry
+        it to the controller for EXPLAIN ANALYSIS and mz_donation)."""
+        return self._donation_info
 
     def sharding_info(self) -> dict | None:
-        """No shard-spec report in the port (one device, no SPMD)."""
-        return None
+        """The sharding report (``analysis/shard_prop.py``: one device,
+        no SPMD); frontier reports carry it to the controller for
+        EXPLAIN ANALYSIS's ``sharding:`` block and mz_sharding."""
+        return self._sharding_info
 
     def step_span(
         self, max_ticks: int | None = None, timeout: float = 0.0

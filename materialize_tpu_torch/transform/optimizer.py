@@ -1503,6 +1503,36 @@ PHYSICAL_TRANSFORMS = (
 )
 
 
+def _typecheck_enabled() -> bool:
+    from ..utils.dyncfg import COMPUTE_CONFIGS, OPTIMIZER_TYPECHECK
+
+    return bool(OPTIMIZER_TYPECHECK(COMPUTE_CONFIGS))
+
+
+def _run_checked(expr: mir.RelationExpr, transform) -> mir.RelationExpr:
+    """Apply one transform with the typechecker as a safety net
+    (transform/src/typecheck.rs discipline): the rewritten plan must
+    typecheck AND preserve the relation type, and a violation names the
+    transform that introduced it — blame attribution, not just
+    detection."""
+    from ..analysis.typecheck import (
+        TransformTypecheckError,
+        TypecheckError,
+        check_type_preserved,
+        typecheck,
+    )
+
+    before_schema = expr.schema()
+    out = transform(expr)
+    name = getattr(transform, "__name__", str(transform))
+    try:
+        typecheck(out)
+    except TypecheckError as e:
+        raise TransformTypecheckError(name, e) from e
+    check_type_preserved(before_schema, out.schema(), name)
+    return out
+
+
 def logical_optimizer(
     expr: mir.RelationExpr, max_iters: int = 10
 ) -> mir.RelationExpr:
@@ -1512,23 +1542,36 @@ def logical_optimizer(
     are then pushed/fused by the fixpoint; _null_filtered keeps a
     second optimize() over the same tree from re-adding them).
 
-    Port: the reference's ``optimizer_typecheck`` hook (a dyncfg that
-    typechecks every transform's output, analysis/typecheck.py) is left
-    out: the port carries no dyncfg and no typechecker (ROADMAP Queue
-    3)."""
-    expr = non_null_requirements(expr)
+    Under the ``optimizer_typecheck`` dyncfg every transform's output
+    is typechecked; an invalid plan raises TransformTypecheckError
+    naming the offending transform."""
+    check = _typecheck_enabled()
+    if check:
+        from ..analysis.typecheck import typecheck
+
+        typecheck(expr)  # pre-existing damage is not a transform's fault
+        expr = _run_checked(expr, non_null_requirements)
+    else:
+        expr = non_null_requirements(expr)
     for _ in range(max_iters):
         before = expr
         for t in LOGICAL_TRANSFORMS:
-            expr = t(expr)
+            expr = _run_checked(expr, t) if check else t(expr)
         if expr == before:
             break
     return expr
 
 
 def physical_optimizer(expr: mir.RelationExpr) -> mir.RelationExpr:
+    check = _typecheck_enabled()
     for t in PHYSICAL_TRANSFORMS:
-        expr = t(expr)
+        expr = _run_checked(expr, t) if check else t(expr)
+    if check:
+        # The physical plan is what renders: the LIR decisions must
+        # also be takeable (plan/decisions.py consistency, T-LIR).
+        from ..analysis.typecheck import typecheck_lir
+
+        typecheck_lir(expr)
     return expr
 
 
@@ -1538,5 +1581,9 @@ def optimize(expr: mir.RelationExpr) -> mir.RelationExpr:
     from .cse import relation_cse
 
     expr = logical_optimizer(expr)
-    expr = relation_cse(expr)
+    expr = (
+        _run_checked(expr, relation_cse)
+        if _typecheck_enabled()
+        else relation_cse(expr)
+    )
     return physical_optimizer(expr)

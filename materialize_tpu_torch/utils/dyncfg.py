@@ -14,6 +14,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any
 
+from . import lockcheck
 
 
 @dataclass
@@ -57,6 +58,7 @@ class ConfigSet:
 
     def get(self, name: str):
         with self._lock:
+            lockcheck.shared_read("dyncfg.values")
             if name in self._values:
                 return self._values[name]
             return self._configs[name].default
@@ -66,6 +68,7 @@ class ConfigSet:
         know them); returns the full current value map for shipping to
         replicas."""
         with self._lock:
+            lockcheck.shared_write("dyncfg.values")
             staged = {}
             for k, v in values.items():
                 cfg = self._configs.get(k)
@@ -95,6 +98,7 @@ class ConfigSet:
 
     def current(self) -> dict:
         with self._lock:
+            lockcheck.shared_read("dyncfg.values")
             out = {n: c.default for n, c in self._configs.items()}
             out.update(self._values)
             return out
@@ -104,7 +108,6 @@ class ConfigSet:
 COMPUTE_CONFIGS = ConfigSet()
 
 # Where the readers of the port's unported flags wait.
-ITEM_14 = "ROADMAP Queue 1 item 14: analysis/"
 PROGRAM_BANK = (
     "ROADMAP Queue 2 item 6: the program bank has no counterpart in "
     "eager torch"
@@ -168,9 +171,7 @@ OPTIMIZER_TYPECHECK = Config(
     "optimizer_typecheck", False,
     "run the MIR typechecker (analysis/typecheck.py) between optimizer "
     "transforms so an invalid plan is blamed on the transform that "
-    "produced it (transform/src/typecheck.rs analog); default-on in "
-    "the test suite via tests/conftest.py",
-    unported=ITEM_14,
+    "produced it (transform/src/typecheck.rs analog)",
 ).register(COMPUTE_CONFIGS)
 
 FUSED_MERGE = Config(
@@ -339,18 +340,13 @@ ENABLE_ASYNC_COMPILE = Config(
 
 BUFFER_SANITIZER = Config(
     "buffer_sanitizer", False,
-    "use-after-donate sanitizer: every donated span/step dispatch "
-    "records the killed carry leaves in a ledger (weakrefs — never "
-    "extends a buffer's lifetime), and guarded read sites "
-    "(IndexSource snapshots, multiversion rewinds, operand packing) "
-    "raise UseAfterDonateError with the provenance chain naming who "
-    "still held the alias. The donation CONTRACT is backend-"
-    "independent, so the sanitizer enforces it on CPU too — the test "
-    "suite (default ON under `pytest -m analysis`) catches "
-    "use-after-donate bugs on hosts where real donation is not even "
-    "wired. Production default off (one ledger walk per donated "
-    "dispatch)",
-    unported=ITEM_14,
+    "use-after-donate sanitizer (analysis/donation.py): a donated "
+    "dispatch records the killed carry leaves in a ledger (weak "
+    "references), and guarded read sites (IndexSource snapshots and "
+    "fetches, multiversion rewinds, span operand packing) raise "
+    "UseAfterDonateError naming who still held the alias. Eager torch "
+    "donates nothing, so the main path records nothing; the guards "
+    "still run. Default off (one flag read per guarded read)",
 ).register(COMPUTE_CONFIGS)
 
 RACE_DETECTOR = Config(
@@ -360,12 +356,9 @@ RACE_DETECTOR = Config(
     "acquire/release hooks plus the declared-shared-state registry "
     "(controller maps, hub session tables, freshness rings, "
     "compile-ledger memory, this dyncfg store), reporting "
-    "unsynchronized read/write pairs with both stack chains. Default "
-    "ON under `pytest -m analysis` (tests/conftest.py) and in the "
-    "check_plans.py --bench race-free gate; production default off "
-    "(one module-global None check per declared access, same "
-    "discipline as buffer_sanitizer)",
-    unported=ITEM_14,
+    "unsynchronized read/write pairs with both stack chains "
+    "(analysis/racecheck.maybe_enable_from_dyncfg installs it). "
+    "Default off (one module-global None check per declared access)",
 ).register(COMPUTE_CONFIGS)
 
 # -- the push serving plane ----------------------

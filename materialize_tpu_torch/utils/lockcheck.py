@@ -38,8 +38,7 @@ from dataclasses import dataclass
 # torn read just misses one edge during enable/disable — benign).
 _ENABLED = False
 
-# The happens-before race detector (the reference's
-# analysis/racecheck.py; ROADMAP Queue 1 item 14 in the port) layers on
+# The happens-before race detector (analysis/racecheck.py) layers on
 # these hook slots: one module-global read per acquire/release/shared-
 # access when it is off (None), so production pays nothing. The
 # detector installs itself via set_racecheck() on enable.

@@ -19,8 +19,9 @@ reference.
 - Every unported piece the slice reaches raises, naming its ROADMAP item;
   so does a SET of a registered flag the port does not read, to any value
   but its default. The pieces ported since answer: ``mz_span_epochs``,
-  ``mz_compile_log`` (the native library's build and load) and the span
-  and plan flags.
+  ``mz_compile_log`` (the native library's build and load), EXPLAIN
+  ANALYSIS, ``mz_donation``, ``mz_sharding`` and the span, plan and
+  analysis flags.
 """
 
 from __future__ import annotations
@@ -154,10 +155,7 @@ def test_unported_pieces_raise_naming_their_item(tmp_path):
         plan_error = mod("port", "sql.hir").PlanError
         cases = {
             # Introspection relations over state the port does not have.
-            "SELECT * FROM mz_donation": (NotImplementedError, "item 14"),
-            "SELECT * FROM mz_sharding": (NotImplementedError, "item 8"),
             "SELECT * FROM mz_program_bank": (NotImplementedError, "Queue 2 item 6"),
-            "EXPLAIN ANALYSIS SELECT * FROM st": (NotImplementedError, "item 14"),
             "CREATE SINK s FROM st INTO KAFKA (BROKER 'b', TOPIC 't')": (
                 NotImplementedError, "item 16"),
             # Source options are validated at CREATE time: the adapter's
@@ -168,9 +166,6 @@ def test_unported_pieces_raise_naming_their_item(tmp_path):
         # Flags the port registers but does not read: the default is
         # accepted, any other value raises naming where the reader waits.
         unported = {
-            "optimizer_typecheck": ("true", "item 14"),
-            "buffer_sanitizer": ("true", "item 14"),
-            "race_detector": ("true", "item 14"),
             "fused_merge": ("'lax'", "Queue 3"),
             "cached_run_lanes": ("false", "Queue 3"),
             "program_bank_path": ("'/x'", "Queue 2 item 6"),
@@ -196,9 +191,20 @@ def test_unported_pieces_raise_naming_their_item(tmp_path):
         assert [(d, r) for d, r, _e in epochs if d == "stv"] == [("stv", "r0")]
         assert "Reduce Accumulable group=[0]" in c.execute(
             "EXPLAIN PHYSICAL PLAN FOR SELECT v, count(*) FROM st GROUP BY v").text
-        # The span and plan flags have their readers: any value is taken.
+        # EXPLAIN ANALYSIS, mz_donation and mz_sharding answer (item 14).
+        text = c.execute("EXPLAIN ANALYSIS SELECT * FROM stv").text
+        assert text.startswith("typecheck: ok") and "stv@r0: safe=true" in text
+        assert "stv@r0: spmd=false workers=1" in text
+        assert c.execute(
+            "SELECT wired FROM mz_donation WHERE dataflow = 'stv'").rows == [(0,)]
+        assert c.execute(
+            "SELECT spmd, workers FROM mz_sharding WHERE dataflow = 'stv'").rows == [(0, 1)]
+        # The span, plan and analysis flags have their readers: any value
+        # is taken.
         for sql in ("SET span_window_spans = 4", "SET span_donation = 'on'",
-                    "SET delta_join_min_inputs = 2", "SET arrangement_ingest_mode = 'merge'"):
+                    "SET delta_join_min_inputs = 2", "SET arrangement_ingest_mode = 'merge'",
+                    "SET optimizer_typecheck = true", "SET buffer_sanitizer = true",
+                    "SET race_detector = true"):
             c.execute(sql)
         assert dyncfg.SPAN_WINDOW_SPANS(dyncfg.COMPUTE_CONFIGS) == 4
         assert dyncfg.DELTA_JOIN_MIN_INPUTS(dyncfg.COMPUTE_CONFIGS) == 2
@@ -212,7 +218,8 @@ def test_unported_pieces_raise_naming_their_item(tmp_path):
         cl.shutdown()
         mod("port", "utils.dyncfg").COMPUTE_CONFIGS.update({
             n: None for n in ("span_window_spans", "span_donation",
-                              "delta_join_min_inputs", "arrangement_ingest_mode")})
+                              "delta_join_min_inputs", "arrangement_ingest_mode",
+                              "optimizer_typecheck", "buffer_sanitizer", "race_detector")})
     replica = mod("port", "coord.replica")
     protocol = mod("port", "coord.protocol")
     loc = protocol.PersistLocation(str(tmp_path / "b2"), str(tmp_path / "c2.db"))
@@ -227,10 +234,10 @@ def test_unported_pieces_raise_naming_their_item(tmp_path):
     df = mod("port", "render.dataflow")
     rel = mod("port", "expr.relation")
     d = df.Dataflow(rel.Get("s", kv), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        d.capture_basic_multisets()
-    with pytest.raises(NotImplementedError, match="item 15"):
-        d.finalize_basic_columns([], [])
+    # The collection aggregates are ported (item 15): a dataflow without
+    # one has nothing to capture or finalize.
+    assert d.capture_basic_multisets() == {}
+    assert d.finalize_basic_columns([], []) == []
 
 
 def test_compile_log_records_the_native_library_build_and_load(tmp_path, monkeypatch):

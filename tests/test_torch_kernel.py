@@ -499,6 +499,58 @@ def _f64_values():
     return np.concatenate([vals, np.array(edges)])
 
 
+ORDER_FLAGS_SELECT = (
+    "SELECT l_orderkey, string_agg(l_returnflag, ',') AS flags, "
+    "array_agg(l_linenumber) AS lines, count(*) AS n FROM lineitem GROUP BY l_orderkey"
+)
+
+
+def _order_flags_run(device):
+    """``chip_smoke.py``'s ``order_flags`` view (a STRING_AGG, an
+    ARRAY_AGG and a COUNT by order) rendered from its SQL on ``device``
+    at the default state tier of 256 rows (its multisets overflow, roll
+    back, grow and replay), fed TPC-H lineitem at SF 0.01 and 4 churn
+    ticks. Returns (dataflow, merge-path launches)."""
+    from materialize_tpu_torch.render.dataflow import Dataflow
+    from materialize_tpu_torch.repr.batch import Batch
+    from materialize_tpu_torch.sql.plan import plan_statement
+    from materialize_tpu_torch.storage.generator.tpch import LINEITEM_SCHEMA, TpchGenerator
+    from materialize_tpu_torch.transform.optimizer import optimize
+    from materialize_tpu_torch.workloads.tpch import tpch_catalog
+
+    df = Dataflow(optimize(plan_statement(ORDER_FLAGS_SELECT, tpch_catalog()).expr),
+                  device=device)
+    gen = TpchGenerator(sf=0.01, seed=3)
+    parts = list(gen.snapshot_lineitem_parts())
+    parts += [gen.churn_lineitem_part(64, t) for t in range(1, 5)]
+    before = merge_kernel.LAUNCHES
+    for t, (cols, diff) in enumerate(parts):
+        df.step({"lineitem": Batch.from_numpy(
+            LINEITEM_SCHEMA, cols, np.full(len(diff), t, np.uint64), diff, device=device)})
+    return df, merge_kernel.LAUNCHES - before
+
+
+@pytest.mark.cuda
+def test_order_flags_reduce_on_card_equals_cpu():
+    """The collection aggregates' reduce on the card against its CPU
+    run: every state part (digests and multisets), the output runs and
+    the finalized peek equal, the multisets merged through the kernel."""
+    _need_card()
+    (kdf, klaunch), (cdf, claunch) = _order_flags_run("cuda"), _order_flags_run("cpu")
+    assert klaunch > 0 and claunch == 0
+    assert any(k[0] == "state" for k in kdf._grown) and kdf._grown == cdf._grown
+    rows = kdf.peek()
+    assert rows == cdf.peek() and len(rows) > 10_000
+    # Each order's line numbers, one per row it counts.
+    assert all(r[2].count(",") + 1 == r[3] == r[1].count(",") + 1 for r in rows)
+    for kparts, cparts in zip(kdf.states, cdf.states):
+        for kp, cp in zip(kparts, cparts):
+            n = int(kp.batch.count)
+            assert int(cp.batch.count) == n
+            for x, y in zip(kp.batch.cols + (kp.batch.diff,), cp.batch.cols + (cp.batch.diff,)):
+                assert torch.equal(x[:n].cpu(), y[:n])
+
+
 @pytest.mark.cuda
 def test_f64_lanes_on_card_equal_cpu():
     """FLOAT64 lanes on the card equal those on the CPU bit for bit: the

@@ -121,6 +121,14 @@ SLICE_MODULES = [
     "materialize_tpu_torch.plan",
     "materialize_tpu_torch.plan.lir",
     "materialize_tpu_torch.plan.lowering",
+    "materialize_tpu_torch.analysis",
+    "materialize_tpu_torch.analysis.typecheck",
+    "materialize_tpu_torch.analysis.provenance",
+    "materialize_tpu_torch.analysis.donation",
+    "materialize_tpu_torch.analysis.shard_prop",
+    "materialize_tpu_torch.analysis.racecheck",
+    "materialize_tpu_torch.testing",
+    "materialize_tpu_torch.testing.slt",
 ]
 
 
@@ -142,6 +150,35 @@ def test_no_jax_or_reference_imports():
             if name in FORBIDDEN:
                 bad.append(f"{f.relative_to(ROOT)}: {name}")
     assert not bad, bad
+
+
+def test_no_raise_names_items_14_or_15():
+    """The plan checkers (ROADMAP Queue 1 item 14) and the collection
+    aggregates (item 15) are ported: no string of the port names either
+    item, so nothing raises naming them."""
+    bad = []
+    for f in sorted(PKG.rglob("*.py")):
+        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+            if isinstance(node, ast.Constant) and isinstance(node.value, str):
+                text = " ".join(node.value.split())
+                if "item 14" in text or "item 15" in text or "ITEM_14" in text:
+                    bad.append(f"{f.relative_to(ROOT)}:{node.lineno}")
+    assert not bad, bad
+
+
+def test_slt_runner_imports_nothing_of_the_reference():
+    """``testing/slt.py`` is the port's own copy: it imports neither JAX
+    nor the reference, and loading it loads neither."""
+    f = PKG / "testing" / "slt.py"
+    assert not set(_top_names(ast.parse(f.read_text()))) & set(FORBIDDEN)
+    code = (
+        "import sys\n"
+        "from materialize_tpu_torch.testing.slt import parse_slt, run_slt\n"
+        "assert 'jax' not in sys.modules and 'materialize_tpu' not in sys.modules\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_slice_imports_leave_jax_unloaded():

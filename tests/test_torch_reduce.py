@@ -185,10 +185,15 @@ def test_reduce_op_steps_match_reference():
 
 
 def test_reduce_op_refuses_unported_aggregates():
+    """DISTINCT aggregates raise (the optimizer rewrites them away); the
+    collection aggregates are ported: each keeps a digest pair in the
+    accumulator part and a multiset part of its own
+    (``tests/test_torch_basic_aggs.py`` holds them to the reference)."""
     A, F = tmir.AggregateExpr, tmir.AggregateFunc
     for func in (F.ARRAY_AGG, F.STRING_AGG, F.LIST_AGG):
-        with pytest.raises(NotImplementedError):
-            TReduceOp(_schema(tschema), (0,), (A(func, ts.col(4)),))
+        op = TReduceOp(_schema(tschema), (0,), (A(func, ts.col(4)),))
+        assert [c.name for c in op.state_schema.columns][-2:] == ["__a0_mix__", "__a0_nn__"]
+        assert len(op.init_state(CAP, device="cpu")) == 2
     with pytest.raises(NotImplementedError, match="DISTINCT"):
         TReduceOp(_schema(tschema), (0,), (A(F.COUNT, ts.col(4), distinct=True),))
 

@@ -12,8 +12,9 @@ against the reference's.
   (``PlanError``, a parse error, ``NotImplementedError`` of an
   unsupported form), the port must raise the same type with the same
   message. EXPLAIN PHYSICAL PLAN's text (the LIR of ``plan/lowering.py``)
-  must equal the reference's. EXPLAIN ANALYSIS is not ported: the port
-  raises ``NotImplementedError`` naming its ROADMAP item there.
+  must equal the reference's, and so must EXPLAIN ANALYSIS's static
+  report (``analysis.report``: typecheck, monotonicity, LIR check, the
+  peek decision) and ``report()`` of every optimized plan.
 - The texts ``Q21_SQL`` and ``Q7_SQL`` over the TPC-H schemas.
 - The reference's unoptimized hand MIR (``q1_mir``, ``q15_mir``,
   ``q9_mir``, the auction's and pagerank's) through both optimizers.
@@ -35,11 +36,13 @@ import os
 
 import pytest
 
+from materialize_tpu.analysis import report as jreport
 from materialize_tpu.repr.schema import GLOBAL_DICT as JDICT
 from materialize_tpu.sql import catalog as jcatalog
 from materialize_tpu.sql import plan as jplan
 from materialize_tpu.testing.slt import parse_slt
 from materialize_tpu.transform import optimizer as joptimizer
+from materialize_tpu_torch.analysis import report as treport
 from materialize_tpu_torch.sql import catalog as tcatalog
 from materialize_tpu_torch.sql import plan as tplan
 from materialize_tpu_torch.transform import optimizer as toptimizer
@@ -134,13 +137,13 @@ def test_slt_record_plans_like_the_reference(path, i):
         assert isinstance(t, Exception), (r.sql, j, t)
         assert (type(t).__name__, str(t)) == (type(j).__name__, str(j)), r.sql
         return
-    if type(j).__name__ == "ExplainPlan" and j.stage == "analysis":
-        assert isinstance(t, NotImplementedError) and "item 14" in str(t), (r.sql, t)
-        return
     assert not isinstance(t, Exception), (r.sql, t)
     assert t == to_port(j), r.sql
     if type(j).__name__ in EXPR_PLANS:
         assert t.expr.schema() == to_port(j.expr.schema())
+        # The static analyses over the same optimized plan: typecheck,
+        # monotonicity and the LIR check report the same text.
+        assert treport(t.expr) == jreport(j.expr), r.sql
 
 
 def _tpch_catalogs():
