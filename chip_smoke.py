@@ -5,8 +5,8 @@ card and check it end to end.
     python3 chip_smoke.py
     python3 chip_smoke.py --serve-only
 
-With ``--serve-only`` it runs phases 1, 5, 7a and 7b, and stops after
-``deploy``, printing neither the kernels line nor the last line. Phases,
+With ``--serve-only`` it runs phases 1, 5, 7a, 7b and 7c, and stops
+after ``kafka``, printing neither the kernels line nor the last line. Phases,
 each printing one JSON line (any failure exits non-zero):
 
 1. card and build: the card's name and power limit (``nvidia-smi``),
@@ -133,6 +133,49 @@ each printing one JSON line (any failure exits non-zero):
     (``coord/freshness.lag_ms``), the recorder's lag, the replica's boot
     s, library load s, step ms a tick and peak device bytes (from its
     shipped metrics), recovery s, compactions, the phase's seconds;
+7c. ``kafka``: a Debezium CDC feed of TPC-H into the port through a
+    Kafka source, Q1 exported through an exactly-once Kafka sink, at SF
+    0.05 (``KAFKA_SF``, ~300,000 lineitem rows; ``serve``'s 0.1 did not
+    fit the script's time limit). Before
+    ``environmentd`` boots, this script writes the generator's lineitem
+    stream to a ``FileBroker`` topic ``tpch.lineitem`` of 4 partitions
+    (``l_orderkey % 4``) as Debezium JSON: the snapshot after-only, each
+    churn tick of 1,024 orders as before-only deletes and after-only
+    inserts in one transaction. ``python -m
+    materialize_tpu_torch.server.environmentd --device cuda`` runs in a
+    process of its own with one replica process on the card; over
+    pgwire: ``CREATE SOURCE li (...) FROM KAFKA (... ENVELOPE
+    'debezium')``, Q1's text over ``li`` as ``q1``, ``CREATE INDEX
+    li_by_order ON li (l_orderkey)`` and ``CREATE SINK q1_sink FROM q1
+    INTO KAFKA (... TOPIC 'q1.out', ENVELOPE 'debezium')``. Checked
+    after hydration, after the churn and at the end: ``li_progress``
+    equal to the topic's end offsets, Q1 over pgwire equal to the numpy
+    oracle, 64 ``l_orderkey`` lookups (EXPLAIN ANALYSIS: through the
+    index) equal to the oracle's rows, and ``q1.out`` consolidated (+1
+    after, -1 before) equal to Q1's rows. 32 churn ticks, the replica
+    process SIGKILLed once the source binds churn and respawned on its
+    port and rid (as an orchestrator restarts it), then ``mz_recovery``'s
+    rebuilds all 0; 16 paced ticks, each timed from its append to its
+    Q1 change in ``q1.out``; after 8 of them ``environmentd`` is killed
+    with SIGKILL (its replica with it), 4 ticks are appended while it is
+    down, and it restarts with ``--recover``: the source resumes at the
+    offsets ``li_progress`` bound (the new process fetches exactly the
+    records past them, its ``mz_kafka_source_records_total``;
+    ``count(*)`` of ``li`` and Q1 exact) and no ``q1.out`` record is
+    published twice. Printed: the producer's seconds apart, records
+    decoded a second and the host decode seconds (the source's
+    ``mz_kafka_source_*`` counters), first DDL to Q1's first exact
+    answer, the paced ticks' append to ``q1.out`` p50/p99, the recovery
+    seconds, records republished (0), ``merge_path`` launches of the
+    three replica processes and their shapes, peak device bytes; then
+    the kernel at each merge shape they launched (``kafka_kernel_shape``);
+7d. ``chaos``: ``testing/chaos.py``'s storm with its replica process on
+    the card (seed 3, 30 ticks, one blob operation in 11 failing,
+    connection kills, a partition, a mid-storm DDL and one SIGKILL of
+    the replica, respawned on its port): the maintained view and its
+    sink shard equal to the oracle, ``rebuilds == 0`` for ``mv_sums``;
+    the storm's counts, and the kernel at each merge shape the
+    respawned replica launched (``chaos_kernel_shape``);
 8. TPC-H Q15 at SF 0.1 (``workloads/tpch.py``, the reference bench's Q15
    layout, twice its scale; SF 1 is left to earlier records, for time:
    the revenue view, its global MAX and the supplier table in a
@@ -157,8 +200,9 @@ each printing one JSON line (any failure exits non-zero):
     lineitem hydrates in ticks of 16,384 orders with every tier
     pre-sized (``q9_tiers``; no hydrate span may overflow), no warm
     span, the join tier set back to a churn tick's
-    (``set_join_tiers``), then 32 churn ticks as spans of 16 with one
-    flags readback each; kernel launches by merge shape (2^21 rows at
+    (``set_join_tiers``), then 16 churn ticks as one span (32 as two
+    until ``kafka`` and ``chaos`` took their time) with one flags
+    readback; kernel launches by merge shape (2^21 rows at
     L = 6 among them; 2^23 at SF 1), device operations per tick from 2
     profiled ticks, peak device memory,
     ``peek()`` against a numpy Q9 oracle over every batch fed (175
@@ -200,8 +244,9 @@ each printing one JSON line (any failure exits non-zero):
     ``deploy``) in
     Q9's layout and stream: supplier, nation and every order on the
     first hydrate tick, lineitem in ticks of 16,384 orders with every
-    tier pre-sized (``q21_tiers``, join tiers per site), 32 churn ticks
-    as spans of 16 with one flags readback each; kernel launches by merge
+    tier pre-sized (``q21_tiers``, join tiers per site), 16 churn ticks
+    as one span (32 as two before the kafka and chaos phases: the
+    script's time limit) with one flags readback; kernel launches by merge
     shape (25-lane merges of the Threshold and the cse3 spines among
     them), device operations per tick from 2 profiled ticks, peak device
     memory, the Threshold's state rows, ``peek()`` against a numpy Q21
@@ -227,13 +272,13 @@ each printing one JSON line (any failure exits non-zero):
     text on this machine by the port's frontend and optimizer
     (``workloads/tpch.py:q7_expr``: a 6-input delta join with nation
     twice, the BETWEEN inside the lineitem input, the OR of the nation
-    pairs after the join) at SF 0.5 (``Q7_SF``: the script's time
-    limit) in Q9's layout: nation and supplier on the first hydrate
+    pairs after the join) at SF 0.25 (``Q7_SF``: the script's time
+    limit; SF 0.5 until ``kafka`` and ``chaos``) in Q9's layout: nation and supplier on the first hydrate
     tick, customer on the second, every order on the third with the
     first of the lineitem ticks of 32,768 orders (``q7_stagger``: on one
     tick, customer would meet every order in one probe), every tier pre-sized
-    (``q7_tiers``), 32 churn ticks as spans of 16 with one flags
-    readback each, 2 profiled ticks; launches by merge shape, peak
+    (``q7_tiers``), 16 churn ticks as one span (32 as two before the
+    kafka and chaos phases) with one flags readback, 2 profiled ticks; launches by merge shape, peak
     memory, ``peek()`` against a numpy Q7 oracle (4 groups) and
     ``peek_errors()`` empty; then the kernel at each merge shape Q7
     launched, and Q7 at SF 0.002 in both merge modes (every state part
@@ -1244,7 +1289,8 @@ def phase_q9(torch, merge_kernel, card, sf: float = 1.0) -> dict:
     from materialize_tpu_torch.workloads.index import rows_per_tick
     from materialize_tpu_torch.workloads.tpch import set_join_tiers
 
-    hydrate_orders, ticks_churn, span_churn, profile_ticks = 16384, 32, 16, 2
+    # 16 churn ticks, one span, not 32: the script's time limit (PERF.md §4).
+    hydrate_orders, ticks_churn, span_churn, profile_ticks = 16384, 16, 16, 2
     n_ticks = ticks_churn + profile_ticks
     t0 = time.perf_counter()
     df, hydrate, churn = q9_presized(sf, n_ticks, hydrate_orders, n_orders_per_tick=1024,
@@ -1386,7 +1432,8 @@ def phase_q21(torch, merge_kernel, card, sf: float) -> dict:
     from materialize_tpu_torch.workloads.index import rows_per_tick
     from materialize_tpu_torch.workloads.tpch import set_join_tiers
 
-    hydrate_orders, ticks_churn, span_churn, profile_ticks = 16384, 32, 16, 2
+    # 16 churn ticks, one span, not 32: the script's time limit (PERF.md §4).
+    hydrate_orders, ticks_churn, span_churn, profile_ticks = 16384, 16, 16, 2
     n_ticks = ticks_churn + profile_ticks
     t0 = time.perf_counter()
     df, hydrate, churn = q21_presized(sf, n_ticks, hydrate_orders, n_orders_per_tick=1024,
@@ -1460,8 +1507,10 @@ def phase_q21(torch, merge_kernel, card, sf: float) -> dict:
 Q7_COLS = (0, 2, 5, 6, 10)  # orderkey, suppkey, extendedprice, discount, shipdate
 # Q7's scale and hydrate tick, the cuts the time limit forced: at SF 1
 # in ticks of 16,384 orders the script took 1,149.6 s, its Q7 phase
-# 247.1 s (an NVIDIA H100 80GB HBM3 at 700 W, PERF.md §4).
-Q7_SF = 0.5
+# 247.1 s; SF 0.5 until the kafka and chaos phases took their time (the
+# script 1,011.0 s before them; an NVIDIA H100 80GB HBM3 at 700 W,
+# PERF.md §4).
+Q7_SF = 0.25
 Q7_HYDRATE_ORDERS = 32768
 
 
@@ -1517,7 +1566,8 @@ def phase_q7(torch, merge_kernel, card, sf: float) -> dict:
     from materialize_tpu_torch.workloads.index import rows_per_tick
     from materialize_tpu_torch.workloads.tpch import Q7_HI, Q7_LO, set_join_tiers
 
-    hydrate_orders, ticks_churn, span_churn, profile_ticks = Q7_HYDRATE_ORDERS, 32, 16, 2
+    # 16 churn ticks, one span, not 32: the script's time limit (PERF.md §4).
+    hydrate_orders, ticks_churn, span_churn, profile_ticks = Q7_HYDRATE_ORDERS, 16, 16, 2
     n_ticks = ticks_churn + profile_ticks
     t0 = time.perf_counter()
     df, hydrate, churn = q7_presized(sf, n_ticks, hydrate_orders, n_orders_per_tick=1024,
@@ -3890,6 +3940,663 @@ def phase_deploy(torch, merge_kernel, card, serve: dict, span_pipelining: bool =
     return res
 
 
+# -- kafka: a Debezium CDC deployment of TPC-H (phase 7c) ----------------------
+
+KAFKA_TOPIC, KAFKA_OUT = "tpch.lineitem", "q1.out"
+KAFKA_PARTITIONS = 4  # partition = l_orderkey % 4
+# SF 0.05 (~300,000 lineitem rows), not serve's 0.1: with it the script
+# took 1,111.2 s of its time limit (an NVIDIA H100 80GB HBM3 at 700 W,
+# PERF.md §4).
+KAFKA_SF = 0.05
+# Churn ticks, paced ticks, and ticks appended while environmentd is down.
+KAFKA_TICKS, KAFKA_PACED, KAFKA_DOWN = 32, 16, 4
+KAFKA_KILL_AT = 8  # paced ticks before environmentd's kill -9
+KAFKA_REPLICA_KILL_AT = 16  # churn ticks before the replica's SIGKILL
+KAFKA_LOOKUPS = 64
+KAFKA_TICK_S = 0.25  # environmentd's --tick-interval: the source's poll
+KAFKA_CHUNK = 16384  # snapshot records a producer append
+KAFKA_WAIT_S = 180.0
+
+KAFKA_SOURCE_SQL = (
+    "CREATE SOURCE li (l_orderkey bigint NOT NULL, l_partkey bigint NOT NULL, "
+    "l_suppkey bigint NOT NULL, l_linenumber integer NOT NULL, "
+    "l_quantity numeric(15,2) NOT NULL, l_extendedprice numeric(15,2) NOT NULL, "
+    "l_discount numeric(15,2) NOT NULL, l_tax numeric(15,2) NOT NULL, "
+    "l_returnflag text NOT NULL, l_linestatus text NOT NULL, l_shipdate date NOT NULL, "
+    "l_commitdate date NOT NULL, l_receiptdate date NOT NULL) FROM KAFKA "
+    "(BROKER '{broker}', TOPIC '" + KAFKA_TOPIC + "', FORMAT 'json', ENVELOPE 'debezium')")
+KAFKA_Q1_SQL = "CREATE MATERIALIZED VIEW q1 AS " + SERVE_Q1_SQL.replace(
+    "FROM lineitem", "FROM li")
+KAFKA_INDEX_SQL = "CREATE INDEX li_by_order ON li (l_orderkey)"
+# The offsets the source bound, read as an operator reads them: an index
+# makes each read a fast-path scan, not a transient dataflow.
+KAFKA_PROGRESS_INDEX_SQL = "CREATE INDEX li_progress_idx ON li_progress (partition)"
+KAFKA_SINK_SQL = ("CREATE SINK q1_sink FROM q1 INTO KAFKA (BROKER '{broker}', TOPIC '"
+                  + KAFKA_OUT + "', FORMAT 'json', ENVELOPE 'debezium')")
+
+
+def _debezium_records(cols, diffs) -> tuple:
+    """A lineitem part as Debezium change records, built in bulk: a
+    delete (diff -1) is ``{"payload": {"before": row, "after": null}}``,
+    an insert ``{"before": null, "after": row}``; DECIMALs as text at
+    scale 2 (``decimal.handling.mode=string``), DATEs as days since the
+    epoch (``io.debezium.time.Date``). Returns (partition per record,
+    record values)."""
+    from materialize_tpu_torch.repr.schema import GLOBAL_DICT
+
+    check(bool(np.all(np.abs(diffs) == 1)), "kafka: a lineitem diff other than +-1")
+    cl = [np.asarray(c).tolist() for c in cols]
+    text = {c: GLOBAL_DICT.decode(c) for c in set(cl[8]) | set(cl[9])}
+
+    def d2(v):
+        return f"{v // 100}.{v % 100:02d}"
+
+    rows = [
+        f'{{"l_orderkey": {a}, "l_partkey": {b}, "l_suppkey": {c}, "l_linenumber": {d}, '
+        f'"l_quantity": "{d2(e)}", "l_extendedprice": "{d2(f)}", "l_discount": "{d2(g)}", '
+        f'"l_tax": "{d2(h)}", "l_returnflag": "{text[i]}", "l_linestatus": "{text[j]}", '
+        f'"l_shipdate": {k}, "l_commitdate": {m}, "l_receiptdate": {n}}}'
+        for a, b, c, d, e, f, g, h, i, j, k, m, n in zip(*cl)
+    ]
+    values = [
+        (f'{{"payload": {{"before": {r}, "after": null}}}}' if d < 0
+         else f'{{"payload": {{"before": null, "after": {r}}}}}').encode()
+        for r, d in zip(rows, np.asarray(diffs).tolist())
+    ]
+    return np.asarray(cols[0]) % KAFKA_PARTITIONS, values
+
+
+def _by_partition(parts_of, values) -> list:
+    return [[values[i] for i in np.flatnonzero(parts_of == p)]
+            for p in range(KAFKA_PARTITIONS)]
+
+
+def _produce_snapshot(broker, snap) -> int:
+    """The snapshot, after-only, a partition at a time in appends of
+    ``KAFKA_CHUNK`` records (one committed index entry each)."""
+    from materialize_tpu_torch.storage.kafka.broker import Record
+
+    cols = [np.concatenate([p[0][i] for p in snap]) for i in range(13)]
+    diffs = np.concatenate([p[1] for p in snap])
+    parts_of, values = _debezium_records(cols, diffs)
+    for p, vals in enumerate(_by_partition(parts_of, values)):
+        for i in range(0, len(vals), KAFKA_CHUNK):
+            broker.append(KAFKA_TOPIC, p, [Record(None, v) for v in vals[i:i + KAFKA_CHUNK]])
+    return len(values)
+
+
+def _produce_tick(broker, part) -> int:
+    """One churn tick (before-only deletes, after-only inserts) as one
+    transaction over the four partitions: an exactly-once producer's
+    commit."""
+    from materialize_tpu_torch.storage.kafka.broker import Record
+
+    parts_of, values = _debezium_records(*part)
+    broker.append_txn([(KAFKA_TOPIC, p, [Record(None, v) for v in vals])
+                       for p, vals in enumerate(_by_partition(parts_of, values)) if vals])
+    return len(values)
+
+
+def _q1_sink_rows(sums) -> dict:
+    """Q1's rows as the sink encodes them (DECIMALs as JSON floats of the
+    engine's decimals), each once: the consolidated ``q1.out``."""
+    from decimal import Decimal
+
+    from materialize_tpu_torch.repr.schema import GLOBAL_DICT
+
+    out = {}
+    for (f, s), (qty, base, disc_price, charge, cnt, disc) in sums.items():
+        if cnt == 0:
+            continue
+        row = {"l_returnflag": GLOBAL_DICT.decode(f), "l_linestatus": GLOBAL_DICT.decode(s),
+               "sum_qty": float(Decimal(qty) / 100),
+               "sum_base_price": float(Decimal(base) / 100),
+               "sum_disc_price": float(Decimal(disc_price) / 10**4),
+               "sum_charge": float(Decimal(charge) / 10**6),
+               "avg_qty": float(Decimal(qty // cnt) / 100),
+               "avg_price": float(Decimal(base // cnt) / 100),
+               "avg_disc": float(Decimal(disc // cnt) / 100),
+               "count_order": cnt}
+        out[tuple(sorted(row.items()))] = 1
+    return out
+
+
+class _TopicTail:
+    """``q1.out`` read as a consumer reads it: each new record once, the
+    Debezium pairs consolidated (+1 after, -1 before), and every record's
+    bytes counted, so that a record published twice shows."""
+
+    def __init__(self, broker, topic: str):
+        from collections import Counter
+
+        self.broker, self.topic = broker, topic
+        self.offset = 0
+        self.state, self.seen = Counter(), Counter()
+
+    def poll(self) -> dict:
+        end = self.broker.end_offset(self.topic, 0)
+        if end > self.offset:
+            for r in self.broker.fetch(self.topic, 0, self.offset, end - self.offset):
+                self.seen[r.value] += 1
+                p = json.loads(r.value)["payload"]
+                for side, d in (("before", -1), ("after", 1)):
+                    if p[side] is not None:
+                        self.state[tuple(sorted(p[side].items()))] += d
+            self.offset = end
+        return {k: n for k, n in self.state.items() if n}
+
+    def republished(self) -> int:
+        return sum(n - 1 for n in self.seen.values() if n > 1)
+
+
+def _free_tcp_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _tgid(pid: int) -> int | None:
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            for line in f:
+                if line.startswith("Tgid:"):
+                    return int(line.split()[1])
+    except FileNotFoundError:
+        return None
+    return None
+
+
+def _children(pid: int) -> list:
+    """The child processes of ``pid`` (some kernels also list a child's
+    threads there: only thread-group leaders are kept)."""
+    out = set()
+    for task in os.listdir(f"/proc/{pid}/task"):
+        try:
+            with open(f"/proc/{pid}/task/{task}/children") as f:
+                out.update(int(c) for c in f.read().split())
+        except FileNotFoundError:  # a thread that ended meanwhile
+            continue
+    return sorted(c for c in out if _tgid(c) == c)
+
+
+def _alive(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().split(") ", 1)[1][0] != "Z"
+    except (FileNotFoundError, ProcessLookupError, IndexError):
+        return False
+
+
+def _sigkill(pid: int) -> None:
+    try:
+        os.kill(pid, 9)
+    except ProcessLookupError:
+        pass
+
+
+def _kill_wait(proc) -> None:
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.wait(timeout=30)
+
+
+class _Environmentd:
+    """``python -m materialize_tpu_torch.server.environmentd`` in a process
+    of its own (so that it can be killed with SIGKILL), its output (and
+    its replica's) in a log file; up once it prints its listening line."""
+
+    def __init__(self, root: str, device: str, recover: bool = False, n: int = 0):
+        self.pg, self.http = _free_tcp_port(), _free_tcp_port()
+        self.log_path = os.path.join(root, f"environmentd{n}.log")
+        cmd = [sys.executable, "-m", "materialize_tpu_torch.server.environmentd",
+               "--data-dir", os.path.join(root, "data"), "--pg-port", str(self.pg),
+               "--http-port", str(self.http), "--replicas", "1",
+               "--tick-interval", str(KAFKA_TICK_S), "--device", device]
+        if recover:
+            cmd.append("--recover")
+        self._log = open(self.log_path, "w")
+        self.proc = subprocess.Popen(
+            cmd, stdout=self._log, stderr=subprocess.STDOUT,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            env={**os.environ, "PYTHONUNBUFFERED": "1"})
+        t0 = time.perf_counter()
+        while "materialize_tpu_torch listening" not in self.log():
+            check(self.proc.poll() is None,
+                  f"kafka: environmentd exited {self.proc.returncode}: {self.log()[-3000:]}")
+            check(time.perf_counter() - t0 < KAFKA_WAIT_S, "kafka: environmentd did not listen")
+            time.sleep(0.05)
+        self.boot_s = time.perf_counter() - t0
+        self.recovery = None
+        for line in self.log().splitlines():
+            if line.startswith("recovery: "):
+                self.recovery = json.loads(line[len("recovery: "):])
+
+    def log(self) -> str:
+        with open(self.log_path) as f:
+            return f.read()
+
+    def replica_pids(self) -> list:
+        """Its replica processes (its other children are not)."""
+        out = []
+        for pid in _children(self.proc.pid):
+            try:
+                with open(f"/proc/{pid}/cmdline") as f:
+                    if "materialize_tpu_torch.coord.replica" in f.read():
+                        out.append(pid)
+            except FileNotFoundError:
+                continue
+        return out
+
+    def sql(self, sql: str) -> list:
+        return _http_sql(self.http, sql)
+
+    def metrics(self) -> dict:
+        return _metric_samples(self.http)
+
+    def stop(self) -> None:
+        """SIGTERM: environmentd stops its replica processes and exits 0."""
+        self.proc.terminate()
+        rc = self.proc.wait(timeout=60)
+        self._log.close()
+        check(rc == 0, f"kafka: environmentd ended with {rc}: {self.log()[-3000:]}")
+
+
+def _replica_counts(samples: dict) -> tuple:
+    """(merge_path launches, launches by merge shape, peak device bytes)
+    of the replica r0 that last shipped its metrics."""
+    import re
+
+    launches = int(samples.get('mz_merge_path_launches_total{replica="r0"}', 0))
+    peak = int(samples.get('mz_device_peak_bytes{replica="r0"}', 0))
+    shapes = {}
+    for key, v in samples.items():
+        if key.startswith("mz_merge_path_launches_by_shape{") and 'replica="r0"' in key:
+            lab = dict(re.findall(r'(\w+)="([^"]*)"', key))
+            shapes[(int(lab["cap_a"]), int(lab["cap_b"]), int(lab["out"]),
+                    int(lab["lanes"]))] = int(v)
+    return launches, shapes, peak
+
+
+def _lookup_oracle(parts, keys) -> dict:
+    """{l_orderkey: sorted live (linenumber, partkey, suppkey, qty, ext)}."""
+    from collections import Counter
+
+    key, part, supp, line, qty, ext, diff = _cols_of(parts, (0, 1, 2, 3, 4, 5))
+    m = np.isin(key, keys)
+    acc = Counter()
+    for k, ln, p, s, q, e, d in zip(*(a[m].tolist() for a in (key, line, part, supp, qty,
+                                                               ext, diff))):
+        acc[(k, (ln, p, s, q, e))] += d
+    out = {k: [] for k in keys}
+    for (k, row), n in acc.items():
+        check(n in (0, 1), f"kafka: oracle row {row} of order {k} counted {n}")
+        if n:
+            out[k].append(row)
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def _check_lookups(c, keys, want: dict, what: str) -> list:
+    from decimal import Decimal
+
+    ms = []
+    for k in keys:
+        t = time.perf_counter()
+        _cols, rows, _tag = c.query(
+            "SELECT l_linenumber, l_partkey, l_suppkey, l_quantity, l_extendedprice "
+            f"FROM li WHERE l_orderkey = {k}")
+        ms.append((time.perf_counter() - t) * 1e3)
+        got = sorted((int(a), int(b), int(s), int(Decimal(q) * 100), int(Decimal(e) * 100))
+                     for a, b, s, q, e in rows)
+        check(got == want[k], f"{what}: order {k}: {got} != {want[k]}")
+    return ms
+
+
+def _kafka_run(root: str, device: str, sf: float, churn: int) -> dict:
+    """The ``kafka`` phase on ``device`` (module docstring, phase 7c);
+    returns its numbers, raises on any check."""
+    from materialize_tpu_torch.storage.kafka.broker import FileBroker
+
+    out: dict = {"sf": sf, "churn_orders": churn, "partitions": KAFKA_PARTITIONS}
+    split, t_last = {}, [time.perf_counter()]
+    out["split_s"] = split
+
+    def stage(name: str) -> None:
+        now = time.perf_counter()
+        split[name] = now - t_last[0]
+        t_last[0] = now
+        print(f"kafka: {name} {split[name]:.3f} s", file=sys.stderr, flush=True)
+
+    n_ticks = KAFKA_TICKS + KAFKA_PACED + KAFKA_DOWN
+    _gen, snap, churn_parts = _serve_oracle_parts(sf, churn, n_ticks)
+    # Q1's sums after the snapshot and after each churn tick.
+    q1_at = [_q1_sums(snap)]
+    for part in churn_parts:
+        q1_at.append(_q1_add(q1_at[-1], _q1_sums([part])))
+    stage("oracle")
+    broker_dir = os.path.join(root, "broker")
+    broker = FileBroker(broker_dir)
+    broker.create_topic(KAFKA_TOPIC, KAFKA_PARTITIONS)
+    t = time.perf_counter()
+    out["snapshot_records"] = _produce_snapshot(broker, snap)
+    out["producer_snapshot_s"] = time.perf_counter() - t
+    stage("produce_snapshot")
+    produced = [0]  # churn ticks in the topic
+    tick_records: list = []
+
+    def produce(n: int) -> None:
+        for _ in range(n):
+            t_p = time.perf_counter()
+            tick_records.append(_produce_tick(broker, churn_parts[produced[0]]))
+            out["producer_churn_s"] = out.get("producer_churn_s", 0.0) + time.perf_counter() - t_p
+            produced[0] += 1
+
+    def ends() -> dict:
+        return {p: broker.end_offset(KAFKA_TOPIC, p) for p in range(KAFKA_PARTITIONS)}
+
+    tail = _TopicTail(broker, KAFKA_OUT)
+    env = None
+    replicas: list = []  # the replica processes this script respawned
+    counted = []  # (launches, shapes, peak) of each replica generation
+    snap_keys = np.unique(_cols_of(snap, (0,))[0])
+    keys = np.random.default_rng(13).choice(snap_keys, KAFKA_LOOKUPS, replace=False).tolist()
+    lookup_ms: list = []
+
+    def caught_up(c, what: str) -> float:
+        """Wait until li_progress binds the topic's end offsets; Q1 over
+        pgwire then equals the oracle and the index answers the lookups."""
+        want = ends()
+        t_w = time.perf_counter()
+        while True:
+            got = {int(p): int(e) for p, e in c.query("SELECT * FROM li_progress")[1]}
+            if got == want:
+                break
+            check(time.perf_counter() - t_w < KAFKA_WAIT_S,
+                  f"{what}: li_progress {got} short of the topic's ends {want}")
+            time.sleep(0.02)
+        waited = time.perf_counter() - t_w
+        t_q = time.perf_counter()
+        _check_q1_wire(c.query("SELECT * FROM q1")[1], None, f"{what}: Q1", q1_at[produced[0]])
+        q1_ms = (time.perf_counter() - t_q) * 1e3
+        ms = _check_lookups(c, keys, _lookup_oracle(snap + churn_parts[:produced[0]], keys),
+                            f"{what}: lookups")
+        lookup_ms.extend(ms)
+        print(f"{what}: progress {waited:.3f} s, Q1 {q1_ms:.1f} ms, lookups p50 "
+              f"{np.percentile(ms, 50):.1f} ms", file=sys.stderr, flush=True)
+        return waited
+
+    def sink_caught_up(what: str) -> float:
+        want = _q1_sink_rows(q1_at[produced[0]])
+        t_w = time.perf_counter()
+        while tail.poll() != want:
+            check(time.perf_counter() - t_w < KAFKA_WAIT_S,
+                  f"{what}: q1.out consolidated != Q1's rows")
+            time.sleep(0.005)
+        return time.perf_counter() - t_w
+
+    def decode_counts(e) -> tuple:
+        m = e.metrics()
+        return (m.get("mz_kafka_source_records_total", 0.0),
+                m.get("mz_kafka_source_decode_seconds_total", 0.0))
+
+    try:
+        env = _Environmentd(root, device)
+        out["environmentd_boot_s"] = env.boot_s
+        stage("boot")
+        c = PgClient(env.pg)
+        c.query("SET metrics_report_ms = 50")
+        t_ddl = time.perf_counter()
+        c.query(KAFKA_SOURCE_SQL.format(broker=broker_dir))
+        c.query(KAFKA_Q1_SQL)
+        c.query(KAFKA_INDEX_SQL)
+        c.query(KAFKA_PROGRESS_INDEX_SQL)
+        c.query(KAFKA_SINK_SQL.format(broker=broker_dir))
+        out["ddl_s"] = time.perf_counter() - t_ddl
+        # Hydration: the source binds the snapshot's offsets
+        # (MAX_RECORDS_PER_TICK a tick), Q1 answers it.
+        caught_up(c, "kafka: after hydration")
+        out["first_ddl_to_q1_s"] = time.perf_counter() - t_ddl
+        explain = "\n".join(r[0] for r in c.query(
+            f"EXPLAIN ANALYSIS SELECT l_linenumber FROM li WHERE l_orderkey = {keys[0]}")[1])
+        check("peek: fast path: index lookup on 'li'" in explain,
+              f"kafka: the lookups do not read the index: {explain[:600]}")
+        out["sink_hydrate_s"] = sink_caught_up("kafka: q1.out after hydration")
+        rec0, dec0 = decode_counts(env)
+        out["snapshot_decode"] = {"records": rec0, "host_s": dec0,
+                                  "records_per_s": rec0 / dec0 if dec0 else None}
+        stage("hydrate")
+        # Churn, and the replica's SIGKILL mid-span: the first ticks go
+        # in at once, the replica is killed while it steps them, and an
+        # orchestrator's restart respawns it on the same port and rid.
+        produce(KAFKA_REPLICA_KILL_AT)
+        # Killed once the source bound churn past the snapshot: the
+        # replica is stepping the churn's spans.
+        t_w = time.perf_counter()
+        while sum(int(e) for _p, e in c.query("SELECT * FROM li_progress")[1]) <= \
+                out["snapshot_records"]:
+            check(time.perf_counter() - t_w < KAFKA_WAIT_S, "kafka: churn not ingested")
+            time.sleep(0.01)
+        counted.append(_replica_counts(env.metrics()))
+        pids = env.replica_pids()
+        check(len(pids) == 1, f"kafka: environmentd's replica processes {pids}")
+        (pid,) = pids
+        with open(f"/proc/{pid}/cmdline") as f:
+            argv = [a for a in f.read().split("\0") if a]
+        os.kill(pid, 9)
+        t_kill = time.perf_counter()
+        while _alive(pid):  # its port is free once it is gone
+            time.sleep(0.01)
+        with open(os.path.join(root, "replica_respawned.log"), "w") as rlog:
+            replicas.append(subprocess.Popen(
+                argv, stdout=rlog, stderr=subprocess.STDOUT,
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                env={**os.environ, "PYTHONUNBUFFERED": "1"}))
+        produce(KAFKA_TICKS - KAFKA_REPLICA_KILL_AT)
+        caught_up(c, "kafka: after the replica's SIGKILL and the churn")
+        out["replica_kill_to_exact_s"] = time.perf_counter() - t_kill
+        sink_caught_up("kafka: q1.out after the churn")
+        rows = env.sql("SELECT object, replica, metric, value FROM mz_recovery "
+                       "WHERE scope = 'dataflow' AND metric = 'rebuilds'")
+        out["rebuilds_after_replica_kill"] = {r[0]: float(r[3]) for r in rows}
+        check(set(out["rebuilds_after_replica_kill"]) == {"q1", "li_by_order", "li_progress_idx"}
+              and not any(out["rebuilds_after_replica_kill"].values()),
+              f"kafka: rebuilds after the replica's SIGKILL: {rows}")
+        rec1, dec1 = decode_counts(env)
+        out["churn_decode"] = {"records": rec1 - rec0, "host_s": dec1 - dec0,
+                               "records_per_s": (rec1 - rec0) / (dec1 - dec0)
+                               if dec1 > dec0 else None}
+        stage("churn_and_replica_kill")
+        # Paced ticks: a tick's append to its Q1 change in q1.out.
+        paced_ms = []
+
+        def paced(n: int) -> None:
+            for _ in range(n):
+                t_p = time.perf_counter()
+                produce(1)
+                sink_caught_up("kafka: a paced tick")
+                paced_ms.append((time.perf_counter() - t_p) * 1e3)
+
+        paced(KAFKA_KILL_AT)
+        stage("paced")
+        counted.append(_replica_counts(env.metrics()))
+        # environmentd's kill -9, more ticks while it is down, --recover.
+        # The source has bound every record so far: the new process must
+        # fetch exactly the records past these offsets.
+        bound = ends()
+        got = {int(p): int(e) for p, e in c.query("SELECT * FROM li_progress")[1]}
+        check(got == bound, f"kafka: li_progress {got} != the topic's ends {bound} at the kill")
+        orphans = env.replica_pids()
+        os.kill(env.proc.pid, 9)
+        env.proc.wait(timeout=30)
+        env._log.close()
+        for p in replicas:  # the replica it served with outlives it
+            _kill_wait(p)
+        for pid in orphans:
+            _sigkill(pid)
+        bound_before = tail.offset
+        produce(KAFKA_DOWN)
+        t_rec = time.perf_counter()
+        env = _Environmentd(root, device, recover=True, n=1)
+        out["recovery_boot_s"] = env.boot_s
+        check(env.recovery is not None
+              and env.recovery["coordinator"]["replay_failures"] == 0
+              and env.recovery["coordinator"]["catalog_replayed"] >= 4,
+              f"kafka: recovery report {env.recovery}")
+        c.close()
+        c = PgClient(env.pg)
+        c.query("SET metrics_report_ms = 50")
+        caught_up(c, "kafka: after environmentd's kill -9")
+        sink_caught_up("kafka: q1.out after recovery")
+        out["recovery_s"] = time.perf_counter() - t_rec
+        out["q1_out_records_before_kill"] = bound_before
+        stage("kill9_and_recover")
+        paced(KAFKA_PACED - KAFKA_KILL_AT)
+        stage("paced_after_recovery")
+        caught_up(c, "kafka: at the end")
+        sink_caught_up("kafka: q1.out at the end")
+        out["republished"] = tail.republished()
+        check(out["republished"] == 0,
+              f"kafka: {out['republished']} q1.out records published twice")
+        n_rows = int(c.query("SELECT count(*) FROM li")[1][0][0])
+        want_rows = int(sum(p[1].sum() for p in snap + churn_parts[:produced[0]]))
+        check(n_rows == want_rows, f"kafka: li holds {n_rows} rows, the topic {want_rows}")
+        out["li_rows"] = n_rows
+        # The last snapshot the replica shipped (it ships every 50 ms and
+        # keeps stepping the source's ticks: the counts never hold still).
+        time.sleep(0.2)
+        counted.append(_replica_counts(env.metrics()))
+        rec2, dec2 = decode_counts(env)
+        out["recovered_decode"] = {"records": rec2, "host_s": dec2}
+        past = sum(ends().values()) - sum(bound.values())
+        check(rec2 == past, f"kafka: the recovered source fetched {rec2} records, "
+              f"{past} lie past the offsets it had bound")
+        out.update({
+            "churn_ticks": KAFKA_TICKS, "paced_ticks": KAFKA_PACED, "down_ticks": KAFKA_DOWN,
+            "topic_records": sum(ends().values()), "tick_records_mean":
+                float(np.mean(tick_records)),
+            "paced_append_to_q1_out_ms_p50": float(np.percentile(paced_ms, 50)),
+            "paced_append_to_q1_out_ms_p99": float(np.percentile(paced_ms, 99)),
+            "q1_out_records": tail.offset,
+            "lookups": len(lookup_ms),
+            "lookup_ms_p50": float(np.percentile(lookup_ms, 50)),
+            "lookup_ms_p99": float(np.percentile(lookup_ms, 99)),
+        })
+        c.close()
+        stage("checks")
+        env.stop()
+        env = None
+        stage("shutdown")
+    except BaseException:
+        # What the deployment said, for the failure's reader.
+        for name in sorted(os.listdir(root)):
+            if name.endswith(".log"):
+                with open(os.path.join(root, name), errors="replace") as f:
+                    print(f"--- {name} (tail)\n{f.read()[-6000:]}", file=sys.stderr)
+        if env is not None and env.proc.poll() is None:
+            for rel in ("mz_source_statuses", "mz_hydration_statuses",
+                        "mz_wallclock_lag_summary", "mz_recovery"):
+                try:
+                    print(f"--- {rel}", env.sql(f"SELECT * FROM {rel}"), file=sys.stderr)
+                except Exception as e:  # noqa: BLE001 - a diagnostic only
+                    print(f"--- {rel}:", repr(e), file=sys.stderr)
+            try:
+                print("--- metrics", {k: v for k, v in env.metrics().items()
+                                      if "step" in k or "kafka" in k or "span" in k},
+                      file=sys.stderr)
+            except Exception as e:  # noqa: BLE001 - a diagnostic only
+                print("--- metrics:", repr(e), file=sys.stderr)
+        raise
+    finally:
+        if env is not None:
+            for pid in env.replica_pids():
+                _sigkill(pid)
+            _kill_wait(env.proc)
+        for p in replicas:
+            _kill_wait(p)
+    shapes: dict = {}
+    for _n, by, _peak in counted:
+        for k, v in by.items():
+            shapes[k] = shapes.get(k, 0) + v
+    out["launches_by_generation"] = [n for n, _by, _peak in counted]
+    out["launches"] = sum(out["launches_by_generation"])
+    out["replica_peak_device_bytes"] = max(peak for _n, _by, peak in counted)
+    out["by_shape"] = shapes
+    return out
+
+
+def phase_kafka(torch, merge_kernel, card) -> dict:
+    """``kafka``: a Debezium CDC feed of TPC-H's lineitem through a Kafka
+    source, Q1 exported through an exactly-once Kafka sink, a replica's
+    SIGKILL and environmentd's kill -9 (module docstring, phase 7c)."""
+    import tempfile
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        out = _kafka_run(root, "cuda", KAFKA_SF, SERVE_CHURN)
+    check(out["launches"] > 0, "kafka: the replica processes launched no merge_path")
+    res = {"phase": "kafka", "card": card, **{k: v for k, v in out.items() if k != "by_shape"},
+           "by_shape_count": len(out["by_shape"]), "phase_s": time.perf_counter() - t0}
+    emit(res)
+    res["by_shape"] = out["by_shape"]
+    return res
+
+
+def phase_chaos(torch, merge_kernel, card) -> dict:
+    """``chaos``: the chaos harness's storm (``testing/chaos.py``) with its
+    replica process on the card: seed 3, 30 ticks, one blob operation in
+    11 failing, connection kills, a partition, a mid-storm DDL and one
+    SIGKILL of the replica, respawned on its port; the storm's three
+    exact invariants (module docstring, phase 7d)."""
+    import tempfile
+
+    from materialize_tpu_torch.testing.chaos import ChaosDriver, seeded_fault_plan
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        drv = ChaosDriver(root, seed=3, subprocess_replica=True, blob_fail_every=11,
+                          device="cuda")
+        try:
+            # The replica ships its metrics (launches by shape) every 50 ms.
+            drv.ctl.update_configuration({"metrics_report_ms": 50})
+            plan = seeded_fault_plan(3, 30, replica_kills=1)
+            drv.run_storm(ticks=30, fault_plan=plan)
+            rep = drv.verify(timeout=120.0)
+            fams = drv.ctl.replica_metrics.get("r0", [])
+        finally:
+            drv.shutdown()
+    samples = {}
+    for _name, _kind, _help, ss in fams:
+        for name, labels, v in ss:
+            lab = ",".join(f'{k}="{labels[k]}"' for k in sorted(labels))
+            samples[f"{name}{{{lab},replica=\"r0\"}}" if lab else f'{name}{{replica="r0"}}'] = v
+    launches, shapes, peak = _replica_counts(samples)
+    mv = rep.recovery["dataflows"]["mv_sums"]["r0"]
+    check(rep.ok, f"chaos: {rep.failures}")
+    check(rep.replica_kills == 1 and rep.conn_kills >= 1 and rep.partitions >= 1,
+          f"chaos: faults landed {rep.replica_kills} kills, {rep.conn_kills} connection "
+          f"kills, {rep.partitions} partitions")
+    check(mv["rebuilds"] == 0, f"chaos: mv_sums rebuilt {mv}")
+    check(launches > 0, "chaos: the respawned replica launched no merge_path")
+    res = {"phase": "chaos", "card": card, "seed": 3, "ticks": rep.ops,
+           "blob_fail_every": rep.blob_fail_every, "plan": {str(k): v for k, v in plan.items()},
+           "inserts": rep.inserts, "retractions": rep.retractions, "late": rep.late,
+           "acked_times": rep.acked_times, "replica_kills": rep.replica_kills,
+           "conn_kills": rep.conn_kills, "partitions": rep.partitions,
+           "recovery": rep.recovery, "oracle_groups": len(rep.oracle),
+           "storm_s": rep.elapsed_s, "launches": launches, "replica_peak_device_bytes": peak,
+           "by_shape_count": len(shapes), "phase_s": time.perf_counter() - t0}
+    emit(res)
+    res["by_shape"] = shapes
+    return res
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3923,6 +4630,10 @@ def main(argv=None) -> int:
         mark("serve")
         phase_deploy(torch, merge_kernel, card, serve[0])
         mark("deploy")
+        kafka = phase_kafka(torch, merge_kernel, card)
+        phase_path_kernel(torch, merge_kernel, card, kafka["by_shape"], "kafka_kernel_shape",
+                          half_full)
+        mark("kafka")
         emit({"phase": "done", "wall_s": time.perf_counter() - t0, "card": card,
               "phase_s": {name: t - prev for (_, prev), (name, t) in zip(marks, marks[1:])}})
         return 0
@@ -3946,6 +4657,16 @@ def main(argv=None) -> int:
     mark("serve+kernel_shape+vs_plain")
     paths["deploy"] = phase_deploy(torch, merge_kernel, card, paths["serve"])
     mark("deploy")
+    paths["kafka"] = phase_kafka(torch, merge_kernel, card)
+    rows_by_path["kafka"] = phase_path_kernel(torch, merge_kernel, card,
+                                              paths["kafka"]["by_shape"], "kafka_kernel_shape",
+                                              half_full)
+    mark("kafka")
+    paths["chaos"] = phase_chaos(torch, merge_kernel, card)
+    rows_by_path["chaos"] = phase_path_kernel(torch, merge_kernel, card,
+                                              paths["chaos"]["by_shape"], "chaos_kernel_shape",
+                                              half_full)
+    mark("chaos")
     paths["q15"] = phase_q15(torch, merge_kernel, card, sf=0.1)
     rows_by_path["q15"] = phase_path_kernel(torch, merge_kernel, card,
                                             paths["q15"]["by_shape"],

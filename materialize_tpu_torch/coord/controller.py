@@ -1546,6 +1546,14 @@ class ComputeController:
     def shutdown(self) -> None:
         self._stop.set()
         self._peek_batcher._fail_queued("controller shut down")
+        # Wake every peek still waiting for its response: a shut-down
+        # controller gets none, and a batch resolver parked for its whole
+        # timeout would hold the interpreter's exit (the reference's
+        # does, ~180 s).
+        with self._lock:
+            events = list(self._peek_events.values())
+        for ev in events:
+            ev.set()
         from ..repr.schema import GLOBAL_DICT
 
         GLOBAL_DICT.remove_rebalance_listener(self._rebalance_listener)

@@ -16,8 +16,8 @@ reference (simple, and all the heavy lifting is async underneath).
 The port's copy plans with the port's own frontend and optimizer
 (``sql/``, ``transform/``) and evaluates introspection reads on the
 device it is given (``device=``, default ``"cuda"``). Not ported yet,
-each raising with its ROADMAP item: the program bank's introspection
-relation (``coord/introspection.py``) and sinks (item 16).
+and raising with its ROADMAP item: the program bank's introspection
+relation (``coord/introspection.py``).
 """
 
 from __future__ import annotations
@@ -989,11 +989,81 @@ class Coordinator:
     def _sequence_create_sink(
         self, plan: CreateSinkPlan, sql, replay, record
     ) -> ExecuteResult:
-        """CREATE SINK ... INTO KAFKA needs the reference's
-        storage/kafka/ (broker, sink, encoders)."""
-        raise NotImplementedError(
-            "sinks are not ported (ROADMAP Queue 1 item 16: storage/kafka/)"
+        """CREATE SINK name FROM obj INTO KAFKA (BROKER ..., TOPIC ...,
+        FORMAT ..., ENVELOPE ...): exactly-once publication of the
+        object's update stream (storage/src/sink/kafka.rs analog; the
+        transaction is the broker's atomic multi-topic append)."""
+        from ..storage.kafka.broker import FileBroker
+        from ..storage.kafka.sink import KafkaSink
+
+        opts = {
+            str(k).lower().replace(" ", "_"): v
+            for k, v in plan.options.items()
+        }
+        it = self.catalog.items.get(plan.from_obj)
+        if it is None:
+            raise PlanError(f"unknown relation {plan.from_obj!r}")
+        shard = (
+            it.definition.get("shard")
+            if isinstance(it.definition, dict)
+            else None
         )
+        if shard is None:
+            raise PlanError(
+                f"{plan.from_obj!r} has no durable collection to sink "
+                "(sink from a TABLE, SOURCE, or MATERIALIZED VIEW)"
+            )
+        broker_path = opts.get("broker")
+        topic = opts.get("topic")
+        if not broker_path or not topic:
+            raise PlanError("KAFKA sinks require BROKER and TOPIC")
+        if not replay:
+            self._check_name_free(plan.name)
+            # Validate EVERYTHING that can fail BEFORE the durable
+            # record (same invariant as sources: a poison record bricks
+            # every future boot): encoder construction catches unknown
+            # formats and avro-without-registry; FileBroker validates
+            # the path is creatable.
+            try:
+                from ..storage.kafka.decode import make_encoder
+
+                make_encoder(
+                    str(opts.get("format", "json")),
+                    it.schema,
+                    opts.get("registry"),
+                )
+                FileBroker(str(broker_path))
+            except Exception as e:
+                raise PlanError(str(e)) from e
+        if record is None:
+            record = self._record_ddl(sql, {"name": plan.name})
+        sink = KafkaSink(
+            self.persist,
+            shard,
+            it.schema,
+            FileBroker(str(broker_path)),
+            str(topic),
+            fmt=str(opts.get("format", "json")),
+            envelope=str(opts.get("envelope", "none")),
+            registry=opts.get("registry"),
+            sink_id=f"u{record['id']}",
+        )
+        self.sinks[plan.name] = sink
+        self.catalog.create(
+            CatalogItem(
+                name=plan.name,
+                kind="sink",
+                schema=it.schema,
+                definition={
+                    "on": plan.from_obj,
+                    "topic": str(topic),
+                    "shard": shard,
+                },
+            )
+        )
+        if self.tick_interval is not None:
+            sink.start(self.tick_interval)
+        return ExecuteResult("ok")
 
     def _sequence_create_table(
         self, plan: CreateTablePlan, sql, replay, record

@@ -1218,11 +1218,35 @@ def step_seconds():
     )
 
 
+class _ShapeLaunches:
+    """The merge-path kernel's launches by merge shape
+    (``ops/merge_kernel.LAUNCHES_BY_SHAPE``), one sample a shape labeled
+    ``cap_a``, ``cap_b``, ``out`` and ``lanes``: what a caller needs to
+    run the kernel again at the shapes this process launched."""
+
+    name = "mz_merge_path_launches_by_shape"
+    kind = "counter"
+    help = "merge-path kernel launches in this process, by merge shape"
+
+    def __init__(self, registry):
+        registry._register(self)
+
+    def samples(self):
+        from ..ops import merge_kernel
+
+        return [
+            (self.name, {"cap_a": str(a), "cap_b": str(b), "out": str(o),
+                         "lanes": str(lanes)}, float(n))
+            for (a, b, o, lanes), n in sorted(
+                merge_kernel.LAUNCHES_BY_SHAPE.items())
+        ]
+
+
 def _sample_device_metrics(device) -> None:
     """Copy this process's device facts into its registry: the
     merge-path kernel's launch count (``ops/merge_kernel.LAUNCHES``,
-    which only its wrapper bumps, at a launch) as a counter, the kernel
-    library's load seconds, the peak bytes torch's allocator held on
+    which only its wrapper bumps, at a launch) as a counter, and by merge
+    shape, the kernel library's load seconds, the peak bytes torch's allocator held on
     the replica's card (0 on the CPU), and the span census
     (``storage/persist/operators.SPANS``)."""
     import torch
@@ -1237,6 +1261,8 @@ def _sample_device_metrics(device) -> None:
     gap = merge_kernel.LAUNCHES - launches.value
     if gap > 0:
         launches.inc(gap)
+    if REGISTRY.get(_ShapeLaunches.name) is None:
+        _ShapeLaunches(REGISTRY)
     REGISTRY.get_or_create(
         "gauge", "mz_merge_path_load_seconds",
         "seconds this process spent building or loading the merge-path "

@@ -344,11 +344,21 @@ class DatumsAdapter(GeneratorAdapter):
 
 
 def KafkaAdapter(options: dict):
-    """Broker-backed sources (the reference's storage/kafka/) are not
-    ported."""
-    raise NotImplementedError(
-        "KAFKA sources are not ported (ROADMAP Queue 1 item 16)"
-    )
+    """Broker-backed source factory (storage/src/source/kafka.rs
+    analog): the broker is the file-backed partitioned log in
+    storage/kafka/broker.py (librdkafka is not in this build; real
+    Kafka would implement the same Broker interface). Declared columns
+    are required: CREATE SOURCE s (a int, b text) FROM KAFKA (BROKER
+    '...', TOPIC '...', FORMAT 'json', ENVELOPE 'upsert')."""
+    from ..storage.kafka.source import KafkaSourceAdapter
+
+    schema = options.get("_schema")
+    if schema is None:
+        raise ValueError(
+            "KAFKA sources require declared columns: "
+            "CREATE SOURCE name (col type, ...) FROM KAFKA (...)"
+        )
+    return KafkaSourceAdapter(options, schema)
 
 
 GENERATORS = {
@@ -393,6 +403,7 @@ class GeneratorSource:
             for sub, schema in self.adapter.subsources.items()
         }
         self.tick_interval = tick_interval
+        self._pending = None  # (t, batches) of a tick whose appends failed
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
         # Ingest-loop health (the freshness plane's mz_source_statuses
@@ -497,9 +508,16 @@ class GeneratorSource:
             self.last_error = error
 
     def tick_once(self) -> int:
-        """Advance every subsource by one tick; returns the new frontier."""
+        """Advance every subsource by one tick; returns the new frontier.
+        A tick whose appends fail is retried with the batches it drew:
+        an external source's adapter has moved its offsets past them
+        (the reference draws the tick again, and a Kafka source loses
+        those records)."""
         t = self.t
-        self._append_all(self.adapter.tick(t, t), t)
+        if self._pending is None or self._pending[0] != t:
+            self._pending = (t, self.adapter.tick(t, t))
+        self._append_all(self._pending[1], t)
+        self._pending = None
         self.t = t + 1
         return self.t
 

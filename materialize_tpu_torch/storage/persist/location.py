@@ -275,19 +275,32 @@ class SqliteConsensus(Consensus):
         return VersionedData(row[0], row[1]) if row else None
 
     def compare_and_set(self, key, expected, new) -> bool:
+        """Insert ``new`` iff the head seqno is ``expected``: the check
+        and the insert in one IMMEDIATE transaction (the write lock held
+        from the check on). The reference checks outside the insert's
+        transaction and leans on the primary key; beside the state GC's
+        truncation that let a shard's upper go back (a source ticking
+        beside readers and a compactor stalled on ``UpperMismatch``
+        within seconds)."""
         conn = self._conn()
         try:
-            with conn:  # one serialized txn
+            conn.execute("BEGIN IMMEDIATE")
+            try:
                 row = conn.execute(
                     "SELECT MAX(seqno) FROM consensus WHERE key=?", (key,)
                 ).fetchone()
                 head = row[0] if row and row[0] is not None else None
                 if head != expected:
+                    conn.rollback()
                     return False
                 conn.execute(
                     "INSERT INTO consensus (key, seqno, data) VALUES (?,?,?)",
                     (key, new.seqno, new.data),
                 )
+                conn.commit()
+            except BaseException:
+                conn.rollback()
+                raise
             return True
         except sqlite3.IntegrityError:
             return False  # concurrent writer won the seqno

@@ -1,1 +1,1 @@
-"""Test tooling of the port: the SLT runner."""
+"""Test tooling of the port: the SLT runner and the chaos harness."""

@@ -156,13 +156,29 @@ def test_unported_pieces_raise_naming_their_item(tmp_path):
         cases = {
             # Introspection relations over state the port does not have.
             "SELECT * FROM mz_program_bank": (NotImplementedError, "Queue 2 item 6"),
-            "CREATE SINK s FROM st INTO KAFKA (BROKER 'b', TOPIC 't')": (
-                NotImplementedError, "item 16"),
-            # Source options are validated at CREATE time: the adapter's
-            # raise reaches the session as a planning error.
-            "CREATE SOURCE k (a bigint) FROM KAFKA (BROKER 'b', TOPIC 't')": (
-                plan_error, "item 16"),
         }
+        # Kafka sources and sinks are ported (item 16): their options are
+        # validated before the durable record, as the reference's are
+        # (a poison record would fail every later boot).
+        broker = tmp_path / "broker"
+        mod("port", "storage.kafka.broker").FileBroker(str(broker)).create_topic("t2")
+        for sql, msg in (
+            (f"CREATE SINK s FROM st INTO KAFKA (BROKER '{broker}', TOPIC 't', "
+             "FORMAT 'protobuf')", "unknown sink format"),
+            ("CREATE SINK s FROM st INTO KAFKA (TOPIC 't')", "require BROKER and TOPIC"),
+            (f"CREATE SINK s FROM nope INTO KAFKA (BROKER '{broker}', TOPIC 't')",
+             "unknown relation"),
+            (f"CREATE SOURCE k (a bigint) FROM KAFKA (BROKER '{broker}', TOPIC 't')",
+             "unknown topic"),
+            ("CREATE SOURCE k (a bigint) FROM KAFKA (TOPIC 't')", "requires BROKER"),
+            (f"CREATE SOURCE k (a bigint) FROM KAFKA (BROKER '{broker}', TOPIC 't2', "
+             "ENVELOPE 'bogus')", "unknown envelope"),
+            (f"CREATE SOURCE k (a bigint) FROM KAFKA (BROKER '{broker}', TOPIC 't2', "
+             "FORMAT 'avro')", "schema registry"),
+        ):
+            with pytest.raises(plan_error, match=msg):
+                c.execute(sql)
+        assert not any(rec.get("name") in ("s", "k") for rec in c._catalog_live_records())
         # Flags the port registers but does not read: the default is
         # accepted, any other value raises naming where the reader waits.
         unported = {
@@ -227,7 +243,7 @@ def test_unported_pieces_raise_naming_their_item(tmp_path):
         replica.ReplicaWorker(location=loc, workers=2, device="cpu")
     replica.ReplicaWorker(location=loc, device="cpu").stop()
     sources = mod("port", "coord.sources")
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(ValueError, match="declared columns"):
         sources.KafkaAdapter({})
     sch = mod("port", "repr.schema")
     kv = sch.Schema([sch.Column("k", sch.ColumnType.INT64)])

@@ -6,7 +6,9 @@
 - Importing the slice's modules leaves ``jax`` out of ``sys.modules`` and
   builds nothing (the native library and the kernel build at first use).
 - Entry points default to ``device="cuda"`` and raise without a card;
-  the two commands, ``python -m materialize_tpu_torch.coord.replica``
+  ``python -m materialize_tpu_torch.testing.chaos --device cpu`` storms
+  with neither ``jax`` nor ``materialize_tpu`` loaded, and the two
+  commands, ``python -m materialize_tpu_torch.coord.replica``
   and ``python -m materialize_tpu_torch.server.environmentd``, serve
   with ``--device cpu`` with neither ``jax`` nor ``materialize_tpu``
   loaded, and exit non-zero with ``--device cuda`` and no card. A SIGTERM
@@ -129,6 +131,14 @@ SLICE_MODULES = [
     "materialize_tpu_torch.analysis.racecheck",
     "materialize_tpu_torch.testing",
     "materialize_tpu_torch.testing.slt",
+    "materialize_tpu_torch.storage",
+    "materialize_tpu_torch.storage.kafka",
+    "materialize_tpu_torch.storage.kafka.avro",
+    "materialize_tpu_torch.storage.kafka.broker",
+    "materialize_tpu_torch.storage.kafka.decode",
+    "materialize_tpu_torch.storage.kafka.source",
+    "materialize_tpu_torch.storage.kafka.sink",
+    "materialize_tpu_torch.testing.chaos",
 ]
 
 
@@ -164,6 +174,53 @@ def test_no_raise_names_items_14_or_15():
                 if "item 14" in text or "item 15" in text or "ITEM_14" in text:
                     bad.append(f"{f.relative_to(ROOT)}:{node.lineno}")
     assert not bad, bad
+
+
+def test_no_raise_names_item_16():
+    """Kafka sources and sinks and the chaos harness (ROADMAP Queue 1
+    item 16) are ported: no string of the port names the item."""
+    bad = []
+    for f in sorted(PKG.rglob("*.py")):
+        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+            if isinstance(node, ast.Constant) and isinstance(node.value, str):
+                if "item 16" in " ".join(node.value.split()):
+                    bad.append(f"{f.relative_to(ROOT)}:{node.lineno}")
+    assert not bad, bad
+
+
+# Runs the chaos command as ``__main__`` and then reports which of the
+# forbidden packages it loaded.
+_CHAOS = """
+import runpy, sys
+sys.argv = ["chaos"] + sys.argv[1:]
+try:
+    runpy.run_module("materialize_tpu_torch.testing.chaos", run_name="__main__")
+finally:
+    loaded = sorted(m for m in ("jax", "jaxlib", "materialize_tpu") if m in sys.modules)
+    print("LOADED", loaded, flush=True)
+"""
+
+
+def test_chaos_command_storms_on_cpu_without_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHAOS, "--device", "cpu", "--ticks", "4"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "OMP_NUM_THREADS": "1"},
+    )
+    out = proc.stdout + proc.stderr[-2000:]
+    assert proc.returncode == 0 and "LOADED []" in proc.stdout, out
+    assert "ChaosReport(ops=4" in proc.stdout and "failures=[]" in proc.stdout, out
+
+
+def test_chaos_command_refuses_cuda_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    proc = subprocess.run(
+        [sys.executable, "-m", "materialize_tpu_torch.testing.chaos", "--ticks", "4"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode != 0 and "cuda" in proc.stderr, proc.stdout + proc.stderr[-2000:]
+    assert "ChaosReport" not in proc.stdout
 
 
 def test_slt_runner_imports_nothing_of_the_reference():
