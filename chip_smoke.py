@@ -60,6 +60,23 @@ each printing one JSON line (any failure exits non-zero):
    plain chain;
 7. Q1 at SF 0.01 in both merge modes: equal peeks, reduce states, output
    runs and err arrangements;
+7s. ``sharded``: the SPMD path (``render/dataflow.py:ShardedDataflow``,
+    one process per rank, ``parallel/``) on this one card. Two gloo
+    ranks share it (NCCL refuses two ranks on one device) and run, in
+    one spawn: (a) ``mc_index``, the reference bench's multichip
+    configuration (a bare-Get index, ``state_cap`` 2^14, 3 output runs
+    and a ring of 8 slots; 96 rows a tick, keys 0-1023, values 0-15,
+    diffs from {+1, +1, +1, -1}, seed 42): one warm span, then 4 spans of
+    16 ticks, its peek equal to the single-device ``Dataflow`` fed the
+    same ticks and to a numpy oracle; (b) TPC-H Q1 at SF 0.1 over the
+    ``q1`` phase's stream with 16 churn ticks (the Reduce's exchange by
+    group key; the send slot pre-sized to a rank's share of a churn
+    tick), equal to the single-device Q1 dataflow over the same stream
+    and to the numpy Q1 oracle. Then (c) ``mc_index`` at world size 1
+    over NCCL, one span, against the oracle. Printed per rank:
+    updates/s, the collectives' host ms per step, the census per step,
+    the ingest mode and the rank's merge launches; then the kernel at
+    each merge shape the ranks launched (``sharded_kernel_shape``);
 7a. ``serve``, run twice: the replica stepping a tick at a time, then
     with ``span_pipelining`` on (the default: ``order_lines``' index
     pipelines, ``_step_span_pipelined``; Q1's view commits each span at
@@ -191,8 +208,9 @@ each printing one JSON line (any failure exits non-zero):
 10. Q15 at SF 0.01 in both merge modes: equal peeks, revenue
     accumulators, join spines, MAX multiset, output runs and err
     arrangements;
-11. TPC-H Q9 at SF 0.25 (``Q9_SF``; SF 1 until Q7 took its time, SF
-    0.5 until the serving phases did;
+11. TPC-H Q9 at SF 0.1 (``Q9_SF``; SF 1 until Q7 took its time, SF
+    0.5 until the serving phases did, SF 0.25 until the sharded phase
+    did;
     ``workloads/tpch.py``, the reference bench's Q9 layout: a 6-input
     delta join over ten spines with a ring of 8 append slots each,
     EXTRACT(YEAR), profit summed by (n_name, o_year)): part, supplier,
@@ -200,18 +218,18 @@ each printing one JSON line (any failure exits non-zero):
     lineitem hydrates in ticks of 16,384 orders with every tier
     pre-sized (``q9_tiers``; no hydrate span may overflow), no warm
     span, the join tier set back to a churn tick's
-    (``set_join_tiers``), then 16 churn ticks as one span (32 as two
-    until ``kafka`` and ``chaos`` took their time) with one flags
-    readback; kernel launches by merge shape (2^21 rows at
-    L = 6 among them; 2^23 at SF 1), device operations per tick from 2
-    profiled ticks, peak device memory,
+    (``set_join_tiers``), then 8 churn ticks as one span (16 until the
+    sharded phase, 32 as two until ``kafka`` and ``chaos`` took their
+    time) with one flags readback; kernel launches by merge shape (2^19
+    rows at L = 6 among them; 2^23 at SF 1), device operations per tick
+    from a profiled tick, peak device memory,
     ``peek()`` against a numpy Q9 oracle over every batch fed (175
     groups) and ``peek_errors()`` empty;
 12. the kernel at each merge shape the Q9 path launched, against its
     plain chain;
-13. Q9 at SF 0.002 in both merge modes: equal peeks, accumulators, join
-    spines with their slots and cursors, output runs and err
-    arrangements;
+13. Q9 at SF 0.002 in both merge modes (one hydrate tick, a churn span
+    of 8): equal peeks, accumulators, join spines with their slots and
+    cursors, output runs and err arrangements;
 14. the auction (``workloads/auction.py``, the reference bench's
     ``config_auction``: TopK feeding Distinct over the churning bids of
     512 users, 128 auctions of 8 bids a tick, bids retracted 4 ticks
@@ -226,9 +244,9 @@ each printing one JSON line (any failure exits non-zero):
 16. pagerank (``workloads/pagerank.py``, the reference bench's
     ``config_pagerank``: 2,000 nodes, 10,000 edges, 64 rewired a tick,
     60 evaluations a tick, ``state_cap`` 2^14, tiers pre-sized): 1
-    hydrate tick, a warm span of 8, 8 churn ticks as one span of 8 (16
-    before the pipelined checks joined: the script's time limit) with
-    one flags readback (the
+    hydrate tick, 4 churn ticks as one span of 4 (8 until the sharded
+    phase, 16 before the pipelined checks joined: the script's time
+    limit) with one flags readback (the
     LetRec's and the float sums' readbacks counted apart), a profiled
     tick, ``peek()`` one row per node within rel 1e-3 of a numpy
     fixpoint, and ``tests/test_letrec.py``'s five edges at 300
@@ -239,20 +257,22 @@ each printing one JSON line (any failure exits non-zero):
 17. the kernel at each merge shape the pagerank paths launched, and a
     small pagerank in both merge modes (every state part equal);
 18. TPC-H Q21 (``workloads/tpch.py:q21_plan``: EXISTS as a semijoin, NOT
-    EXISTS as ``Threshold(Union(cse13, Negate(...)))``) at SF 0.25
+    EXISTS as ``Threshold(Union(cse13, Negate(...)))``) at SF 0.1
     (``Q21_SF``; SF 1 does not fit the time limit, SF 0.5 not beside
-    ``deploy``) in
+    ``deploy``, SF 0.25 not beside ``sharded``) in
     Q9's layout and stream: supplier, nation and every order on the
     first hydrate tick, lineitem in ticks of 16,384 orders with every
-    tier pre-sized (``q21_tiers``, join tiers per site), 16 churn ticks
-    as one span (32 as two before the kafka and chaos phases: the
-    script's time limit) with one flags readback; kernel launches by merge
-    shape (25-lane merges of the Threshold and the cse3 spines among
-    them), device operations per tick from 2 profiled ticks, peak device
+    tier pre-sized (``q21_tiers``, join tiers per site), 8 churn ticks
+    as one span (16 until the sharded phase, 32 as two before the kafka
+    and chaos phases: the script's time limit) with one flags readback;
+    kernel launches by merge shape (25-lane merges of the Threshold and
+    the cse3 spines among them), device operations per tick from a
+    profiled tick, peak device
     memory, the Threshold's state rows, ``peek()`` against a numpy Q21
     oracle over every batch fed and ``peek_errors()`` empty; then the
     kernel at each merge shape Q21 launched, and Q21 at SF 0.002 in both
-    merge modes (every state part equal);
+    merge modes (one hydrate tick, a churn span of 8; every state part
+    equal);
 19. the auction under a temporal window at both auction sizes
     (``workloads/auction.py:auction_window_plan``: the insert-only bids
     behind ``mz_now() < bid_time + 4``): the auction's ticks and seed,
@@ -272,13 +292,15 @@ each printing one JSON line (any failure exits non-zero):
     text on this machine by the port's frontend and optimizer
     (``workloads/tpch.py:q7_expr``: a 6-input delta join with nation
     twice, the BETWEEN inside the lineitem input, the OR of the nation
-    pairs after the join) at SF 0.25 (``Q7_SF``: the script's time
-    limit; SF 0.5 until ``kafka`` and ``chaos``) in Q9's layout: nation and supplier on the first hydrate
+    pairs after the join) at SF 0.1 (``Q7_SF``: the script's time
+    limit; SF 0.25 until the sharded phase, SF 0.5 until ``kafka`` and
+    ``chaos``) in Q9's layout: nation and supplier on the first hydrate
     tick, customer on the second, every order on the third with the
     first of the lineitem ticks of 32,768 orders (``q7_stagger``: on one
     tick, customer would meet every order in one probe), every tier pre-sized
-    (``q7_tiers``), 16 churn ticks as one span (32 as two before the
-    kafka and chaos phases) with one flags readback, 2 profiled ticks; launches by merge shape, peak
+    (``q7_tiers``), 8 churn ticks as one span (16 until the sharded
+    phase, 32 as two before the kafka and chaos phases) with one flags
+    readback, a profiled tick; launches by merge shape, peak
     memory, ``peek()`` against a numpy Q7 oracle (4 groups) and
     ``peek_errors()`` empty; then the kernel at each merge shape Q7
     launched, and Q7 at SF 0.002 in both merge modes (every state part
@@ -396,17 +418,24 @@ def merge_bound_ms(a_count: int, b_count: int, cap_a: int, out: int, L: int) -> 
 
 def consolidate_np(mat: np.ndarray, diff: np.ndarray):
     """Rows of ``mat`` ([N, C] int64) summed by identical content, zeros
-    dropped, sorted lexicographically with column 0 most significant."""
+    dropped, in a canonical order: by column 0, then by a 64-bit hash of
+    the row, then lexicographically. Only rows that share column 0 and
+    the hash need the full lexicographic sort, so it runs only if two
+    different rows do (a 13-column sort of the index's 6M rows took ~20 s
+    a check)."""
     if len(diff) == 0:
         return mat, diff
-    order = np.lexsort(mat.T[::-1])
-    mat, diff = mat[order], diff[order]
-    start = np.ones(len(diff), dtype=bool)
-    start[1:] = (mat[1:] != mat[:-1]).any(axis=1)
-    seg = np.cumsum(start) - 1
-    sums = np.zeros(seg[-1] + 1, dtype=np.int64)
-    np.add.at(sums, seg, diff)
-    rows = mat[start]
+    h = _row_hash(mat)
+    order = np.lexsort((h, mat[:, 0]))
+    mat, diff, h = mat[order], diff[order], h[order]
+    same = (mat[1:] == mat[:-1]).all(axis=1)
+    if ((mat[1:, 0] == mat[:-1, 0]) & (h[1:] == h[:-1]) & ~same).any():
+        order = np.lexsort(tuple(mat.T[::-1]) + (h, mat[:, 0]))
+        mat, diff = mat[order], diff[order]
+        same = (mat[1:] == mat[:-1]).all(axis=1)
+    starts = np.flatnonzero(np.concatenate(([True], ~same)))
+    sums = np.add.reduceat(diff, starts)
+    rows = mat[starts]
     keep = sums != 0
     return rows[keep], sums[keep]
 
@@ -417,6 +446,20 @@ _FP_HASHES = ((0x9E3779B97F4A7C15, np.uint64(0xFF51AFD7ED558CCD)),
               (0xC2B2AE3D27D4EB4F, np.uint64(0xC4CEB9FE1A85EC53)))
 
 
+def _row_hash(mat: np.ndarray, seed: int = _FP_HASHES[0][0],
+              mul: np.uint64 = _FP_HASHES[0][1]) -> np.ndarray:
+    """A 64-bit hash of each row of ``mat`` ([N, C] int64)."""
+    with np.errstate(over="ignore"):
+        h = np.full(len(mat), seed, dtype=np.uint64)
+        for j in range(mat.shape[1]):
+            h ^= mat[:, j].astype(np.uint64)
+            h *= mul
+            h ^= h >> np.uint64(33)
+        h *= mul
+        h ^= h >> np.uint64(29)
+    return h
+
+
 def multiset_fingerprint(mat: np.ndarray, diff: np.ndarray) -> tuple:
     """Two 64-bit wrapping sums of a per-row hash times the row's diff:
     equal multisets (rows of ``mat`` with multiplicities ``diff``) give
@@ -425,13 +468,7 @@ def multiset_fingerprint(mat: np.ndarray, diff: np.ndarray) -> tuple:
     out = []
     with np.errstate(over="ignore"):
         for seed, mul in _FP_HASHES:
-            h = np.full(len(diff), seed, dtype=np.uint64)
-            for j in range(mat.shape[1]):
-                h ^= mat[:, j].astype(np.uint64)
-                h *= mul
-                h ^= h >> np.uint64(33)
-            h *= mul
-            h ^= h >> np.uint64(29)
+            h = _row_hash(mat, seed, mul)
             out.append(int((h * diff.astype(np.uint64)).sum(dtype=np.uint64)))
     return tuple(out)
 
@@ -1143,6 +1180,134 @@ def phase_q1(torch, merge_kernel, card, sf: float = 1.0) -> dict:
     return out
 
 
+# -- the SPMD path ----------------------------------------------------------------
+
+SHARDED_WORKERS = 2
+SHARDED_Q1_SF = 0.1
+SHARDED_Q1_CHURN = 16
+SHARDED_SPAWN_S = 600.0
+
+
+def _merge_rank_shapes(*runs) -> dict:
+    """Launches by merge shape, summed over ranks' ``by_shape`` lists."""
+    out: dict = {}
+    for run in runs:
+        for shape, n in run["by_shape"]:
+            out[tuple(shape)] = out.get(tuple(shape), 0) + n
+    return out
+
+
+def phase_sharded(torch, merge_kernel, card) -> dict:
+    """The SPMD path on the one card: ``mc_index`` and TPC-H Q1 over 2
+    gloo ranks sharing the card, then ``mc_index`` at world size 1 over
+    NCCL. Each rank is a process of its own (``parallel.multihost.
+    spawn_workers``); a rank that fails or hangs fails the phase."""
+    from materialize_tpu_torch.parallel.multihost import spawn_workers
+    from materialize_tpu_torch.render.dataflow import Dataflow
+    from materialize_tpu_torch.repr.schema import GLOBAL_DICT
+    from materialize_tpu_torch.workloads import multichip as mc
+    from materialize_tpu_torch.workloads.tpch import Q1_CUTOFF, q1_config
+
+    t0 = time.perf_counter()
+    parts = (("mc_index", {"spans": 4, "ticks": 16}),
+             ("q1", {"sf": SHARDED_Q1_SF, "churn_ticks": SHARDED_Q1_CHURN}))
+    ranks = spawn_workers(mc.sharded_rank, SHARDED_WORKERS, device="cuda", backend="gloo",
+                          args=(parts,), timeout=SHARDED_SPAWN_S)
+    gloo_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    (nccl,) = spawn_workers(mc.sharded_rank, 1, device="cuda", backend="nccl",
+                            args=((("mc_index", {"spans": 1, "ticks": 16, "warm": False}),),),
+                            timeout=SHARDED_SPAWN_S)
+    nccl_s = time.perf_counter() - t1
+    for r in ranks[1:]:
+        check(r["mc_index"]["peek"] == ranks[0]["mc_index"]["peek"]
+              and r["q1"]["peek"] == ranks[0]["q1"]["peek"], "sharded ranks read apart")
+    # (a) mc_index: the single-device port dataflow fed the same ticks,
+    # and a numpy oracle.
+    mi = ranks[0]["mc_index"]
+    host = mc.mc_index_ticks(mi["ticks"])
+    single = Dataflow(mc.mc_index_expr(), device="cuda", **mc.MC_LAYOUT)
+    for span in mc._spans_of(mc.mc_index_inputs(host, single.device), 16):
+        single.run_steps(span)
+    want: dict = {}
+    for k, v, d in host:
+        for row, dd in zip(zip(k.tolist(), v.tolist()), d.tolist()):
+            want[row] = want.get(row, 0) + dd
+    want = {r: d for r, d in want.items() if d}
+    got = mc.net_rows(mi["peek"])
+    check(got == mc.net_rows(single.peek()), "sharded mc_index != single-device Dataflow")
+    check(got == want, "sharded mc_index != numpy oracle")
+    n1 = nccl["mc_index"]
+    n_host = mc.mc_index_ticks(n1["ticks"])
+    n_want: dict = {}
+    for k, v, d in n_host:
+        for row, dd in zip(zip(k.tolist(), v.tolist()), d.tolist()):
+            n_want[row] = n_want.get(row, 0) + dd
+    check(mc.net_rows(n1["peek"]) == {r: d for r, d in n_want.items() if d},
+          "NCCL mc_index != numpy oracle")
+    check(n1["backend"] == "nccl" and n1["workers"] == 1, "the NCCL run did not run over NCCL")
+    # (b) Q1: the single-device Q1 dataflow over the same stream, and the
+    # numpy Q1 oracle.
+    q = ranks[0]["q1"]
+    df, hydrate, churn = q1_config(sf=SHARDED_Q1_SF, n_orders_per_tick=1024, seed=42,
+                                   device="cuda")
+    h_inputs = hydrate()
+    c_inputs = [churn(i, len(h_inputs) + i)[0] for i in range(SHARDED_Q1_CHURN)]
+    for span in mc._spans_of(h_inputs + c_inputs, 32):
+        df.run_steps(span)
+    fed = [inp["lineitem"] for inp in h_inputs + c_inputs]
+    # The ranks code strings in dictionaries of their own: keys compare
+    # as text.
+    gd = GLOBAL_DICT.snapshot()
+    q_want = {(gd.decode(f), gd.decode(s)): v for (f, s), v in
+              q1_oracle(*_host_cols(torch, fed, Q1_COLS), cutoff=Q1_CUTOFF).items()}
+    q_got = {(r[0], r[1]): tuple(r[2:7]) for r in q["peek"]}
+    q_single = {(r[0], r[1]): tuple(r[2:7])
+                for r in mc.decoded_rows(df.peek(), df.out_schema)}
+    check(len(q_got) == len(q["peek"]), "sharded Q1 peek rows not unique")
+    check(q_got == q_single, f"sharded Q1 != single-device Q1: {q_got} vs {q_single}")
+    check(q_got == q_want, f"sharded Q1 != numpy oracle: {q_got} vs {q_want}")
+    check(q["errors"] == [], f"sharded Q1 err collection not empty: {q['errors']}")
+    check(q["report"]["census"]["kinds"].get("all_to_all", 0) > 0,
+          "sharded Q1 issued no exchange")
+    del df, h_inputs, c_inputs, fed, single
+    torch.cuda.empty_cache()
+    runs = [r[name] for r in ranks for name in ("mc_index", "q1")] + [n1]
+    by_shape = _merge_rank_shapes(*runs)
+    launches = sum(r["launches"] for r in runs)
+    check(launches > 0, "the sharded path launched no merge-path kernel")
+    check(sum(by_shape.values()) == launches, "sharded launches by shape do not add up")
+
+    def cell(r, keys):
+        return {k: r[k] for k in keys} | {"ingest_mode": r["report"]["ingest_mode"],
+                                           "census_per_step": r["report"]["census"],
+                                           "launches": r["launches"]}
+
+    out = {
+        "phase": "sharded", "card": card,
+        "mc_index": [cell(r["mc_index"], ("rank", "workers", "backend", "updates",
+                                          "updates_per_s", "collective_ms_per_step",
+                                          "collectives_per_step", "span_ms", "grown"))
+                     for r in ranks],
+        "q1": [cell(r["q1"], ("rank", "workers", "backend", "sf", "hydrate_ticks",
+                              "churn_ticks", "churn_updates", "churn_updates_per_s",
+                              "collective_ms_per_churn_step", "slot_cap", "run_s",
+                              "span_ms", "grown"))
+               for r in ranks],
+        "q1_groups": len(q_got),
+        "mc_index_nccl": cell(n1, ("rank", "workers", "backend", "updates", "updates_per_s",
+                                   "collective_ms_per_step", "collectives_per_step",
+                                   "span_ms")),
+        "gloo_spawn_s": gloo_s, "nccl_spawn_s": nccl_s,
+        "launches": launches,
+        "launches_by_shape": {",".join(map(str, k)): v for k, v in sorted(by_shape.items())},
+        "phase_s": time.perf_counter() - t0,
+    }
+    emit(out)
+    out["by_shape"] = by_shape
+    return out
+
+
 # -- TPC-H Q15 ------------------------------------------------------------------
 
 Q15_COLS = (2, 5, 6, 10)  # suppkey, extendedprice, discount, shipdate
@@ -1278,19 +1443,21 @@ def q9_presized(sf: float, churn_ticks: int, hydrate_orders: int = 896, **kw):
     return df, hydrate, churn
 
 
-# Q9's scale: SF 0.25 makes room for the serving phases. At SF 1 its
-# phase took 420.5 s of the script's 939.1 s, at SF 0.5 250.9 s of
-# 1,085.1 s with the serving phases in (an NVIDIA H100 80GB HBM3 at
+# Q9's scale: SF 0.1 makes room for the sharded phase (SF 0.25 made
+# room for the serving phases). At SF 1 its phase took 420.5 s of the
+# script's 939.1 s, at SF 0.5 250.9 s of 1,085.1 s with the serving
+# phases in, at SF 0.25 108.7-163.2 s (an NVIDIA H100 80GB HBM3 at
 # 700 W, PERF.md §4).
-Q9_SF = 0.25
+Q9_SF = 0.1
 
 
 def phase_q9(torch, merge_kernel, card, sf: float = 1.0) -> dict:
     from materialize_tpu_torch.workloads.index import rows_per_tick
     from materialize_tpu_torch.workloads.tpch import set_join_tiers
 
-    # 16 churn ticks, one span, not 32: the script's time limit (PERF.md §4).
-    hydrate_orders, ticks_churn, span_churn, profile_ticks = 16384, 16, 16, 2
+    # 8 churn ticks, one span, and one profiled tick: the script's time
+    # limit (PERF.md §4).
+    hydrate_orders, ticks_churn, span_churn, profile_ticks = 16384, 8, 8, 1
     n_ticks = ticks_churn + profile_ticks
     t0 = time.perf_counter()
     df, hydrate, churn = q9_presized(sf, n_ticks, hydrate_orders, n_orders_per_tick=1024,
@@ -1335,8 +1502,8 @@ def phase_q9(torch, merge_kernel, card, sf: float = 1.0) -> dict:
     errors = df.peek_errors()
     check(errors == [], f"Q9 err collection not empty: {errors}")
     # the largest merge at L = 6 grows with the scale: 2^23 rows at SF 1,
-    # 2^22 at SF 0.5, 2^21 at SF 0.25
-    wide_rows = int((1 << 23) * sf)
+    # 2^22 at SF 0.5, 2^21 at SF 0.25, 2^19 at SF 0.1
+    wide_rows = 1 << int(math.log2((1 << 23) * sf))
     wide = sorted(k for k in run["by_shape"] if k[3] == 6 and max(k[:3]) >= wide_rows)
     check(wide, f"Q9 launched no merge of {wide_rows} rows at L = 6")
     out = {
@@ -1370,8 +1537,10 @@ def phase_q9(torch, merge_kernel, card, sf: float = 1.0) -> dict:
 Q21_COLS = (0, 2, 11, 12)  # orderkey, suppkey, commitdate, receiptdate
 # Q21's scale. At SF 1 its phase took 347.1 s and the script 1,230.8 s
 # of its 1,200 s limit; at SF 0.5, with the deploy phase in, the script
-# took 1,051.1 s (an NVIDIA H100 80GB HBM3 at 700 W, PERF.md §4).
-Q21_SF = 0.25
+# took 1,051.1 s; at SF 0.25, with the sharded phase in, 1,188.8 s on a
+# slow host (its phase 127.0 s), so SF 0.1 (an NVIDIA H100 80GB HBM3 at
+# 700 W, PERF.md §4).
+Q21_SF = 0.1
 
 
 def q21_oracle(li: tuple, orders, supplier, nation, f_code: int, saudi_code: int) -> dict:
@@ -1432,8 +1601,9 @@ def phase_q21(torch, merge_kernel, card, sf: float) -> dict:
     from materialize_tpu_torch.workloads.index import rows_per_tick
     from materialize_tpu_torch.workloads.tpch import set_join_tiers
 
-    # 16 churn ticks, one span, not 32: the script's time limit (PERF.md §4).
-    hydrate_orders, ticks_churn, span_churn, profile_ticks = 16384, 16, 16, 2
+    # 8 churn ticks, one span, and one profiled tick: the script's time
+    # limit (PERF.md §4).
+    hydrate_orders, ticks_churn, span_churn, profile_ticks = 16384, 8, 8, 1
     n_ticks = ticks_churn + profile_ticks
     t0 = time.perf_counter()
     df, hydrate, churn = q21_presized(sf, n_ticks, hydrate_orders, n_orders_per_tick=1024,
@@ -1508,9 +1678,10 @@ Q7_COLS = (0, 2, 5, 6, 10)  # orderkey, suppkey, extendedprice, discount, shipda
 # Q7's scale and hydrate tick, the cuts the time limit forced: at SF 1
 # in ticks of 16,384 orders the script took 1,149.6 s, its Q7 phase
 # 247.1 s; SF 0.5 until the kafka and chaos phases took their time (the
-# script 1,011.0 s before them; an NVIDIA H100 80GB HBM3 at 700 W,
-# PERF.md §4).
-Q7_SF = 0.25
+# script 1,011.0 s before them); SF 0.25 until the sharded phase (the
+# script 1,272.0 s on a slow host, its Q7 phase 89.1 s; an NVIDIA H100
+# 80GB HBM3 at 700 W, PERF.md §4).
+Q7_SF = 0.1
 Q7_HYDRATE_ORDERS = 32768
 
 
@@ -1560,14 +1731,15 @@ def phase_q7(torch, merge_kernel, card, sf: float) -> dict:
     the second, every order the third with the first of the lineitem
     ticks of ``Q7_HYDRATE_ORDERS`` orders (``q7_stagger``), every tier pre-sized
     (``q7_tiers``: no hydrate span may overflow); then the join tier is
-    set to a churn tick's and 32 churn ticks run as spans of 16, one
-    flags readback each, and 2 more are profiled."""
+    set to a churn tick's and 8 churn ticks run as one span, one flags
+    readback, and one more is profiled."""
     from materialize_tpu_torch.repr.schema import GLOBAL_DICT
     from materialize_tpu_torch.workloads.index import rows_per_tick
     from materialize_tpu_torch.workloads.tpch import Q7_HI, Q7_LO, set_join_tiers
 
-    # 16 churn ticks, one span, not 32: the script's time limit (PERF.md §4).
-    hydrate_orders, ticks_churn, span_churn, profile_ticks = Q7_HYDRATE_ORDERS, 16, 16, 2
+    # 8 churn ticks, one span, and one profiled tick: the script's time
+    # limit (PERF.md §4).
+    hydrate_orders, ticks_churn, span_churn, profile_ticks = Q7_HYDRATE_ORDERS, 8, 8, 1
     n_ticks = ticks_churn + profile_ticks
     t0 = time.perf_counter()
     df, hydrate, churn = q7_presized(sf, n_ticks, hydrate_orders, n_orders_per_tick=1024,
@@ -4652,6 +4824,11 @@ def main(argv=None) -> int:
         lambda ca, cb, out: (min(ca, 8), min(cb, 8)))
     phase_path_modes(torch, merge_kernel, card, "q1_vs_plain_path", q1_config)
     mark("q1")
+    paths["sharded"] = phase_sharded(torch, merge_kernel, card)
+    rows_by_path["sharded"] = phase_path_kernel(torch, merge_kernel, card,
+                                                paths["sharded"]["by_shape"],
+                                                "sharded_kernel_shape", half_full)
+    mark("sharded")
     (paths["serve"], paths["serve_pipelined"]), rows_by_path["serve"] = serve_phases(
         torch, merge_kernel, card, paths["q1"])
     mark("serve+kernel_shape+vs_plain")
@@ -4679,9 +4856,10 @@ def main(argv=None) -> int:
                                            paths["q9"]["by_shape"], "q9_kernel_shape",
                                            half_full)
     mark("q9_kernel_shape")
+    # One lineitem hydrate tick (4,096 orders hold SF 0.002's 3,000).
     phase_path_modes(torch, merge_kernel, card, "q9_vs_plain_path",
-                     lambda **kw: q9_presized(churn_ticks=8, **kw), sf=0.002,
-                     span_ticks=8)
+                     lambda **kw: q9_presized(churn_ticks=8, hydrate_orders=4096, **kw),
+                     sf=0.002, span_ticks=8)
     mark("q9_vs_plain_path")
     paths["auction"] = phase_auction(
         torch, merge_kernel, card, "auction", state_cap=1 << 13, n_users=512,
@@ -4698,10 +4876,10 @@ def main(argv=None) -> int:
     phase_new_path_modes(torch, merge_kernel, card, "auction_vs_plain_path",
                          _small_auction)
     mark("auction")
-    # 8 churn ticks, not 16: the script's time limit (PERF.md §4).
+    # 4 churn ticks, not 16: the script's time limit (PERF.md §4).
     paths["pagerank"] = phase_pagerank(
         torch, merge_kernel, card, "pagerank", n_nodes=2000, n_edges=10000,
-        per_tick=64, state_cap=1 << 14, ticks_churn=8, profile_ticks=1,
+        per_tick=64, state_cap=1 << 14, ticks_churn=4, span_churn=4, profile_ticks=1,
         small_check=True)
     mark("pagerank")
     # 2 churn ticks, not 8: the script's time limit (PERF.md §6).
@@ -4723,8 +4901,8 @@ def main(argv=None) -> int:
                                             paths["q21"]["by_shape"], "q21_kernel_shape",
                                             half_full)
     phase_path_modes(torch, merge_kernel, card, "q21_vs_plain_path",
-                     lambda **kw: q21_presized(churn_ticks=8, **kw), sf=0.002,
-                     span_ticks=8)
+                     lambda **kw: q21_presized(churn_ticks=8, hydrate_orders=4096, **kw),
+                     sf=0.002, span_ticks=8)
     mark("q21_kernel_shape+vs_plain")
     paths["q7"] = phase_q7(torch, merge_kernel, card, sf=Q7_SF)
     mark("q7")

@@ -12,8 +12,10 @@ state (the port's copy of ``materialize_tpu/analysis/__init__.py``).
   device buffer, the per-view donation verdict, and the use-after-donate
   sanitizer (dyncfg ``buffer_sanitizer``). A leaf is a ``torch.Tensor``
   identified by its storage.
-- ``shard_prop``: the sharding report of a single-device dataflow (the
-  port has no SPMD path, ROADMAP Queue 1 item 8).
+- ``shard_prop``: the sharding report of any dataflow: the trivial one
+  of a single-device dataflow, and a ``ShardedDataflow``'s ingest mode,
+  cursors (shard-local by construction) and the census of the
+  collectives its last step issued.
 - ``racecheck``: the happens-before race detector over the control
   plane's declared shared state (dyncfg ``race_detector``).
 

@@ -1,11 +1,19 @@
-"""The sharding report of a single-device dataflow (the JAX-free part of
-``materialize_tpu/analysis/shard_prop.py``, ``:648-710``).
+"""The sharding report (the JAX-free part of
+``materialize_tpu/analysis/shard_prop.py``, ``:603-710``).
 
-The reference's shard-spec prover walks the jaxpr of an SPMD step
-program; the port has no SPMD path (ROADMAP Queue 1 item 8), so every
-installed dataflow reports the trivial single-device fact. EXPLAIN
-ANALYSIS's ``sharding:`` block and ``mz_sharding`` cover every installed
-dataflow with it, so a missing row never reads as an unproven one.
+The reference proves, over the jaxpr of its SPMD step program, that
+every slot-ring cursor stays shard-local, and counts the program's
+collectives. The port's ``ShardedDataflow`` runs one process per rank:
+a cursor is a host int of the rank's own process, shard-local by
+construction, so every cursor reports safe; and the census counts the
+collectives the last step actually issued, under the reference's kind
+names (``all_to_all`` one per exchanged field and one for the counts,
+``psum`` for each exchange's overflow flag, for the step's flags and
+for each LetRec evaluation's pending count), with bytes per device.
+Single-device dataflows report the trivial fact. EXPLAIN ANALYSIS's
+``sharding:`` block and ``mz_sharding`` cover every installed dataflow
+with ``dataflow_sharding_report``. The jaxpr prover itself has no
+counterpart (ROADMAP Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -23,6 +31,52 @@ def _has_slot_cursors(df) -> bool:
         for parts in df.states
         for s in parts
     )
+
+
+def _cursor_leaves(df) -> list:
+    """The carry path of every slot-ring cursor, labelled as the
+    reference's ``cursor_leaves`` labels its step program's outputs."""
+    from ..arrangement.spine import Spine
+
+    out = [
+        f"states[{slot}][{p}].cursor"
+        for slot, parts in enumerate(df.states)
+        for p, s in enumerate(parts)
+        if isinstance(s, Spine) and s.slots
+    ]
+    if df.output.slots:
+        out.append("output.cursor")
+    return out
+
+
+def census_of(record) -> dict:
+    """The budget shape of a list of (kind, bytes per device)."""
+    from collections import Counter
+
+    record = record or []
+    return {
+        "collectives": len(record),
+        "bytes": sum(b for _k, b in record),
+        "kinds": dict(Counter(k for k, _b in record)),
+    }
+
+
+def sharded_step_report(sdf) -> dict:
+    """The report of a ``ShardedDataflow``, under the reference's keys."""
+    return {
+        "spmd": True,
+        "workers": sdf.num_shards,
+        "axis": sdf.axis_name,
+        "ingest_mode": "append_slot" if _has_slot_cursors(sdf) else "merge",
+        "safe": True,
+        "cursors": [
+            {"leaf": leaf, "class": "shard-local", "safe": True, "blame": [],
+             "reason": ""}
+            for leaf in _cursor_leaves(sdf)
+        ],
+        "census": census_of(sdf._census),
+        "error": None,
+    }
 
 
 def single_device_report(df) -> dict:

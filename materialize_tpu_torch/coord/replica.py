@@ -12,9 +12,15 @@ description is unchanged instead of rebuilding them
 
 Run as a subprocess:
     python -m materialize_tpu_torch.coord.replica --port P --blob DIR \
-        --consensus FILE [--replica-id R] [--device cuda]
+        --consensus FILE [--replica-id R] [--device cuda] \
+        [--workers N [--backend nccl|gloo]]
 
-or in-process (``serve_forever`` on a thread). The replica steps its
+or in-process (``serve_forever`` on a thread, one worker). With
+``--workers N`` > 1 (the command only) the process is rank 0 of an SPMD
+mesh: it starts N-1 follower processes
+(``--follow``, ``coord/spmd.py``), its dataflows are
+``ShardedDataflow``s, and a follower that dies fails the replica. The
+replica steps its
 dataflows on the device it is given (``--device`` / ``device=``, default
 ``"cuda"``; no card means an error, never the CPU). All device work
 stays on the worker thread (``_worker_loop``); peek responses cross the
@@ -26,8 +32,8 @@ stats and compile records (its native library builds and loads,
 ``utils/compile_ledger.py``). A string-dictionary label gap run dry
 rebalances the dictionary, remaps every installed description's codes
 (``expr/remap.py``) and rebuilds every dataflow from durable state. Not
-ported yet, each raising with its ROADMAP item: SPMD workers (item 8),
-async compile and hot swap (Queue 2 item 6: the program bank has no
+ported yet, each raising with its ROADMAP item: async compile and hot
+swap (Queue 2 item 6: the program bank has no
 counterpart in eager torch).
 """
 
@@ -53,6 +59,10 @@ from ..storage.persist.machine import CompactionRace, Fenced
 from ..storage.persist.operators import SinkConflict
 from . import protocol as ctp
 from .protocol import DataflowDescription, PersistLocation
+
+# True once this interpreter runs the replica command (``main``): the
+# only place an SPMD replica (workers > 1) may start.
+_AS_COMMAND = False
 
 
 def _result_rows(batch, df=None) -> list:
@@ -101,13 +111,28 @@ class ReplicaWorker:
         workers: int = 1,
         ship_observability: bool = False,
         device=None,
+        spmd_backend: str | None = None,
     ):
-        if workers > 1:
-            raise NotImplementedError(
-                "replicas with workers > 1 (an SPMD mesh) are not ported "
-                "(ROADMAP Queue 1 item 8)"
-            )
         self.device = resolve_device(device)
+        # Workers per replica = ranks of its SPMD mesh (the reference's
+        # TimelyConfig.workers): 1 renders single-device dataflows; P > 1
+        # makes this process rank 0 of P, starting P-1 follower
+        # processes (coord/spmd.py) before it serves. A mesh it cannot
+        # place (NCCL with more workers than cards) fails the boot. Rank
+        # 0 joins the process-wide torch.distributed group and exits the
+        # process when a follower dies, so only the replica command
+        # (``main``) may take P > 1; an in-process replica is refused.
+        if workers > 1:
+            from ..parallel.mesh import check_backend, default_backend
+
+            check_backend(spmd_backend or default_backend(self.device), self.device,
+                          workers)
+            if not _AS_COMMAND:
+                raise ValueError(
+                    f"a replica of {workers} workers runs only as its own process: "
+                    "python -m materialize_tpu_torch.coord.replica --workers "
+                    f"{workers}; an in-process replica takes workers=1")
+        self._spmd = None
         if persist_client is not None:
             self.client = persist_client
         else:
@@ -179,6 +204,11 @@ class ReplicaWorker:
 
         self._rebalance_listener = _on_rebalance
         GLOBAL_DICT.add_rebalance_listener(_on_rebalance)
+        if workers > 1:
+            from .spmd import SpmdLeader
+
+            self._spmd = SpmdLeader(workers, self.device, spmd_backend, replica_id,
+                                    on_failure=self._spmd_failed)
 
     # -- serving -------------------------------------------------------------
     def serve(self, listen_sock: socket.socket) -> None:
@@ -259,6 +289,15 @@ class ReplicaWorker:
                 # deferred close would leave the fenced controller
                 # hanging on a half-dead link forever (chaos-found).
                 ctp.hard_close(conn)
+
+    def _spmd_failed(self, reason: str) -> None:
+        """A follower rank died: the replica command exits non-zero,
+        never carrying on with fewer workers."""
+        import os
+        import sys
+
+        print(f"replica {self.replica_id}: {reason}", file=sys.stderr, flush=True)
+        os._exit(3)
 
     def stop(self) -> None:
         self._stop.set()
@@ -364,7 +403,15 @@ class ReplicaWorker:
                 _time.sleep(0.002)  # park
 
     def _make_dataflow(self, desc: DataflowDescription):
-        return Dataflow(desc.expr, name=desc.name, device=self.device)
+        if self._spmd is None:
+            return Dataflow(desc.expr, name=desc.name, device=self.device)
+        from ..render.dataflow import ShardedDataflow
+
+        # Installs stay synchronous under SPMD (the reference's too):
+        # every rank renders the same plan now.
+        df = ShardedDataflow(desc.expr, self._spmd.mesh, name=desc.name)
+        self._spmd.install(df, desc.expr, {})
+        return df
 
     def _count_recovery(self, name: str, key: str) -> dict:
         rec = self._recovery.setdefault(
@@ -660,6 +707,8 @@ class ReplicaWorker:
             self._hydration_dirty.discard(cmd["name"])
             if inst is not None:
                 inst.view.expire()
+                if self._spmd is not None:
+                    self._spmd.drop(cmd["name"])
         elif kind == "Peek":
             self.pending_peeks.append(cmd)
         elif kind == "CancelPeek":
@@ -705,6 +754,8 @@ class ReplicaWorker:
 
             self.config.update(cmd["params"])
             COMPUTE_CONFIGS.update(cmd["params"])
+            if self._spmd is not None:
+                self._spmd.config(cmd["params"])
             if "trace_level" in cmd["params"]:
                 # The trace_level dyncfg drives THIS process's span
                 # recorder too (log_filter propagation).
@@ -1300,13 +1351,18 @@ def serve_forever(
     ship_observability: bool = False,
     handle: list | None = None,
     device=None,
+    spmd_backend: str | None = None,
 ) -> None:
     """Serve one replica on ``127.0.0.1:port`` until ``stop()`` (the
     worker is appended to ``handle`` when given). ``device`` names where
-    its dataflows live (default ``"cuda"``; raises without a card)."""
+    its dataflows live (default ``"cuda"``; raises without a card);
+    ``workers`` > 1 makes it rank 0 of an SPMD mesh over
+    ``spmd_backend`` (``parallel/mesh.py``), whose followers stop with
+    it; only the replica command (``main``) may ask for that."""
     worker = ReplicaWorker(
         location=location, replica_id=replica_id, workers=workers,
         ship_observability=ship_observability, device=device,
+        spmd_backend=spmd_backend,
     )
     if handle is not None:
         # In-process lifecycle hook: the caller gets the worker so it
@@ -1323,24 +1379,45 @@ def serve_forever(
         worker.serve(sock)
     finally:
         sock.close()
+        if worker._spmd is not None:
+            worker._spmd.shutdown()
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description="materialize_tpu_torch replica")
-    ap.add_argument("--port", type=int, required=True)
-    ap.add_argument("--blob", required=True)
-    ap.add_argument("--consensus", required=True)
     ap.add_argument("--replica-id", default="r0")
     ap.add_argument(
         "--workers", type=int, default=1,
-        help="devices in this replica's SPMD mesh (1: item 8 is not ported)",
+        help="ranks of this replica's SPMD mesh: this process and "
+        "workers - 1 follower processes",
     )
     ap.add_argument(
         "--device", default="cuda",
         help="where the dataflows live: cuda (default; exits non-zero "
         "without a card) or cpu",
     )
+    ap.add_argument(
+        "--backend", default=None, choices=("nccl", "gloo"),
+        help="the SPMD mesh's backend: by default gloo on the CPU and "
+        "NCCL on cards (a rank each); gloo lets ranks share a card",
+    )
+    ap.add_argument("--follow", action="store_true",
+                    help="run as a follower rank of an SPMD replica "
+                    "(started by its rank 0, with --rank, --world, --addr)")
+    ap.add_argument("--rank", type=int, default=0)
+    ap.add_argument("--world", type=int, default=1)
+    ap.add_argument("--addr", default=None)
+    ap.add_argument("--port", type=int, default=None)
+    ap.add_argument("--blob", default=None)
+    ap.add_argument("--consensus", default=None)
     args = ap.parse_args()
+    if args.follow:
+        from .spmd import follow
+
+        raise SystemExit(follow(args.rank, args.world, args.addr,
+                                resolve_device(args.device), args.backend))
+    if args.port is None or args.blob is None or args.consensus is None:
+        ap.error("--port, --blob and --consensus are required")
     # The device is checked before the replica listens: without the card
     # it asks for, it exits non-zero instead of serving on the CPU.
     device = resolve_device(args.device)
@@ -1350,6 +1427,8 @@ def main() -> None:
     from ..utils.trace import TRACER
 
     TRACER.process = f"replica:{args.replica_id}"
+    global _AS_COMMAND
+    _AS_COMMAND = True
     print(f"replica {args.replica_id} listening on {args.port}", flush=True)
     serve_forever(
         args.port,
@@ -1361,6 +1440,7 @@ def main() -> None:
         # (in-process replicas skip this — shared rings).
         ship_observability=True,
         device=device,
+        spmd_backend=args.backend,
     )
 
 

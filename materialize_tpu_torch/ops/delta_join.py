@@ -213,13 +213,19 @@ class DeltaJoinOp:
         )
         return out, overflow
 
-    def step(self, state: tuple, deltas: list, out_time: int, out_capacity: int):
-        """One delta batch per input. Returns (new_state, output delta,
+    def step(self, state: tuple, deltas: list, out_time: int, out_capacity: int,
+             exchange_fn=None):
+        """One delta batch per input. ``exchange_fn(batch, key, tag)`` is
+        the SPMD routing hook, applied before every arrangement insert
+        (tag ``("ins", part)``) and every probe (``("probe", pipeline,
+        part)``); None is the identity. Returns (new_state, output delta,
         state overflow {(part, "tail"): flag}, probe overflow flag)."""
+        route = exchange_fn or (lambda b, key, tag: b)
         new_state = list(state)
         st_ovf = {}
         for p, ((j, key), sch) in enumerate(zip(self.arr_specs, self.arr_schemas)):
             d = deltas[j].replace(diff=null_key_diffs(deltas[j], key), schema=sch)
+            d = route(d, key, ("ins", p))
             new_state[p], st_ovf[(p, "tail")] = insert_tail(state[p], d)
 
         probe_ovf = None
@@ -230,6 +236,7 @@ class DeltaJoinOp:
                 # Before/after discipline: inputs already processed as
                 # pipelines (j < i) probe post-update arrangements.
                 arr = new_state[ap] if j < i else state[ap]
+                acc = route(acc, acc_key, ("probe", i, ap))
                 acc, ovf = self._probe(acc, arr, acc_key, out_time, out_capacity)
                 probe_ovf = ovf if probe_ovf is None else probe_ovf | ovf
             outs.append(Batch(

@@ -57,9 +57,10 @@ def _spmd_gate(mode: str, spmd: bool, spmd_safe) -> str:
     """The SPMD slot gate: under SPMD, append-slot ingest is enabled
     only where a shard-spec prover has verdicted the per-device slot
     cursor shard-local (``spmd_safe`` True); an unproven (None) or
-    refuted (False) verdict resolves to merge. Single-device dataflows
-    (spmd=False), the only kind the port has (ROADMAP Queue 1 item 8),
-    are unaffected."""
+    refuted (False) verdict resolves to merge. The port's
+    ``ShardedDataflow`` passes True: each rank's cursor is a host int of
+    its own process. Single-device dataflows (spmd=False) are
+    unaffected."""
     if spmd and mode == "append_slot" and spmd_safe is not True:
         return "merge"
     return mode

@@ -43,8 +43,15 @@ loop over ticks, with the due spine levels folded after every
 - capacities follow the same pow2 tiers as the reference, so overflow,
   rollback and replay happen on the same ticks.
 
-Left out: donation, the compile ledger, the program bank, and SPMD (the
-exchanges are the identity on one device).
+Under SPMD (``ShardedDataflow``, one process per rank) every stateful
+operator's input is first exchanged to the rank owning its key
+(``_RenderContext.maybe_exchange``, at the reference's sites), a
+``Constant`` emits on rank 0 only, and a LetRec's pending count and
+every step's flags are summed over the ranks, so every rank stops,
+rolls back and replays together. On one device the exchanges are the
+identity.
+
+Left out: donation, the compile ledger and the program bank.
 """
 
 from __future__ import annotations
@@ -105,13 +112,30 @@ class _RenderContext:
     operator's initial state, at the dataflow's state tier) and holds
     the join sites' output tiers, which overflow growth doubles."""
 
-    def __init__(self, state_cap: int, device, join_cap: int = 1024):
+    def __init__(self, state_cap: int, device, join_cap: int = 1024, mesh=None,
+                 slot_cap: int = 256, spmd_safe=None):
         self.state_cap = state_cap
         self.device = device
         self.slots: list = []
-        # Append slots of operator-state spines (0: merge ingest).
+        # SPMD (``ShardedDataflow``): the rank's mesh. Each stateful
+        # operator's input is exchanged to its key's owner first
+        # (``maybe_exchange``); one rank is the identity.
+        self.mesh = mesh
+        self.num_shards = mesh.world_size if mesh is not None else 1
+        self.rank = mesh.rank if mesh is not None else 0
+        # Per-destination send-slot tier of every exchange, doubled on
+        # an ("x", site) overflow and read at every tick.
+        self.slot_cap = quantize_cap(slot_cap)
+        self.n_exchanges = 0
+        # Append slots of operator-state spines (0: merge ingest). Under
+        # SPMD a ring needs a shard-local cursor (``spmd_safe``): each
+        # rank's cursor lives in its own process, so a sharded render
+        # passes True.
         self.ingest_slots = (
-            INGEST_RING_SLOTS if state_ingest_mode(state_cap) == "append_slot" else 0
+            INGEST_RING_SLOTS
+            if state_ingest_mode(state_cap, spmd=self.num_shards > 1,
+                                 spmd_safe=spmd_safe) == "append_slot"
+            else 0
         )
         self.join_caps: list = []
         self.default_join_cap = quantize_cap(join_cap)
@@ -147,6 +171,32 @@ class _RenderContext:
     def new_join_site(self) -> int:
         self.join_caps.append(self.default_join_cap)
         return len(self.join_caps) - 1
+
+    @property
+    def sharded(self) -> bool:
+        return self.num_shards > 1
+
+    def new_exchange_site(self) -> int:
+        self.n_exchanges += 1
+        return self.n_exchanges - 1
+
+    def maybe_exchange(self, batch: Batch, key, site: int, ovf: dict,
+                       null_aware: bool = True):
+        """Route ``batch`` by ``key`` to the owning ranks (the identity on
+        one rank); records the site's flag under ``("x", site)``."""
+        if not self.sharded:
+            return batch, ovf
+        from ..parallel.exchange import exchange
+
+        routed, overflow = exchange(batch, key, self.mesh, self.num_shards,
+                                    self.slot_cap, null_aware)
+        ovf = dict(ovf)
+        ovf[("x", site)] = overflow
+        return routed, ovf
+
+    def psum(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum over the ranks (the identity on one)."""
+        return self.mesh.psum(t) if self.sharded else t
 
 
 def _gets(expr: mir.RelationExpr) -> set:
@@ -244,11 +294,13 @@ def _build(expr: mir.RelationExpr, ctx: _RenderContext):
             raise NotImplementedError(f"threshold plan {plan_threshold(expr).kind}")
         op = ThresholdOp(expr.input.schema())
         slot = ctx.new_slot(op.init_state(ctx.state_cap, ctx.device))
+        site = ctx.new_exchange_site()
         inner = _build(expr.input, ctx)
+        all_cols = tuple(range(expr.input.schema().arity))
 
         def run(states, inputs, time, errs):
-            # The exchange on every column is the identity on one device.
             b, upd, ovf = inner(states, inputs, time, errs)
+            b, ovf = ctx.maybe_exchange(b, all_cols, site, ovf)
             new_state, out, overflow = op.step(states[slot], b, time)
             upd = dict(upd)
             upd[slot] = new_state
@@ -280,10 +332,13 @@ def _build(expr: mir.RelationExpr, ctx: _RenderContext):
         slot = ctx.new_slot(op.init_state(ctx.state_cap, ctx.device))
         if op.basic_aggs:
             ctx.basic_sites.append((id(expr), slot, op))
+        site = ctx.new_exchange_site()
         inner = _build(expr.input, ctx)
+        group_key = expr.group_key
 
         def run(states, inputs, time, errs):
             b, upd, ovf = inner(states, inputs, time, errs)
+            b, ovf = ctx.maybe_exchange(b, group_key, site, ovf)
             new_state, out, overflow = op.step(states[slot], b, time, errs)
             upd = dict(upd)
             upd[slot] = new_state
@@ -325,11 +380,13 @@ def _build(expr: mir.RelationExpr, ctx: _RenderContext):
         op = TopKOp(expr.input.schema(), expr.group_key, expr.order_by, expr.limit,
                     expr.offset)
         slot = ctx.new_slot(op.init_state(ctx.state_cap, ctx.device))
+        site = ctx.new_exchange_site()
         inner = _build(expr.input, ctx)
+        group_key = expr.group_key
 
         def run(states, inputs, time, errs):
-            # The exchange on the group key is the identity on one device.
             b, upd, ovf = inner(states, inputs, time, errs)
+            b, ovf = ctx.maybe_exchange(b, group_key, site, ovf)
             new_state, out, overflow = op.step(states[slot], b, time)
             upd = dict(upd)
             upd[slot] = new_state
@@ -367,7 +424,9 @@ def _build_constant(expr: mir.Constant, ctx: _RenderContext):
     none = full.replace(count=torch.zeros_like(full.count))
 
     def run(states, inputs, time, errs):
-        b = full if time == ctx.first_time else none
+        # Under SPMD rank 0 alone emits the rows; the exchange in front
+        # of a stateful consumer routes them to their owners.
+        b = full if time == ctx.first_time and ctx.rank == 0 else none
         return b.replace(time=torch.full_like(b.time, time)), {}, {}
 
     return run
@@ -420,6 +479,12 @@ def _build_join_delta(expr: mir.Join, ctx: _RenderContext):
                                       device=ctx.device))
     jsite = ctx.new_join_site()
     inners = [_build(i, ctx) for i in expr.inputs]
+    # Under SPMD every arrangement insert and every probe is preceded by
+    # an exchange on its key (the half-join exchange).
+    ex_sites = {("ins", p): ctx.new_exchange_site() for p in range(len(op.arr_specs))}
+    for i, (steps, _) in enumerate(op.pipelines):
+        for _j, _acc_key, _j_key, ap in steps:
+            ex_sites[("probe", i, ap)] = ctx.new_exchange_site()
 
     def run(states, inputs, time, errs):
         deltas, upd, ovf = [], {}, {}
@@ -428,8 +493,15 @@ def _build_join_delta(expr: mir.Join, ctx: _RenderContext):
             deltas.append(b)
             upd.update(u)
             ovf.update(o)
-        new_state, out, st_ovf, j_ovf = op.step(states[slot], deltas, time,
-                                                ctx.join_caps[jsite])
+
+        def exchange_fn(b, key, tag):
+            b2, ovf2 = ctx.maybe_exchange(b, key, ex_sites[tag], ovf, null_aware=False)
+            ovf.update(ovf2)
+            return b2
+
+        new_state, out, st_ovf, j_ovf = op.step(
+            states[slot], deltas, time, ctx.join_caps[jsite],
+            exchange_fn if ctx.sharded else None)
         upd[slot] = new_state
         for part, flag in st_ovf.items():
             ovf[("state", slot, part)] = flag
@@ -457,10 +529,12 @@ def _build_join_linear(expr: mir.Join, ctx: _RenderContext):
         op = JoinOp(acc_schema, schemas[i], left_key, right_key)
         slot = ctx.new_slot(op.init_state(ctx.state_cap, ingest_slots=ctx.ingest_slots,
                                           device=ctx.device))
-        stages.append((op, slot, ctx.new_join_site()))
+        jsite = ctx.new_join_site()
+        # Both sides are exchanged on the stage key under SPMD.
+        stages.append((op, slot, jsite, ctx.new_exchange_site(), ctx.new_exchange_site()))
         acc_schema = op.out_schema
     ctx.lir.append(("Join", JoinPlan("Linear", stages=tuple(
-        LinearStagePlan(op.left_key, op.right_key) for op, _s, _j in stages)).describe()))
+        LinearStagePlan(st[0].left_key, st[0].right_key) for st in stages)).describe()))
     if len(consumed_all) != len(expr.equivalences):
         # An equality inside one input would go unenforced.
         raise NotImplementedError(
@@ -481,7 +555,22 @@ def _build_join_linear(expr: mir.Join, ctx: _RenderContext):
             ovf.update(o)
         quiet = [q and ctx.sources_quiet for q in source_only]
         acc, acc_quiet = deltas[0], quiet[0]
-        for (op, slot, jsite), d_right, r_quiet in zip(stages, deltas[1:], quiet[1:]):
+        for (op, slot, jsite, lsite, rsite), d_right, r_quiet in zip(
+                stages, deltas[1:], quiet[1:]):
+            if ctx.sharded:
+                # A quiet side is empty on every rank alike: it skips
+                # its exchange, and its flag stays false.
+                false = torch.zeros((), dtype=torch.bool, device=ctx.device)
+                if acc_quiet:
+                    ovf[("x", lsite)] = false
+                else:
+                    acc, ovf = ctx.maybe_exchange(acc, op.left_key, lsite, ovf,
+                                                  null_aware=False)
+                if r_quiet:
+                    ovf[("x", rsite)] = false
+                else:
+                    d_right, ovf = ctx.maybe_exchange(d_right, op.right_key, rsite, ovf,
+                                                      null_aware=False)
             new_state, acc, st_ovf, j_ovf = op.step(states[slot], acc, d_right, time,
                                                    ctx.join_caps[jsite],
                                                    quiet=(acc_quiet, r_quiet))
@@ -590,7 +679,9 @@ def _build_letrec(expr: mir.LetRec, ctx: _RenderContext):
         it = 1
         while it < max_iters:
             ctx.letrec_readbacks += 1
-            if int(sum(d.count.to(torch.int64) for d in deltas)) == 0:
+            pending = sum(d.count.to(torch.int32) for d in deltas).reshape(1)
+            # Under SPMD every rank stops at the same evaluation.
+            if int(ctx.psum(pending)) == 0:
                 break
             it_inputs = dict(empty_inputs)
             it_inputs.update(zip(names, deltas))
@@ -871,14 +962,14 @@ class Dataflow:
                 if ingest_mode(self.state_cap, self.out_delta_cap) == "append_slot"
                 else 0
             )
-        ctx = _RenderContext(self.state_cap, self.device)
+        ctx = self._new_context()
         self._ctx = ctx
         self._run = _build(expr, ctx)
         self._basic_finalizers = _resolve_basic_sites(expr, ctx)
         # One tuple of state parts per stateful operator (slot).
         self.states = list(ctx.slots)
         self.output = Spine.empty(
-            self.out_schema, tuple(range(self.out_schema.arity)), 256,
+            self.out_schema, tuple(range(self.out_schema.arity)), self._output_cap,
             tail_capacity=self.out_delta_cap, order="hash", levels=out_levels,
             ingest_slots=out_slots, device=self.device,
         )
@@ -916,6 +1007,12 @@ class Dataflow:
         # maintained view's span pipeline, when one is attached: state
         # reads sequence through its barrier (``span_barrier``).
         self._span_exec = None
+
+    # Base capacity of the output index.
+    _output_cap = 256
+
+    def _new_context(self) -> _RenderContext:
+        return _RenderContext(self.state_cap, self.device)
 
     # -- schedule -----------------------------------------------------------
     @staticmethod
@@ -1551,3 +1648,319 @@ class Dataflow:
         for row in self.err_output.batch.to_rows():
             acc[row[0]] = acc.get(row[0], 0) + row[-1]
         return sorted((c, n) for c, n in acc.items() if n != 0)
+
+
+def _shard_rows(arrays, n: int, num_shards: int, shard_cap: int, rank: int,
+                device) -> tuple:
+    """Deal ``n`` rows round-robin across the ranks: rank ``r`` keeps rows
+    ``r, r + P, ...`` (the reference's ``_shard_rows``, which packs every
+    rank's share into one global array). Returns this rank's
+    ``[shard_cap]`` tensors (None stays None) and the ``[P]`` counts.
+    Ingestion balance only: the exchanges route by key inside the step."""
+    base, extra = divmod(n, num_shards)
+    counts = np.full(num_shards, base, dtype=np.int32)
+    counts[:extra] += 1
+
+    def pack(a):
+        if a is None:
+            return None
+        rows = a[:n][rank::num_shards].to(device)
+        out = torch.zeros(shard_cap, dtype=a.dtype, device=device)
+        out[: rows.shape[0]] = rows
+        return out
+
+    return [pack(a) for a in arrays], counts
+
+
+def _collective(fn):
+    """Mark a ``ShardedDataflow`` method every rank must run together.
+    A replica's rank 0 forwards the call to its follower ranks first
+    (``coord/spmd.py``); a call made inside another is not forwarded
+    again."""
+    import functools
+
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        bus = self._bus
+        if bus is None or self._forwarding:
+            return fn(self, *args, **kwargs)
+        self._forwarding = True
+        try:
+            call = bus.forward(self, fn.__name__, args, kwargs)
+            out = fn(self, *args, **kwargs)
+            bus.remember(call, out, self)
+            return out
+        finally:
+            self._forwarding = False
+
+    return wrapper
+
+
+class ShardedDataflow(Dataflow):
+    """A maintained dataflow over a worker mesh, one process per rank
+    (the port of the reference's ``ShardedDataflow``, which drives every
+    device from one process through ``shard_map``).
+
+    Every rank builds the same dataflow and is handed the same host rows
+    each tick; it keeps its round-robin share (``_shard_rows``), and the
+    exchanges route rows by key inside the step, so each rank holds a
+    disjoint shard of every operator state. Each rank also keeps its
+    own shard of the output index and of the err arrangement; reads
+    gather every rank's rows and combine them as the reference does.
+    Every public method is collective: all ranks call it together, in
+    the same order.
+
+    - Capacities snap to the pow2 menu; a state part's tier is per rank.
+    - Each step's overflow flags are summed over the ranks before they
+      join the span's accumulator, and so are a fold's: an overflow
+      anywhere rolls back, grows and replays on every rank at the same
+      tier.
+    - An exchange slot overflow (``("x", site)``) doubles the slot tier.
+    - Ingest: a slot ring's cursor is a host int of the rank's own
+      process, shard-local by construction, so the render passes
+      ``spmd_safe=True`` where the reference proves it over its step
+      program.
+    - ``run_span`` raises, as the reference's does.
+    """
+
+    def __init__(self, expr: mir.RelationExpr, mesh, name: str = "df",
+                 slot_cap: int = 256, input_shard_cap: int = 1024,
+                 output_cap: int = 256, state_cap: int = 256,
+                 out_levels: int = 2, out_slots: int | None = None):
+        self.mesh = mesh
+        self.axis_name = mesh.axis
+        self.num_shards = mesh.world_size
+        self.rank = mesh.rank
+        self.input_shard_cap = quantize_cap(input_shard_cap)
+        self._slot_cap0 = quantize_cap(slot_cap)
+        self._output_cap = quantize_cap(output_cap)
+        # A replica's rank 0 forwards collective calls to its followers.
+        self._bus = None
+        self._forwarding = False
+        # The collectives of the last step: [(kind, bytes per device)].
+        self._census: list | None = None
+        # The output's ingest takes the single-device decision: with a
+        # shard-local cursor the SPMD gate passes it through.
+        super().__init__(expr, name=name, state_cap=state_cap, out_levels=out_levels,
+                         out_slots=out_slots, device=mesh.device)
+
+    def _new_context(self) -> _RenderContext:
+        return _RenderContext(self.state_cap, self.device, mesh=self.mesh,
+                              slot_cap=self._slot_cap0, spmd_safe=True)
+
+    @property
+    def time(self) -> int:
+        return self._time
+
+    @time.setter
+    def time(self, v: int) -> None:
+        if self._bus is not None and not self._forwarding:
+            self._bus.forward(self, "time", (v,), {})
+        self._time = v
+
+    # -- the SPMD step -------------------------------------------------------
+    def _step_core(self, states, output, err_output, inputs):
+        record, self.mesh.record = self.mesh.record, []
+        try:
+            out, states, output, err_output, flags = super()._step_core(
+                states, output, err_output, inputs)
+            # An overflow anywhere aborts the step on every rank.
+            flags = self.mesh.psum(flags.to(torch.int32)) > 0
+            self._census = self.mesh.record
+        finally:
+            self.mesh.record = record
+        return out, states, output, err_output, flags
+
+    def _compact(self, max_level: int) -> torch.Tensor:
+        return self.mesh.psum(super()._compact(max_level).to(torch.int32)) > 0
+
+    def _grow_for(self, key, target: int | None = None) -> None:
+        if key[0] == "x":
+            self._grown.append(key)
+            self._ctx.slot_cap *= 2
+            return
+        super()._grow_for(key, target)
+
+    def _pack_inputs(self, inputs: dict) -> dict:
+        """This rank's share of every host-global input batch, through the
+        reference's ``input_shard_cap`` tier loop."""
+        P_ = self.num_shards
+        packed = {}
+        for name, b in inputs.items():
+            n = getattr(b, "_host_count", None)
+            if n is None:
+                n = int(b.count)
+            cap = self.input_shard_cap
+            while cap * P_ < n or capacity_tier(max(-(-n // P_), 1)) > cap:
+                cap *= 2
+            fields, counts = _shard_rows(
+                list(b.cols) + list(b.nulls) + [b.time, b.diff], n, P_, cap,
+                self.rank, self.device)
+            k = len(b.cols)
+            sb = Batch(
+                cols=tuple(fields[:k]),
+                nulls=tuple(fields[k: 2 * k]),
+                time=fields[2 * k],
+                diff=fields[2 * k + 1],
+                count=torch.tensor(int(counts[self.rank]), dtype=torch.int32,
+                                   device=self.device),
+                schema=b.schema,
+            )
+            sb._host_count = int(counts[self.rank])
+            packed[name] = sb
+        return packed
+
+    def _dispatch(self, inputs_list: list, flush_first: bool):
+        return super()._dispatch([self._pack_inputs(i) for i in inputs_list],
+                                 flush_first)
+
+    # -- collective entry points ---------------------------------------------
+    @_collective
+    def step(self, inputs: dict) -> Batch:
+        return super().step(inputs)
+
+    @_collective
+    def run_steps(self, inputs_list: list, defer_check: bool = False,
+                  donate: bool = False) -> list:
+        return super().run_steps(inputs_list, defer_check=defer_check, donate=donate)
+
+    def run_span(self, inputs_list: list, donate: bool = False):
+        raise NotImplementedError(
+            "span execution is single-device: a sharded dataflow pipelines "
+            "through run_steps(defer_check=True) and flags snapshots, as "
+            "the reference's does"
+        )
+
+    @_collective
+    def check_flags(self) -> bool:
+        return super().check_flags()
+
+    @_collective
+    def flags_snapshot(self):
+        return super().flags_snapshot()
+
+    @_collective
+    def read_flags_snapshot(self, snap) -> bool:
+        return super().read_flags_snapshot(snap)
+
+    @_collective
+    def capture_basic_multisets(self) -> dict:
+        return super().capture_basic_multisets()
+
+    @_collective
+    def output_batch(self) -> Batch:
+        """This rank's shard of the output index, consolidated (every rank
+        folds together); ``gather_delta`` of it is the whole index."""
+        return super().output_batch()
+
+    @_collective
+    def output_records(self) -> int:
+        counts = [b.count for b in self.output.runs_b + tuple(self.output.slots)]
+        local = torch.stack(counts).sum().to(torch.int32).reshape(1)
+        return int(self.mesh.psum(local))
+
+    # -- reads: gathered over the ranks --------------------------------------
+    def _gather_rows(self, b: Batch) -> dict:
+        """Every rank's valid rows of ``b``, concatenated in rank order,
+        on the host: cols, nulls (None where no rank has a mask), time
+        and diff as numpy."""
+        n = int(b.count)
+        mine = {
+            "cols": [c[:n].cpu().numpy() for c in b.cols],
+            "nulls": [None if x is None else x[:n].cpu().numpy() for x in b.nulls],
+            "time": b.time[:n].cpu().numpy(),
+            "diff": b.diff[:n].cpu().numpy(),
+        }
+        parts = self.mesh.gather_objects(mine)
+
+        def cat(get, dtype):
+            return np.concatenate([get(p) for p in parts]).astype(dtype, copy=False)
+
+        cols = [cat(lambda p, i=i: p["cols"][i], c.dtype) for i, c in enumerate(mine["cols"])]
+        nulls = []
+        for i in range(len(b.nulls)):
+            if all(p["nulls"][i] is None for p in parts):
+                nulls.append(None)
+            else:
+                nulls.append(np.concatenate([
+                    p["nulls"][i] if p["nulls"][i] is not None
+                    else np.zeros(len(p["diff"]), dtype=bool) for p in parts]))
+        return {"cols": cols, "nulls": nulls, "time": cat(lambda p: p["time"], np.int64),
+                "diff": cat(lambda p: p["diff"], np.int64)}
+
+    def _gather_batch(self, b: Batch) -> Batch:
+        """Every rank's shard rows as one batch on this rank's device."""
+        rows = self._gather_rows(b)
+        return Batch.from_numpy(b.schema, rows["cols"], rows["time"].view(np.uint64),
+                                rows["diff"], nulls=rows["nulls"], device=self.device)
+
+    @_collective
+    def gather_delta(self, out: Batch) -> Batch:
+        """Every rank's output delta of one step, as one batch."""
+        return self._gather_batch(out)
+
+    def _basic_rows(self, arr) -> dict:
+        """A sharded basic-aggregate multiset, gathered: the reduce's
+        keyed exchange puts each group on one rank, so the concatenation
+        keeps every group contiguous."""
+        rows = self._gather_rows(arr.batch)
+        return {"cols": rows["cols"], "nulls": rows["nulls"], "diff": rows["diff"]}
+
+    def _basic_group_maps(self, multisets: dict | None = None) -> list:
+        from ..repr.schema import GLOBAL_DICT
+
+        gdict = GLOBAL_DICT.snapshot()
+        maps = []
+        for fi, (_oc, slot, part, agg, vcol, _ko) in enumerate(self._basic_finalizers):
+            arr = multisets[fi] if multisets is not None else self.states[slot][part]
+            _keys, digests, results = _group_results(
+                self._basic_rows(arr), len(arr.key), agg, vcol, gdict)
+            maps.append(dict(zip(digests, results)))
+        return maps
+
+    def _basic_key_map(self, arr, keys: list, agg, vcol, gdict) -> dict:
+        got_keys, digests, results = _group_results(
+            self._basic_rows(arr), len(arr.key), agg, vcol, gdict)
+        return dict(zip(got_keys, zip(digests, results)))
+
+    @_collective
+    def finalize_basic_columns(self, cols, nulls, diffs=None, old_multisets=None) -> list:
+        return super().finalize_basic_columns(cols, nulls, diffs, old_multisets)
+
+    @_collective
+    def peek_errors(self) -> list:
+        """Every rank's err shard, summed per code: [(err_code, count)]."""
+        if not self._has_errors:
+            return []
+        self.span_barrier()
+        self.check_flags()
+        rows = self._gather_rows(self.err_output.batch)
+        acc: dict = {}
+        for code, d in zip(rows["cols"][0].tolist(), rows["diff"].tolist()):
+            acc[code] = acc.get(code, 0) + d
+        return sorted((c, n) for c, n in acc.items() if n != 0)
+
+    @_collective
+    def peek(self) -> list:
+        """Every rank's output shard, gathered and combined: ranks may hold
+        the same row (outputs stay where they were computed), so diffs
+        are summed by value columns; rows come back at time 0, as the
+        reference's do."""
+        rows = self._gather_rows(self.output_batch())
+        cols = rows["cols"]
+        if self._basic_finalizers:
+            cols = self.finalize_basic_columns(cols, rows["nulls"])
+        acc: dict = {}
+        for i, d in enumerate(rows["diff"].tolist()):
+            key = tuple(x.item() if isinstance(x, np.generic) else x
+                        for x in (c[i] for c in cols))
+            acc[key] = acc.get(key, 0) + d
+        return [k + (0, d) for k, d in acc.items() if d != 0]
+
+    def sharding_report(self) -> dict:
+        """The sharding report under the reference's keys
+        (``analysis/shard_prop.py``): the census is what the last step
+        issued."""
+        from ..analysis.shard_prop import sharded_step_report
+
+        return sharded_step_report(self)

@@ -174,6 +174,14 @@ class Environment:
         if self._in_process:
             import threading
 
+            if w > 1:
+                # An SPMD replica's rank 0 joins the process-wide
+                # torch.distributed group: one per process, so only a
+                # replica process may take more workers.
+                raise ValueError(
+                    f"in-process replicas take workers=1, not {w}: a replica of "
+                    "more workers runs as python -m materialize_tpu_torch.coord.replica")
+
             from ..coord.protocol import PersistLocation
             from ..coord.replica import serve_forever
 

@@ -1108,8 +1108,8 @@ class MaintainedView:
         return self._donation_info
 
     def sharding_info(self) -> dict | None:
-        """The sharding report (``analysis/shard_prop.py``: one device,
-        no SPMD); frontier reports carry it to the controller for
+        """The sharding report (``analysis/shard_prop.py``); frontier
+        reports carry it to the controller for
         EXPLAIN ANALYSIS's ``sharding:`` block and mz_sharding."""
         return self._sharding_info
 

@@ -21,7 +21,8 @@ reference.
   but its default. The pieces ported since answer: ``mz_span_epochs``,
   ``mz_compile_log`` (the native library's build and load), EXPLAIN
   ANALYSIS, ``mz_donation``, ``mz_sharding`` and the span, plan and
-  analysis flags.
+  analysis flags; a replica of two workers whose mesh cannot be placed
+  (NCCL on the CPU) fails its boot.
 """
 
 from __future__ import annotations
@@ -239,8 +240,11 @@ def test_unported_pieces_raise_naming_their_item(tmp_path):
     replica = mod("port", "coord.replica")
     protocol = mod("port", "coord.protocol")
     loc = protocol.PersistLocation(str(tmp_path / "b2"), str(tmp_path / "c2.db"))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        replica.ReplicaWorker(location=loc, workers=2, device="cpu")
+    # SPMD replicas are ported (item 8; ``test_torch_spmd_replica.py``
+    # serves with two ranks): a mesh the replica cannot place fails its
+    # boot before it starts a follower.
+    with pytest.raises(ValueError, match="gloo"):
+        replica.ReplicaWorker(location=loc, workers=2, device="cpu", spmd_backend="nccl")
     replica.ReplicaWorker(location=loc, device="cpu").stop()
     sources = mod("port", "coord.sources")
     with pytest.raises(ValueError, match="declared columns"):

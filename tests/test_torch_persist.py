@@ -360,6 +360,29 @@ def test_stale_reload_keeps_the_newer_cached_state():
     assert _content(c.open_reader("s1"), 2) == {(1, 1): 1, (2, 2): 1, (3, 3): 1}
 
 
+def test_reference_stale_reload_puts_the_older_state_back():
+    # The same interleaving in the reference: its Machine caches the
+    # head the tail read, the writer's cached upper goes back, and its
+    # next append raises UpperMismatch. A reference cluster beside the
+    # port's under load fails so (tests/test_torch_subscribe.py,
+    # tests/test_subscribe.py); ROADMAP Queue 3.
+    pkg = Pkg("ref")
+    c = pkg.client()
+    w = c.open_writer("s1", pkg.KV)
+    w.compare_and_append(*_updates([(1, 1, 1)]), 0, 1)
+    before = w.machine.consensus.head("s1")
+    w.compare_and_append(*_updates([(2, 2, 1)], t=1), 1, 2)
+    head = w.machine.consensus.head
+    w.machine.consensus.head = lambda key: before
+    try:
+        assert w.machine.reload().upper == 1
+    finally:
+        w.machine.consensus.head = head
+    assert w.upper == 1
+    with pytest.raises(pkg.persist.UpperMismatch):
+        w.compare_and_append(*_updates([(3, 3, 1)], t=1), w.upper, 3)
+
+
 def test_sqlite_consensus_cas_across_connections(pkg, tmp_path):
     path = str(tmp_path / "consensus.db")
     VD = pkg.persist.VersionedData

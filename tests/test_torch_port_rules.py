@@ -16,6 +16,10 @@
   (before ``main()`` goes on) leaves no replica process behind.
 - The kernel's wrappers (``search_right``, ``merge_path``) and a merge
   forced to the kernel raise on CPU tensors.
+- The SPMD layer (``parallel/``, ``coord/spmd.py``) launches ranks on
+  the card unless asked for the CPU, where it takes gloo only; the
+  replica command serves with ``--device cpu --workers 2`` with neither
+  ``jax`` nor ``materialize_tpu`` loaded.
 """
 
 from __future__ import annotations
@@ -139,6 +143,12 @@ SLICE_MODULES = [
     "materialize_tpu_torch.storage.kafka.source",
     "materialize_tpu_torch.storage.kafka.sink",
     "materialize_tpu_torch.testing.chaos",
+    "materialize_tpu_torch.parallel",
+    "materialize_tpu_torch.parallel.mesh",
+    "materialize_tpu_torch.parallel.multihost",
+    "materialize_tpu_torch.parallel.exchange",
+    "materialize_tpu_torch.coord.spmd",
+    "materialize_tpu_torch.workloads.multichip",
 ]
 
 
@@ -308,6 +318,45 @@ def test_entry_points_default_to_cuda():
     assert cpu.device.type == "cpu"
 
 
+def test_parallel_entry_points_default_to_cuda():
+    """The SPMD layer names its device: launching ranks, counting a
+    host's workers and an SPMD replica default to the card and raise
+    without one; the CPU takes gloo only."""
+    from materialize_tpu_torch.coord.protocol import PersistLocation
+    from materialize_tpu_torch.coord.replica import ReplicaWorker
+    from materialize_tpu_torch.parallel.mesh import check_backend
+    from materialize_tpu_torch.parallel.multihost import host_local_device_count, spawn_workers
+
+    with pytest.raises(ValueError, match="gloo"):
+        check_backend("nccl", torch.device("cpu"), 1)
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="cuda"):
+        spawn_workers(print, 2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        host_local_device_count()
+    with pytest.raises(RuntimeError, match="cuda"):
+        ReplicaWorker(location=PersistLocation("/nonexistent/blob", "/nonexistent/c.db"),
+                      workers=2)
+
+
+def test_replica_command_serves_with_two_workers_on_cpu(tmp_path):
+    """``python -m materialize_tpu_torch.coord.replica --device cpu
+    --workers 2`` serves with neither ``jax`` nor ``materialize_tpu``
+    loaded; its follower exits with it."""
+    port = _free_port()
+    args = ["--port", str(port), "--blob", str(tmp_path / "blob"),
+            "--consensus", str(tmp_path / "c.db"), "--device", "cpu", "--workers", "2"]
+    proc = subprocess.run(
+        [sys.executable, "-c", _CLEAN, "materialize_tpu_torch.coord.replica", str(port),
+         *args],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "OMP_NUM_THREADS": "1"},
+    )
+    assert proc.returncode == 0 and "LOADED []" in proc.stdout, (
+        proc.stdout + proc.stderr[-2000:])
+
+
 def test_kernel_mode_refuses_cpu_tensors():
     import numpy as np
 
@@ -348,7 +397,9 @@ def watch():
         except OSError:
             time.sleep(0.05)
     loaded = sorted(m for m in ("jax", "jaxlib", "materialize_tpu") if m in sys.modules)
-    print("LOADED", loaded, flush=True)
+    # One write: the served module prints from its own thread meanwhile.
+    sys.stdout.flush()
+    os.write(1, f"LOADED {loaded}\\n".encode())
     if module.endswith("environmentd"):
         # The port was free when the test chose it, so another process
         # may listen on it first: signal only once main() handles SIGTERM.
