@@ -45,8 +45,10 @@ each printing one JSON line (any failure exits non-zero):
    lookups against it; then the next 32 churn ticks through the
    pipelined executor (``render/span_exec.SpanExecutor``: span K+1
    dispatched before span K's one flags readback), its updates/s beside
-   the serial train's, and the index against the oracle again (by a
-   128-bit multiset fingerprint);
+   the serial train's; then churn ticks up to the next level-0 fold, the
+   last one (the fold's) stepped under ``analysis/step_lint.py``'s
+   recorder (a ``step_record`` line, below), and the index against the
+   oracle again (by a 128-bit multiset fingerprint);
 4. the index configuration at SF 0.01 with the merge forced to the
    kernel and then to the plain chain: the spines must be equal;
 5. TPC-H Q1 at SF 0.1 (``workloads/tpch.py``, the reference bench's Q1
@@ -108,7 +110,13 @@ each printing one JSON line (any failure exits non-zero):
     host-to-device copies a tick, persist parts and bytes written, merge
     launches, peak device memory, and the host-sync probe: 8 more ticks
     with ``torch.cuda.set_sync_debug_mode("warn")``, each synchronizing
-    call counted by the line that made it, per span; then the kernel at each merge shape
+    call counted by the line that made it, per span. A tick at a time,
+    one more source tick before the probe is stepped by each view under
+    ``analysis/step_lint.py``'s recorder on the replica's worker thread
+    (``step_record`` lines for ``serve.q1`` and ``serve.order_lines``);
+    every line the probe counts, in both runs, must be named by a
+    recorded step's syncs and uploads or by ``analysis/host_sync.py``'s
+    source findings over the hot path. Then the kernel at each merge shape
     the serve path launched (``serve_kernel_shape``), and
     ``serve_vs_plain_path``: the script at SF 0.002 with the replica's
     merges forced to the kernel and then to the plain chain, every
@@ -312,6 +320,13 @@ each printing one JSON line (any failure exits non-zero):
     rows with NULLs, against numpy (floats within rel 1e-14), the err
     collection against numpy's count of out-of-range casts.
 
+``{"phase": "step_record", "path": ...}`` (``index``, ``serve.q1``,
+``serve.order_lines``) gives one recorded step: ``kernel_count`` (device
+operations, ``analysis/step_lint.kernel_count``), ``merge_launches`` and
+``merge_by_shape``, ``host_callback_sites`` (device->host reads by call
+site, sanctioned ones left out), ``sync_sites`` (every read and upload
+by call site), ``dyn_shape_ops``, ``h2d_bytes``, the census's largest
+entries, every finding and the recorded step's host ms.
 ``{"phase": "kernel_table", ...}`` gives one row per merge shape of each
 main path; ``{"phase": "done", ...}`` gives the script's wall seconds and
 each phase group's. The line before the last is ``{"kernels": [...]}``
@@ -872,6 +887,29 @@ def phase_index(torch, merge_kernel, card, sf: float = 1.0) -> dict:
     check(pst["readbacks_per_span"] == 1.0 and pst["max_inflight"] <= 1
           and pst["overflows"] == 0 and pst["spans_committed"] == ticks_churn // span_churn,
           f"pipelined index spans: {pst}")
+    # Churn ticks up to the next level-0 fold, the last one stepped under
+    # analysis/step_lint's recorder (its merges are the fold's); their
+    # launches are the path's, and the oracle below covers them. The
+    # recorder's first use imports torch's dispatch-mode machinery: timed
+    # apart, on an empty call.
+    from materialize_tpu_torch.analysis.step_lint import record_call, record_step
+
+    t = time.perf_counter()
+    record_call(lambda: torch.zeros(1, device=df.device) + 1)
+    setup_ms = (time.perf_counter() - t) * 1e3
+    while True:
+        r_inp, _r_rows = churn(ticks_churn + len(p_inputs), df.time)
+        p_inputs.append(r_inp)
+        if (df._compact_tick + 1) % ce == 0:
+            break
+        df.step(r_inp)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _out, rec = record_step(df, r_inp)
+    torch.cuda.synchronize()
+    record = step_record_line("index", rec, (time.perf_counter() - t) * 1e3, card)
+    record["recorder_setup_ms"] = setup_ms
+    check(rec.merge_launches > 0, "the recorded index step ran no fold")
     # Held to the oracle by multiset fingerprint (a second sort of the
     # 6M rows would take the script ~30 s): the oracle's is the last
     # check's consolidated rows plus every pipelined batch's.
@@ -915,6 +953,9 @@ def phase_index(torch, merge_kernel, card, sf: float = 1.0) -> dict:
         "ladder": ladder, "slots": slots, "ladder_after": [b.capacity for b in df.output.runs_b],
         "launches": launches, "folds": folds, "oracle_s": oracle_s,
         "launches_by_shape": {",".join(map(str, k)): v for k, v in sorted(by_shape.items())},
+        "step_record": {k: record[k] for k in ("kernel_count", "merge_launches",
+                                               "merge_by_shape", "recorded_step_ms",
+                                               "recorder_setup_ms")},
     }
     emit(out)
     out["by_shape"] = by_shape
@@ -3153,7 +3194,7 @@ SYNC_PROBE_TICKS = 8
 
 def _serve_script(st, sf: float, churn: int, ticks: int, span: int, n_lookups: int,
                   q1_selects: int, paced: int = 8, span_pipelining: bool = False,
-                  probe_ticks: int = SYNC_PROBE_TICKS) -> dict:
+                  probe_ticks: int = SYNC_PROBE_TICKS, record: bool = False) -> dict:
     """The serving script on one stack: ``span_pipelining`` set over the
     wire (on, the replica steps every ready tick of a view as one span
     with one flags readback; off, a tick at a time), the DDL, ``ticks`` churn ticks
@@ -3163,7 +3204,9 @@ def _serve_script(st, sf: float, churn: int, ticks: int, span: int, n_lookups: i
     it (the source's persist write, then the replica's read, step and
     sink append), point lookups on ``order_lines`` over the wire and
     straight through the coordinator, checked against the oracle, more
-    Q1 SELECTs for their latency, then the table path."""
+    Q1 SELECTs for their latency, then the table path. With ``record``
+    (a tick at a time only), one more source tick is stepped by each view
+    under ``analysis/step_lint.py``'s recorder, before the sync probe."""
     from decimal import Decimal
 
     from materialize_tpu_torch.storage.persist import operators
@@ -3184,7 +3227,8 @@ def _serve_script(st, sf: float, churn: int, ticks: int, span: int, n_lookups: i
     # SELECT waits for.
     (_cols, first_q1, _tag), first_select_ms = _timed(c, "SELECT * FROM q1")
     t_o = time.perf_counter()
-    gen, snap, churn_parts = _serve_oracle_parts(sf, churn, ticks + paced + probe_ticks)
+    gen, snap, churn_parts = _serve_oracle_parts(sf, churn,
+                                                 ticks + paced + probe_ticks + int(record))
     oracle_gen_s = time.perf_counter() - t_o
     rows_written = sum(len(p[1]) for p in churn_parts[:ticks])
     src = st.coord.sources["tpch"]
@@ -3237,6 +3281,8 @@ def _serve_script(st, sf: float, churn: int, ticks: int, span: int, n_lookups: i
         check(spans["committed"] > 0 and spans["boundary_readbacks"] == spans["committed"],
               f"serve: flags readbacks at span boundaries {spans}")
         check(spans["max_inflight"] == 1, f"serve: spans in flight {spans}")
+    records = (_record_view_ticks(src, {"q1": q1_view, "order_lines": ol_view})
+               if record else None)
     syncs = (_host_sync_probe(src, {"q1": q1_view, "order_lines": ol_view}, probe_ticks)
              if probe_ticks else None)
     # -- checks, off the clock --------------------------------------------------
@@ -3301,6 +3347,7 @@ def _serve_script(st, sf: float, churn: int, ticks: int, span: int, n_lookups: i
                                      if spans["committed"] else None),
         "max_spans_in_flight": spans["max_inflight"],
         "host_sync_probe": syncs,
+        "step_records": records,
         "h2d_batches_per_tick": h2d["batches"] / ticks,
         "h2d_copies_per_tick": h2d["copies"] / ticks,
         "h2d_bytes_per_tick": h2d["bytes"] / ticks,
@@ -3311,13 +3358,82 @@ def _serve_script(st, sf: float, churn: int, ticks: int, span: int, n_lookups: i
     }
 
 
+def _record_view_ticks(src, views: dict) -> dict:
+    """One source tick, each view's dataflow step of it recorded by
+    ``analysis/step_lint.record_step`` on the replica's worker thread
+    (the recorder is a dispatch mode of the thread that steps): the
+    view's ``df.step`` is swapped for one call that records. Returns
+    (record, recorded step's host ms) by view name."""
+    from materialize_tpu_torch.analysis import step_lint
+
+    records = {}
+
+    def record_once(name, df):
+        def step(inputs):
+            del df.step  # one call: the recorder steps the class's method
+            t = time.perf_counter()
+            out, rec = step_lint.record_step(df, inputs)
+            records[name] = (rec, (time.perf_counter() - t) * 1e3)
+            return out
+
+        df.step = step
+
+    for name, v in views.items():
+        record_once(name, v.df)
+    target = src.t + 1
+    src.tick_once()
+    t_w = time.perf_counter()
+    while min(v.upper for v in views.values()) < target:
+        check(time.perf_counter() - t_w < 60, "recorded tick: a view did not step")
+        time.sleep(0.0002)
+    check(set(records) == set(views), f"recorded views {sorted(records)}")
+    return records
+
+
+def step_record_line(path: str, rec, ms: float, card: str) -> dict:
+    """The printed summary of one recorded step (``analysis/step_lint``):
+    device operations, the kernel's launches by shape, host reads by call
+    site, data-dependent shapes, host-to-device bytes; every finding;
+    the recorded step's host ms (the recorder's cost included)."""
+    from materialize_tpu_torch.analysis import step_lint
+
+    findings = step_lint.lint_record(rec)
+    line = {"phase": "step_record", "path": path, "card": card, "recorded_step_ms": ms,
+            **step_lint.summary(rec, findings),
+            "sync_sites": dict(sorted(rec.sync_sites().items())),
+            "census_top": dict(sorted(step_lint.op_census(rec).items(),
+                                      key=lambda kv: -kv[1])[:12]),
+            "finding_list": [str(f) for f in findings]}
+    emit(line)
+    return line
+
+
+def _probe_site(filename: str, lineno: int, stack) -> str:
+    """A synchronizing call's site as ``path:line`` relative to the repo.
+    A warning raised in torch's own Python code is attributed to its
+    innermost caller in the port, as ``analysis/step_lint.py`` attributes
+    a recorded operation."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    pkg = os.path.join(root, "materialize_tpu_torch") + os.sep
+    if not os.path.abspath(filename).startswith(pkg):
+        for fr in reversed(stack):
+            if os.path.abspath(fr.filename).startswith(pkg):
+                filename, lineno = fr.filename, fr.lineno
+                break
+    return f"{os.path.relpath(filename, root)}:{lineno}"
+
+
 def _host_sync_probe(src, views: dict, ticks: int) -> dict:
     """Hidden host syncs of the replica's eager train: ``ticks`` source
     ticks, each waited for until every view stepped past it, with
     ``torch.cuda.set_sync_debug_mode("warn")`` on (outside any timed
     window). Every synchronizing CUDA call warns; the warnings are
-    counted by the line that made them, and divided by the spans the
-    views committed (by the ticks, with no spans)."""
+    counted by the line that made them (a line of torch's own code by
+    its caller in the port, ``_probe_site``), and divided by the spans
+    the views committed (by the ticks, with no spans). A warning raised
+    inside the probe's own mode switch is counted apart
+    (``probe_own``)."""
+    import traceback
     import warnings
     from collections import Counter
 
@@ -3328,8 +3444,24 @@ def _host_sync_probe(src, views: dict, ticks: int) -> dict:
     for k in operators.SPANS:
         operators.SPANS[k] = 0
     torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
+    caught, raw, own = [], Counter(), Counter()
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        stack = traceback.extract_stack()
+        if any(fr.name == "set_sync_debug_mode" for fr in stack):
+            # Raised inside the probe's own switch of the debug mode,
+            # on this thread: not the replica's train.
+            own[f"{os.path.basename(filename)}:{lineno}"] += 1
+            return
+        site = _probe_site(filename, lineno, stack)
+        caught.append(site)
+        raw[(os.path.basename(filename), lineno, site)] += 1
+
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = hook
         torch.cuda.set_sync_debug_mode("warn")
         try:
             for _i in range(ticks):
@@ -3341,21 +3473,31 @@ def _host_sync_probe(src, views: dict, ticks: int) -> dict:
                     time.sleep(0.0002)
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    syncs = Counter(
-        f"{os.path.relpath(w.filename, os.path.dirname(os.path.abspath(__file__)))}:{w.lineno}"
-        for w in caught if "synchroniz" in str(w.message))
+    syncs = Counter(caught)
     spans = operators.SPANS["committed"]
     n = sum(syncs.values())
     return {"ticks": ticks, "spans": spans, "host_syncs": n,
             "host_syncs_per_span": n / spans if spans else None,
             "host_syncs_per_tick": n / ticks,
-            "sites": dict(syncs.most_common())}
+            "sites": dict(syncs.most_common()),
+            # Warnings raised in torch's code, by (file, line) and the
+            # port's line they are counted at.
+            "attributed": [[f, ln, site, c] for (f, ln, site), c in raw.items()
+                           if not site.endswith(f"{f}:{ln}")],
+            "probe_own": dict(own)}
 
 
-def phase_serve(torch, merge_kernel, card, bare_q1: dict, span_pipelining: bool = False) -> dict:
+def phase_serve(torch, merge_kernel, card, bare_q1: dict, span_pipelining: bool = False,
+                named_sites=()) -> dict:
     """TPC-H Q1 and point lookups served over pgwire by the port's own
-    stack, the replica's dataflows on the card (module docstring)."""
+    stack, the replica's dataflows on the card (module docstring). A tick
+    at a time, one tick of each view is recorded (``step_record`` lines).
+    Every call site the sync probe counts must be named by a recorded
+    step (this run's, or ``named_sites`` of an earlier run) or by the
+    host-sync linter's source findings."""
     import tempfile
+
+    from materialize_tpu_torch.analysis.host_sync import lint_hot_path
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3367,7 +3509,8 @@ def phase_serve(torch, merge_kernel, card, bare_q1: dict, span_pipelining: bool 
         try:
             out = _serve_script(st, SERVE_SF, SERVE_CHURN, SERVE_TICKS, SERVE_SPAN,
                                 SERVE_LOOKUPS, q1_selects=32,
-                                span_pipelining=span_pipelining)
+                                span_pipelining=span_pipelining,
+                                record=not span_pipelining)
             files, size = st.blob_files()
         finally:
             st.close()
@@ -3376,6 +3519,19 @@ def phase_serve(torch, merge_kernel, card, bare_q1: dict, span_pipelining: bool 
     by_shape = dict(merge_kernel.LAUNCHES_BY_SHAPE)
     check(launches > 0, "the serve path launched no merge-path kernel")
     out.pop("selects")
+    # -- the lints name every sync the card counts ----------------------------
+    by_record = set(named_sites)
+    for name, (rec, ms) in (out.pop("step_records") or {}).items():
+        line = step_record_line(f"serve.{name}", rec, ms, card)
+        out.setdefault("step_record_kernel_count", {})[name] = line["kernel_count"]
+        by_record |= set(rec.sync_sites())
+    by_source = {f.site for f in lint_hot_path()}
+    probe = set(out["host_sync_probe"]["sites"])
+    unnamed = sorted(probe - by_record - by_source)
+    check(not unnamed, f"serve: sync sites no lint names: {unnamed}")
+    out["probe_sites_named"] = {
+        "probe_sites": len(probe), "by_record": len(probe & by_record),
+        "by_source": len(probe & by_source), "by_both": len(probe & by_record & by_source)}
     res = {
         "phase": "serve", "sf": SERVE_SF, "churn_orders": SERVE_CHURN, "card": card,
         **out,
@@ -3389,6 +3545,7 @@ def phase_serve(torch, merge_kernel, card, bare_q1: dict, span_pipelining: bool 
     }
     emit(res)
     res["by_shape"] = by_shape
+    res["named_sites"] = by_record
     return res
 
 
@@ -3429,8 +3586,11 @@ def serve_phases(torch, merge_kernel, card, bare_q1: dict,
     """``serve`` once for each ``span_pipelining`` setting (a tick at a
     time, then the pipelined span path), the kernel at each merge shape
     the first run launched, and ``serve_vs_plain_path``."""
-    runs = [phase_serve(torch, merge_kernel, card, bare_q1, span_pipelining=sp)
-            for sp in span_pipelining]
+    runs, named = [], ()
+    for sp in span_pipelining:
+        runs.append(phase_serve(torch, merge_kernel, card, bare_q1, span_pipelining=sp,
+                                named_sites=named))
+        named = runs[-1].pop("named_sites")
     rows = phase_path_kernel(torch, merge_kernel, card, runs[0]["by_shape"],
                              "serve_kernel_shape", half_full)
     phase_serve_modes(torch, merge_kernel, card)

@@ -18,10 +18,21 @@ state (the port's copy of ``materialize_tpu/analysis/__init__.py``).
   collectives its last step issued.
 - ``racecheck``: the happens-before race detector over the control
   plane's declared shared state (dyncfg ``race_detector``).
+- ``step_lint``: the counterpart of the reference's ``jaxpr_lint``. One
+  real step recorded under a ``TorchDispatchMode`` (every aten operation
+  with its dtypes, shapes, devices and bytes, the hand kernel's launches,
+  the collectives) is the port's step program; the reference's finding
+  kinds, ``op_census``, ``kernel_count`` and ``intermediate_bytes`` read
+  it.
+- ``host_sync``: AST lint of the per-span hot path's source for host
+  syncs and uploads, paired with ``step_lint``'s host reads.
+- ``interleave``: the DPOR interleaving explorer over the control
+  plane's protocols (imported directly, as in the reference).
 
-The reference's analyses that read jaxprs (``jaxpr_lint``,
-``host_sync``, ``interleave``, ``shard_prop``'s prover and the lowering
-half of ``donation``) have no counterpart here yet (ROADMAP Queue 1).
+The reference's ``shard_prop`` prover (``comm_census``,
+``spmd_safety``, ``sharded_step_report`` over a step program) and the
+lowering half of ``donation`` wait for a captured CUDA graph to read
+(ROADMAP Queue 1 item 3).
 """
 
 from .donation import (  # noqa: F401

@@ -147,6 +147,9 @@ class _RenderContext:
         # device->host readbacks of the pending-row count.
         self.letrec_evals: list = []
         self.letrec_readbacks = 0
+        # A step recorder's hook (``analysis/step_lint.py``), called with
+        # (("letrec", site), binding deltas) after every evaluation.
+        self.carry_probe = None
         # While a LetRec's values are built: its binding names. While its
         # evaluations after the first run: True (their sources are empty).
         self.letrec_names: frozenset = frozenset()
@@ -665,6 +668,8 @@ def _build_letrec(expr: mir.LetRec, ctx: _RenderContext):
         for nm, sch in zip(names, schemas):
             it0_inputs[nm] = Batch.empty(sch, cap, device=dev)
         states_l, deltas, ovf, err_counts = run_values(states, it0_inputs)
+        if ctx.carry_probe is not None:
+            ctx.carry_probe(("letrec", site), deltas)
         accums = list(deltas)
         ovf_keys = sorted(ovf)
 
@@ -688,6 +693,8 @@ def _build_letrec(expr: mir.LetRec, ctx: _RenderContext):
             quiet, ctx.sources_quiet = ctx.sources_quiet, True
             states_l, deltas, o, errs_n = run_values(states_l, it_inputs)
             ctx.sources_quiet = quiet
+            if ctx.carry_probe is not None:
+                ctx.carry_probe(("letrec", site), deltas)
             new_accums = []
             for i, (a, d) in enumerate(zip(accums, deltas)):
                 m = consolidate(concat_batches([a, d]), include_time=False)
@@ -1408,7 +1415,7 @@ class Dataflow:
         if not parts:
             return []
         self._readbacks += 1
-        host = torch.cat(parts).cpu().tolist()
+        host = torch.cat(parts).cpu().tolist()  # host-sync: ok(the ONE flags readback)
         return [k for k, over in zip(keys, host) if over]
 
     # -- checkpoints --------------------------------------------------------
@@ -1573,9 +1580,9 @@ class Dataflow:
             return False
         host, event = snap
         if event is not None:
-            event.synchronize()
+            event.synchronize()  # host-sync: ok(the ONE boundary readback per span)
         self._readbacks += 1
-        return bool(host.any())
+        return bool(host.any())  # host-sync: ok(pinned host copy of the flags)
 
     def span_barrier(self) -> None:
         """Sequence a state read against span boundaries: with a

@@ -1904,8 +1904,8 @@ def run_chaos(
     storm under the seeded fault plan, verify, tear down. The tests,
     ``_main`` and ``chip_smoke.py``'s ``chaos`` phase enter here.
 
-    ``replay_trace``: an explorer schedule trace (the JSON of the
-    reference's ``analysis/interleave.py`` ``Violation.to_trace()``,
+    ``replay_trace``: an explorer schedule trace (the JSON of
+    ``analysis/interleave.py``'s ``Violation.to_trace()``,
     loaded as a dict). The trace pins BOTH the storm seed
     (:func:`trace_seed`) and the fault plan
     (:func:`fault_plan_from_trace`), so an interleaving the explorer

@@ -15,7 +15,7 @@ import sys
 from pathlib import Path
 
 from tests.torch_dict import dict_state, restored_reference_dict
-from tests.torch_serving import deadline  # noqa: F401
+from tests.torch_serving import deadline, one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

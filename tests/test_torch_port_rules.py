@@ -34,17 +34,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from tests.torch_serving import deadline  # noqa: F401
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's eager ops here are small: one intra-op thread runs them
-    about as fast, and does not contend with other test processes."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_serving import deadline, one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "materialize_tpu_torch"
@@ -133,6 +123,9 @@ SLICE_MODULES = [
     "materialize_tpu_torch.analysis.donation",
     "materialize_tpu_torch.analysis.shard_prop",
     "materialize_tpu_torch.analysis.racecheck",
+    "materialize_tpu_torch.analysis.step_lint",
+    "materialize_tpu_torch.analysis.host_sync",
+    "materialize_tpu_torch.analysis.interleave",
     "materialize_tpu_torch.testing",
     "materialize_tpu_torch.testing.slt",
     "materialize_tpu_torch.storage",

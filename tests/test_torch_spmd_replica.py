@@ -22,7 +22,8 @@ from pathlib import Path
 
 import pytest
 
-from tests.torch_serving import SOCKET_TIMEOUT_S, deadline, free_port, mod  # noqa: F401
+from tests.torch_serving import (SOCKET_TIMEOUT_S, deadline, free_port, mod,  # noqa: F401
+                                 one_torch_thread)
 
 ROOT = Path(__file__).resolve().parents[1]
 BOOT_S = 60.0

@@ -56,11 +56,22 @@ def deadline(request):
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
     """Eager torch on one intra-op thread: it does not contend with the
-    other test processes or with XLA's threads."""
+    other test processes or with XLA's threads. The processes the module
+    starts (gloo ranks, replica and environmentd commands, an
+    ``Environment``'s replicas) inherit ``OMP_NUM_THREADS=1``, so their
+    torch starts on one thread too."""
+    import os
+
     n = torch.get_num_threads()
+    old = os.environ.get("OMP_NUM_THREADS")
     torch.set_num_threads(1)
+    os.environ["OMP_NUM_THREADS"] = "1"
     yield
     torch.set_num_threads(n)
+    if old is None:
+        os.environ.pop("OMP_NUM_THREADS", None)
+    else:
+        os.environ["OMP_NUM_THREADS"] = old
 
 
 PKGS = {"ref": "materialize_tpu", "port": "materialize_tpu_torch"}
