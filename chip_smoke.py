@@ -77,8 +77,11 @@ each printing one JSON line (any failure exits non-zero):
     and to the numpy Q1 oracle. Then (c) ``mc_index`` at world size 1
     over NCCL, one span, against the oracle. Printed per rank:
     updates/s, the collectives' host ms per step, the census per step,
-    the ingest mode and the rank's merge launches; then the kernel at
-    each merge shape the ranks launched (``sharded_kernel_shape``);
+    the ingest mode and the rank's merge launches; for (a) the SPMD
+    prover's report (``analysis/shard_prop.py:sharded_step_report``, one
+    recorded empty step of each rank), which must be safe with the
+    census the run's last step counted; then the kernel at each merge
+    shape the ranks launched (``sharded_kernel_shape``);
 7a. ``serve``, run twice: the replica stepping a tick at a time, then
     with ``span_pipelining`` on (the default: ``order_lines``' index
     pipelines, ``_step_span_pipelined``; Q1's view commits each span at
@@ -125,7 +128,14 @@ each printing one JSON line (any failure exits non-zero):
     width: an ``Environment`` (``server/environmentd.py``) in this
     process with one replica process on the card (``python -m
     materialize_tpu_torch.coord.replica --device cuda``), pgwire and
-    HTTP; ``serve``'s source, Q1 view and ``order_lines`` index; one
+    HTTP, its program bank under the data directory; ``serve``'s source,
+    Q1 view and ``order_lines`` index, the two installed with
+    ``enable_async_compile`` on (``compile/worker.py``: each serves at
+    once in merge ingest and must have swapped by the end of the churn
+    ticks, after which ``mz_sharding``'s ingest mode must be the
+    synchronous build's; the script says when the state tier chooses
+    merge ingest in both layouts; ``mz_program_bank`` must hold both
+    native libraries and the two swaps); one
     ``SUBSCRIBE q1`` over pgwire (a borrowed shard tail) and two
     identical ``SUBSCRIBE TO (SELECT ... FROM order_lines WHERE
     l_orderkey <= 4096)``, over pgwire and SSE, sharing one dataflow on
@@ -152,8 +162,13 @@ each printing one JSON line (any failure exits non-zero):
     with ``spmd=false workers=1`` for each of the three installed views,
     and the compile block naming ``merge_path.cu``.
     Then shutdown (each replica process alive until then) and a recovery
-    on the same directory: the catalog replayed, Q1 equal to the oracle,
-    and Q1's subscription resumed at its last frontier exactly. Printed:
+    on the same directory: the catalog replayed, both native libraries
+    loaded from the program bank (``recovery_report()["compiles"]``: a
+    bank hit, no bank miss, no fresh build, build seconds recovered), Q1
+    equal to the oracle, and Q1's subscription resumed at its last
+    frontier exactly. Printed: per async view its swap (the warm-up's and
+    the rebuild's seconds, ms a tick in the generic layout and after the
+    swap), the bank's lookup and store ms,
     served updates/s, paced tick and SUBSCRIBE delivery lag p50/p99
     (``coord/freshness.lag_ms``), the recorder's lag, the replica's boot
     s, library load s, step ms a tick and peak device bytes (from its
@@ -1278,6 +1293,14 @@ def phase_sharded(torch, merge_kernel, card) -> dict:
     got = mc.net_rows(mi["peek"])
     check(got == mc.net_rows(single.peek()), "sharded mc_index != single-device Dataflow")
     check(got == want, "sharded mc_index != numpy oracle")
+    # The SPMD prover over one recorded step of each rank: safe, its
+    # census the one the run's last step counted.
+    for r in ranks:
+        rep = r["mc_index"]["report"]
+        check(rep["safe"] and rep["error"] is None, f"sharded mc_index prover: {rep}")
+        check(rep["census"] == r["mc_index"]["logged_census"],
+              f"sharded mc_index: prover census {rep['census']} != counted "
+              f"{r['mc_index']['logged_census']}")
     n1 = nccl["mc_index"]
     n_host = mc.mc_index_ticks(n1["ticks"])
     n_want: dict = {}
@@ -1328,7 +1351,10 @@ def phase_sharded(torch, merge_kernel, card) -> dict:
         "phase": "sharded", "card": card,
         "mc_index": [cell(r["mc_index"], ("rank", "workers", "backend", "updates",
                                           "updates_per_s", "collective_ms_per_step",
-                                          "collectives_per_step", "span_ms", "grown"))
+                                          "collectives_per_step", "span_ms", "grown",
+                                          "report_s"))
+                     | {"prover": {k: r["mc_index"]["report"][k]
+                                   for k in ("safe", "cursors", "error")}}
                      for r in ranks],
         "q1": [cell(r["q1"], ("rank", "workers", "backend", "sf", "hydrate_ticks",
                               "churn_ticks", "churn_updates", "churn_updates_per_s",
@@ -3611,6 +3637,43 @@ ORDER_FLAGS_SQL = (
     "count(*) AS n FROM lineitem GROUP BY l_orderkey"
 )
 DEPLOY_FLAG_LOOKUPS = 64
+# The dataflows installed with ``enable_async_compile`` on (order_lines
+# is a plain view: its index is the dataflow): generic first,
+# then swapped (``compile/worker.py``); order_flags installs synchronously.
+DEPLOY_ASYNC_VIEWS = ("q1", "order_lines_idx")
+
+
+def _swap_report(entries: dict, churn_wall: tuple) -> dict:
+    """Per async view: its swap state, the warm-up's and the rebuild's
+    seconds, ms a tick in the generic layout and after the swap (None
+    where no tick ran in it), and whether the swap landed inside the
+    churn (wall clock, ``churn_wall`` = its start and end)."""
+    out = {}
+    for name, e in entries.items():
+        def per_tick(layout):
+            n = e.get(f"{layout}_ticks", 0)
+            return e[f"{layout}_step_s"] * 1e3 / n if n else None
+
+        at = e.get("swapped_at")
+        out[name] = {
+            "state": e.get("state"), "error": e.get("error", ""),
+            "warm_s": e.get("warm_s"), "rebuild_s": e.get("rebuild_s"),
+            "generic_ms_per_tick": per_tick("generic"),
+            "generic_ticks": e.get("generic_ticks", 0),
+            "swapped_ms_per_tick": per_tick("swapped"),
+            "swapped_ticks": e.get("swapped_ticks", 0),
+            "swap_after_install_s": None if at is None else at - e["queued_at"],
+            "swapped_during_churn": at is not None and churn_wall[0] <= at <= churn_wall[1],
+        }
+    return out
+
+
+def _bank_ms(records) -> dict:
+    """The program bank's lookup and store ms of the replica's library
+    loads (their compile-ledger records)."""
+    return {f"{r.kind} {r.name}": {k: r.attrs[k] for k in ("lookup_ms", "store_ms")
+                                  if k in r.attrs} | {"cache": r.cache}
+            for r in records if "lookup_ms" in r.attrs}
 
 
 def _copy_lines(payload: bytes) -> tuple:
@@ -3941,9 +4004,14 @@ def _deploy_run(root: str, device: str, sf: float, churn: int, ticks: int, span:
     data directory. ``span_pipelining`` off (a durable SET before the
     DDL) steps the replica's views a tick at a time instead. Returns the
     phase's numbers; raises on any check."""
+    import inspect
+
     from materialize_tpu_torch.coord.freshness import FRESHNESS, lag_ms
-    from materialize_tpu_torch.server.environmentd import Environment
+    from materialize_tpu_torch.plan.decisions import ingest_mode, state_ingest_mode
+    from materialize_tpu_torch.render.dataflow import Dataflow
+    from materialize_tpu_torch.server.environmentd import Environment, bank_path
     from materialize_tpu_torch.storage.persist import COMPACTION_STATS
+    from materialize_tpu_torch.utils.compile_ledger import LEDGER
 
     # The recorder is process-global: start it empty, without the lag
     # of the serve phase's in-process replica (same view names).
@@ -3975,15 +4043,27 @@ def _deploy_run(root: str, device: str, sf: float, churn: int, ticks: int, span:
         t = time.perf_counter()
         c.query(f"CREATE SOURCE tpch FROM LOAD GENERATOR TPCH "
                 f"(SCALE FACTOR {sf}, CHURN ORDERS {churn})")
+        # q1, order_lines and its index install generic and swap; then
+        # order_flags installs synchronously: both install paths.
+        c.query("SET enable_async_compile = true")
         c.query("CREATE MATERIALIZED VIEW q1 AS " + SERVE_Q1_SQL)
         c.query(SERVE_ORDER_LINES_SQL)
         c.query("CREATE INDEX order_lines_idx ON order_lines (l_orderkey)")
+        c.query("SET enable_async_compile = false")
         c.query(ORDER_FLAGS_SQL)
         _cols, first_q1, _tag = c.query("SELECT * FROM q1")
         out["hydrate_s"] = time.perf_counter() - t
+        with env.coord.controller._lock:
+            at_first = {v: env.coord.controller.swap_states.get(v, {}).get("r0", {})
+                        .get("state") for v in DEPLOY_ASYNC_VIEWS}
+        check(all(st in ("pending", "swapped") for st in at_first.values()),
+              f"deploy: async installs at Q1's first answer: {at_first}")
+        out["swap_states_at_first_answer"] = at_first
         stage("boot_and_hydrate")
         first = _settled_metrics(http, 'mz_merge_path_load_seconds{replica="r0"}')
         out["replica_library_load_s"] = first['mz_merge_path_load_seconds{replica="r0"}']
+        out["replica_peak_device_bytes_after_hydration"] = first.get(
+            'mz_device_peak_bytes{replica="r0"}')
         _gen, snap, churn_parts = _serve_oracle_parts(sf, churn, ticks + paced + resumed)
         # The oracles at every frontier F (times < F: the snapshot and
         # churn ticks 1..F-1), built up a tick at a time.
@@ -4027,13 +4107,20 @@ def _deploy_run(root: str, device: str, sf: float, churn: int, ticks: int, span:
         check(len(owned) == 1 and owned[0]["sessions"] == 2,
               f"deploy: the query subscriptions do not share one dataflow: {hub['tails']}")
         rows_written = sum(len(p[1]) for p in churn_parts[:ticks])
-        t_first = time.perf_counter()
+        t_first, churn_wall0 = time.perf_counter(), time.time()
         for _s in range(ticks // span):
             for _i in range(span):
                 src.tick_once()
             c.query("SELECT * FROM q1")
         wait_tails(src.t, "deploy: churn spans")
         served_s = time.perf_counter() - t_first
+        # Every async install swapped inside the churn ticks at the latest.
+        with env.coord.controller._lock:
+            states = {v: env.coord.controller.swap_states.get(v, {}).get("r0", {})
+                      .get("state") for v in DEPLOY_ASYNC_VIEWS}
+        check(all(st == "swapped" for st in states.values()),
+              f"deploy: swap states after the churn ticks: {states}")
+        churn_wall = (churn_wall0, time.time())
         stage("churn")
         step0 = _settled_metrics(http, "mz_replica_step_seconds_sum{replica=\"r0\"}")
         fresh_ms, deliver = [], {name: [] for name in tails}
@@ -4080,6 +4167,9 @@ def _deploy_run(root: str, device: str, sf: float, churn: int, ticks: int, span:
             ("mz_span_epochs", "SELECT dataflow, replica, span_epoch FROM mz_span_epochs"),
             ("mz_compile_log", "SELECT process, kind, dataflow, fingerprint, tier, seconds, "
                                "cache FROM mz_compile_log"),
+            ("mz_program_bank", "SELECT kind, dataflow, fingerprint, tier, bytes, state "
+                                "FROM mz_program_bank"),
+            ("mz_sharding", "SELECT dataflow, replica, ingest_mode FROM mz_sharding"),
         ):
             intro[rel] = c.query(sql)[1]
         epochs = {(r[0], r[1]): int(r[2]) for r in intro["mz_span_epochs"]}
@@ -4089,6 +4179,27 @@ def _deploy_run(root: str, device: str, sf: float, churn: int, ticks: int, span:
                   for r in intro["mz_compile_log"]),
               f"deploy: no merge_path build or load shipped: {intro['mz_compile_log']}")
         check(("r0", "1", "active") in intro["mz_cluster_replicas"], "deploy: r0 not connected")
+        # The program bank: the first boot stored both libraries, and the
+        # swaps show as its 'swap' rows.
+        bank_rows = intro["mz_program_bank"]
+        check({r[0] for r in bank_rows if r[5] == "stored"} == {"nvcc", "g++"},
+              f"deploy: the bank does not hold both libraries: {bank_rows}")
+        check({(v, "swapped") for v in DEPLOY_ASYNC_VIEWS}
+              <= {(r[1], r[5]) for r in bank_rows if r[0] == "swap"},
+              f"deploy: mz_program_bank's swap rows: {bank_rows}")
+        # After the swap each async view has the layout a synchronous
+        # build gives it at the replica's state tier.
+        tier = inspect.signature(Dataflow).parameters["state_cap"].default
+        sync_mode = ("append_slot" if "append_slot" in (ingest_mode(tier, 4096),
+                                                        state_ingest_mode(tier)) else "merge")
+        modes = {r[0]: r[2] for r in intro["mz_sharding"] if r[1] == "r0"}
+        check(all(modes.get(v) == sync_mode for v in DEPLOY_ASYNC_VIEWS),
+              f"deploy: ingest after the swap {modes}, the synchronous build's {sync_mode}")
+        out["swap_layout"] = {
+            "state_tier": tier, "synchronous_build": sync_mode, "after_swap": modes,
+            "note": (f"state tier {tier} chooses merge ingest in both layouts: the swap "
+                     "rebuilds the same layout" if sync_mode == "merge" else
+                     f"the generic layout merges, the swapped one runs {sync_mode}")}
         check({("q1", "r0", "hydrated"), ("order_lines_idx", "r0", "hydrated")}
               <= set(intro["mz_hydration_statuses"]), "deploy: views not hydrated")
         check(len(intro["mz_subscriptions"]) == 3, "deploy: mz_subscriptions")
@@ -4183,17 +4294,37 @@ def _deploy_run(root: str, device: str, sf: float, churn: int, ticks: int, span:
             if spans["mz_span_commits"] else None)
         out["mz_span_epochs"] = intro["mz_span_epochs"]
         out["mz_compile_log"] = intro["mz_compile_log"]
+        out["mz_program_bank"] = bank_rows
+        with env.coord.controller._lock:
+            entries = {v: dict(env.coord.controller.swap_states[v]["r0"])
+                       for v in DEPLOY_ASYNC_VIEWS}
+        out["swaps"] = _swap_report(entries, churn_wall)
+        out["bank_first_boot"] = {"ms": _bank_ms(LEDGER.records()),
+                                  "path": bank_path(root)}
         last_frontier, last_state = last_q1
         stage("settle")
     finally:
         report = _shutdown_checked(env)
     stage("shutdown")
     # -- recovery: the same data directory, the catalog replayed -------------
+    # The ledger is process-wide: clear it so that the report counts only
+    # this boot's loads (the replica process ships its own).
+    LEDGER.clear()
     t = time.perf_counter()
     env = Environment(root, device=device, tick_interval=None)
     try:
         rec = env.await_recovery()
         out["recovery_s"] = time.perf_counter() - t
+        t_w = time.perf_counter()
+        while rec["compiles"]["bank_hits"] < 2 and time.perf_counter() - t_w < 30:
+            time.sleep(0.05)
+            rec = env.recovery_report()
+        comp = rec["compiles"]
+        check(comp["bank_hits"] >= 1 and comp["bank_misses"] == 0
+              and comp["fresh_compiles"] == 0 and comp["compile_seconds_recovered"] > 0,
+              f"deploy: the recovery boot built libraries: {comp}")
+        out["recovery_compiles"] = comp
+        out["bank_recovery"] = {"ms": _bank_ms(LEDGER.records())}
         stage("recovery")
         out["recovery_replica_boot_s"] = env.replica_records["r0"]["boot_s"]
         check(rec["coordinator"]["catalog_replayed"] >= 4 and
@@ -4203,6 +4334,8 @@ def _deploy_run(root: str, device: str, sf: float, churn: int, ticks: int, span:
         src = env.coord.sources["tpch"]
         check(src.t == last_frontier, f"deploy: source at {src.t} after recovery, "
               f"{last_frontier} before")
+        stored = c.query("SELECT kind FROM mz_program_bank WHERE state = 'stored'")[1]
+        check(stored, "deploy: mz_program_bank lists no stored library after recovery")
         _check_q1_wire(c.query("SELECT * FROM q1")[1], None, "deploy: Q1 after recovery",
                        q1_at[src.t])
         # Exactly-once resume of the Q1 subscription at its last frontier:
@@ -4257,7 +4390,8 @@ def phase_deploy(torch, merge_kernel, card, serve: dict, span_pipelining: bool =
                               DEPLOY_PACED, DEPLOY_RESUMED, span_pipelining=span_pipelining)
     finally:
         # The SETs landed in this process's flags too (the coordinator's).
-        COMPUTE_CONFIGS.update({"span_pipelining": None, "transient_peek_cache": None})
+        COMPUTE_CONFIGS.update({"span_pipelining": None, "transient_peek_cache": None,
+                                "enable_async_compile": None})
     check(out["launches_first_boot"] > 0 and out["launches_recovery_boot"] > 0,
           f"deploy: the replica processes launched merge_path "
           f"{out['launches_first_boot']}/{out['launches_recovery_boot']} times")

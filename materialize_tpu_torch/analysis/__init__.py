@@ -11,11 +11,14 @@ state (the port's copy of ``materialize_tpu/analysis/__init__.py``).
   checkpoints, multiversion history, ``IndexSource`` snapshots) share a
   device buffer, the per-view donation verdict, and the use-after-donate
   sanitizer (dyncfg ``buffer_sanitizer``). A leaf is a ``torch.Tensor``
-  identified by its storage.
+  identified by its storage. Beside them, the write side of a recorded
+  step (``donation_lowering_findings``) and the reuse rule over the
+  dispatch sites (``lint_donated_reuse``).
 - ``shard_prop``: the sharding report of any dataflow: the trivial one
   of a single-device dataflow, and a ``ShardedDataflow``'s ingest mode,
-  cursors (shard-local by construction) and the census of the
-  collectives its last step issued.
+  cursor verdicts and communication census, proved over one recorded
+  step of every rank (``comm_census``, ``spmd_safety``,
+  ``sharded_step_report``).
 - ``racecheck``: the happens-before race detector over the control
   plane's declared shared state (dyncfg ``race_detector``).
 - ``step_lint``: the counterpart of the reference's ``jaxpr_lint``. One
@@ -28,11 +31,6 @@ state (the port's copy of ``materialize_tpu/analysis/__init__.py``).
   syncs and uploads, paired with ``step_lint``'s host reads.
 - ``interleave``: the DPOR interleaving explorer over the control
   plane's protocols (imported directly, as in the reference).
-
-The reference's ``shard_prop`` prover (``comm_census``,
-``spmd_safety``, ``sharded_step_report`` over a step program) and the
-lowering half of ``donation`` wait for a captured CUDA graph to read
-(ROADMAP Queue 1 item 3).
 """
 
 from .donation import (  # noqa: F401

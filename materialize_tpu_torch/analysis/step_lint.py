@@ -146,6 +146,10 @@ class OpRecord:
     non_blocking: bool = False
     # An indexing operation with a boolean mask among its indices.
     mask_index: bool = False
+    # The storage (``storage_key``) of every argument the operation's
+    # schema marks as written, and of every output.
+    writes: tuple = ()
+    out_storages: tuple = ()
 
     @property
     def in_bytes(self) -> int:
@@ -268,6 +272,31 @@ def _tensors(tree) -> list:
     return [t for t in torch.utils._pytree.tree_leaves(tree) if isinstance(t, torch.Tensor)]
 
 
+def storage_key(t: torch.Tensor):
+    """(device, storage address) of a tensor's storage, or None for an
+    empty one (every empty storage shares address 0)."""
+    st = t.untyped_storage()
+    if st.nbytes() == 0:
+        return None
+    return (str(t.device), st.data_ptr())
+
+
+def _storage_keys(ts) -> tuple:
+    return tuple(k for k in map(storage_key, ts) if k is not None)
+
+
+def _written(func, args, kwargs) -> tuple:
+    """Storage keys of the arguments ``func``'s schema marks as written
+    (in-place and ``out=`` operations)."""
+    keys: list = []
+    for i, a in enumerate(func._schema.arguments):
+        if a.alias_info is None or not a.alias_info.is_write:
+            continue
+        v = args[i] if i < len(args) else kwargs.get(a.name)
+        keys.extend(_storage_keys(_tensors(v)))
+    return tuple(keys)
+
+
 def _describe(ts) -> tuple:
     return (tuple(str(t.dtype) for t in ts), tuple(tuple(t.shape) for t in ts),
             tuple(t.device.type for t in ts),
@@ -305,7 +334,8 @@ class _Recorder(torch.utils._python_dispatch.TorchDispatchMode):
             t.dtype in (torch.bool, torch.uint8) for t in _tensors(args[1]))
         self.ops.append(OpRecord(
             name, idt, ish, idev, odt, osh, odev, ib, ob, site,
-            bool(getattr(func, "is_view", False)), nb, mask))
+            bool(getattr(func, "is_view", False)), nb, mask,
+            _written(func, args, kwargs), _storage_keys(_tensors(out))))
         return out
 
 

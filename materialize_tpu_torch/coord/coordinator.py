@@ -15,9 +15,7 @@ reference (simple, and all the heavy lifting is async underneath).
 
 The port's copy plans with the port's own frontend and optimizer
 (``sql/``, ``transform/``) and evaluates introspection reads on the
-device it is given (``device=``, default ``"cuda"``). Not ported yet,
-and raising with its ROADMAP item: the program bank's introspection
-relation (``coord/introspection.py``).
+device it is given (``device=``, default ``"cuda"``).
 """
 
 from __future__ import annotations
@@ -390,21 +388,34 @@ class Coordinator:
         per dataflow program and scopes the block to the installed
         catalog-named dataflows; a port library serves every dataflow,
         so the block lists every library once any such dataflow is
-        installed (``mz_compile_log`` serves each record)."""
+        installed (``mz_compile_log`` serves each record). Loads the
+        program bank served are not compiles: they count on the
+        ``bank:`` line, with the build seconds they skipped, and the
+        async installs still waiting for their swap are listed, as the
+        reference's are."""
         from ..utils.compile_ledger import LEDGER
 
         named = {it.name for it in self.catalog.items.values()}
         named |= set(self.peekable.values())
         with self.controller._lock:
             installed = any(n in named for n in self.controller._dataflows)
+            pending = sorted(
+                df
+                for df, per in self.controller.swap_states.items()
+                if df in named and any(
+                    e.get("state") == "pending" for e in per.values()
+                )
+            )
         recs = LEDGER.records() if installed else []
         lines = ["compiles:"]
-        if not recs:
+        if not (recs or pending):
             lines.append("  (no compiles recorded for installed "
                          "dataflows)")
             return "\n".join(lines)
         libs: dict = {}
         for r in recs:
+            if r.cache == "bank_hit":
+                continue
             k = libs.setdefault((r.kind, r.name), [0, 0, 0.0])
             k[0 if r.cache == "miss" else 1] += 1
             k[2] += r.seconds
@@ -419,6 +430,16 @@ class Coordinator:
             f"misses={s['misses']} hits={s['hits']} "
             f"seconds={s['seconds']:.3f}"
         )
+        if s["bank_hits"] or s["bank_misses"]:
+            served = sorted({f"{r.kind} {r.name}" for r in recs if r.cache == "bank_hit"})
+            lines.append(
+                f"  bank: bank_hit={s['bank_hits']} "
+                f"bank_miss={s['bank_misses']} "
+                f"seconds_recovered={s['bank_seconds_recovered']:.3f}"
+                + (f" served=[{', '.join(served)}]" if served else "")
+            )
+        if pending:
+            lines.append("  pending_swap=[" + ", ".join(pending) + "]")
         return "\n".join(lines)
 
     def _freshness_analysis_text(self) -> str:
@@ -2217,6 +2238,16 @@ class Coordinator:
                 lvl = TRACE_LEVEL.default
             if lvl in LEVELS:
                 TRACER.set_level(lvl)
+        if "program_bank_path" in values:
+            # Re-point this process's program bank; replicas re-point
+            # theirs when the UpdateConfiguration command reaches them.
+            from ..compile.bank import configure_bank
+            from ..utils.dyncfg import PROGRAM_BANK_PATH
+
+            path = values["program_bank_path"]
+            if path is None:  # reset-to-default delta
+                path = PROGRAM_BANK_PATH.default
+            configure_bank(path or None)
         self.controller.update_configuration(dict(values))
 
     def shutdown(self) -> None:

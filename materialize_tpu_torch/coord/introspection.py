@@ -12,15 +12,14 @@ ordinary dataflow renderer, so the FULL SQL surface (joins, aggregates,
 ORDER BY) works over them.
 
 In the port every relation is registered with the reference's schema.
-One reads state the port does not have and raises ``NotImplementedError``
-naming its ROADMAP item when selected (:data:`UNPORTED`): the program
-bank. ``mz_donation`` and ``mz_sharding`` serve the replicas' donation
-verdicts (``analysis/donation.py``) and single-device sharding reports
+``mz_donation`` and ``mz_sharding`` serve the replicas' donation
+verdicts (``analysis/donation.py``) and sharding reports
 (``analysis/shard_prop.py``) with EXPLAIN ANALYSIS's formatters.
-``mz_compile_log``
-lists the port's native library builds and loads
-(``utils/compile_ledger.py``). ``mz_recovery`` has no ``compile`` scope:
-no program bank serves compiles in eager torch.
+``mz_compile_log`` lists the port's native library builds and loads
+(``utils/compile_ledger.py``); ``mz_program_bank`` the libraries the
+program bank holds (``compile/bank.py``) and the async installs' swap
+states; ``mz_recovery``'s ``compile`` scope the bank's hits, misses
+and the build seconds they skipped.
 """
 
 from __future__ import annotations
@@ -34,16 +33,6 @@ F = ColumnType.FLOAT64
 
 def _enc(s: str) -> int:
     return GLOBAL_DICT.encode(s)
-
-
-# Relations over reference state with no counterpart in the port yet:
-# name -> where its source waits.
-UNPORTED = {
-    "mz_program_bank": (
-        "ROADMAP Queue 2 item 6: the program bank has no counterpart in "
-        "eager torch"
-    ),
-}
 
 
 INTROSPECTION_SCHEMAS: dict[str, Schema] = {
@@ -194,10 +183,9 @@ INTROSPECTION_SCHEMAS: dict[str, Schema] = {
     ),
     "mz_program_bank": Schema(
         [
-            # The persistent AOT program bank: one row per
-            # banked executable (kind/fingerprint/tier parsed from the
-            # entry filename, size and store time from stat) plus one
-            # row per async hot-swap in flight (kind="swap",
+            # The program bank: one row per stored native library
+            # (kind/fingerprint/tier and store time from its meta, size
+            # from stat) plus one row per async hot-swap (kind="swap",
             # dataflow=the DDL, state=pending|swapped|swap-failed).
             Column("kind", S),
             Column("dataflow", S),
@@ -324,11 +312,6 @@ INTROSPECTION_SCHEMAS: dict[str, Schema] = {
 def snapshot(coord, name: str) -> list[tuple]:
     """Current rows of one introspection relation (values already
     dictionary-encoded for Constant substitution)."""
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"introspection relation {name!r} is not ported "
-            f"({UNPORTED[name]})"
-        )
     if name == "mz_donation":
         # The buffer-provenance prover's verdicts: per
         # (dataflow, replica), whether the run_steps span train's
@@ -556,6 +539,54 @@ def snapshot(coord, name: str) -> list[tuple]:
                         (_enc("dataflow"), _enc(df), _enc(rep),
                          _enc(metric), float(v.get(metric, 0)))
                     )
+        # The program bank's share of recovery, deployment-wide (the
+        # ledger ingests the replicas' records).
+        from ..utils.compile_ledger import LEDGER
+
+        summ = LEDGER.summary()
+        for metric in ("bank_hits", "bank_misses",
+                       "bank_seconds_recovered"):
+            rows.append(
+                (_enc("compile"), _enc(""), _enc(""),
+                 _enc(metric), float(summ.get(metric, 0)))
+            )
+        return rows
+    if name == "mz_program_bank":
+        from ..compile.bank import get_bank
+
+        rows = []
+        bank = get_bank()
+        if bank is not None:
+            for e in bank.entries():
+                rows.append(
+                    (
+                        _enc(e["kind"]),
+                        _enc(""),
+                        _enc(e["fingerprint"]),
+                        _enc(e["tier"]),
+                        int(e["bytes"]),
+                        _enc("stored"),
+                        float(e["stored_at"]),
+                    )
+                )
+        with coord.controller._lock:
+            swaps = {
+                df: dict(per)
+                for df, per in coord.controller.swap_states.items()
+            }
+        for df, per in sorted(swaps.items()):
+            for _rep, entry in sorted(per.items()):
+                rows.append(
+                    (
+                        _enc("swap"),
+                        _enc(df),
+                        _enc(""),
+                        _enc(""),
+                        0,
+                        _enc(str(entry.get("state", ""))),
+                        float(entry.get("queued_at", 0.0)),
+                    )
+                )
         return rows
     if name == "mz_subscriptions":
         # The push plane's live sessions: per session, the

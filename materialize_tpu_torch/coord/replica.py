@@ -31,10 +31,11 @@ the replica's peak device bytes among them), lag records, compaction
 stats and compile records (its native library builds and loads,
 ``utils/compile_ledger.py``). A string-dictionary label gap run dry
 rebalances the dictionary, remaps every installed description's codes
-(``expr/remap.py``) and rebuilds every dataflow from durable state. Not
-ported yet, each raising with its ROADMAP item: async compile and hot
-swap (Queue 2 item 6: the program bank has no
-counterpart in eager torch).
+(``expr/remap.py``) and rebuilds every dataflow from durable state.
+With ``enable_async_compile`` on and a program bank configured
+(``compile/``), a fresh DDL serves at once in its generic layout (merge
+ingest) while the compile worker warms the specialized one; the worker
+loop swaps it in at a span boundary, rebuilding from durable state.
 """
 
 from __future__ import annotations
@@ -192,6 +193,16 @@ class ReplicaWorker:
         # invalidates our device-resident codes too: queue the remaps
         # and rebuild from the worker loop (single-threaded owner).
         self._pending_remaps: list[dict] = []
+        # Async compile and hot swap: dataflows serving their generic
+        # layout while the compile worker warms the specialized one.
+        # name -> swap entry (state pending | swapped | swap-failed, with
+        # timestamps, the warm-up's and the rebuild's seconds, and the
+        # view's step seconds and ticks in each layout), shipped on
+        # Frontiers whenever it changes. The worker starts lazily on the
+        # first async install.
+        self._pending_swap: dict[str, dict] = {}
+        self._swap_dirty: set = set()
+        self._compile_worker = None
         from ..utils.locks import tracked_lock
 
         self._remap_lock = tracked_lock("replica.remap")
@@ -352,6 +363,7 @@ class ReplicaWorker:
             pipelined = SPAN_PIPELINING(COMPUTE_CONFIGS)
             for name, inst in list(self.dataflows.items()):
                 t_step = _time.perf_counter()
+                upper0 = inst.view.upper
                 try:
                     # Non-blocking: only if some input advanced. The
                     # pipelined span path dispatches every
@@ -365,9 +377,10 @@ class ReplicaWorker:
                         else inst.view.step(timeout=0)
                     ):
                         worked = True
-                        step_seconds().observe(
-                            _time.perf_counter() - t_step
-                        )
+                        dt = _time.perf_counter() - t_step
+                        step_seconds().observe(dt)
+                        if name in self._pending_swap:
+                            self._count_swap_step(name, dt, inst.view.upper - upper0)
                 except SinkConflict:
                     # Another replica's durable chunking won a hydration
                     # race: rebuild this view from the durable shard
@@ -390,6 +403,8 @@ class ReplicaWorker:
                         conn, f"dataflow {name!r} failed: {e!r}"
                     )
                     worked = True
+            if self._pending_swap:
+                worked |= self._maybe_swap(conn)
             try:
                 worked |= self._serve_peeks(conn)
             except DictExhausted:
@@ -402,9 +417,13 @@ class ReplicaWorker:
             if not worked:
                 _time.sleep(0.002)  # park
 
-    def _make_dataflow(self, desc: DataflowDescription):
+    def _make_dataflow(self, desc: DataflowDescription, generic: bool = False):
         if self._spmd is None:
-            return Dataflow(desc.expr, name=desc.name, device=self.device)
+            # generic (an async install): merge ingest for the state
+            # spines and the output index, correct at any state size,
+            # while the specialized layout warms in the background.
+            return Dataflow(desc.expr, name=desc.name, device=self.device,
+                            force_merge_ingest=generic)
         from ..render.dataflow import ShardedDataflow
 
         # Installs stay synchronous under SPMD (the reference's too):
@@ -437,7 +456,7 @@ class ReplicaWorker:
         self._hydration_dirty.add(name)
 
     def _build(
-        self, desc: DataflowDescription
+        self, desc: DataflowDescription, generic: bool = False
     ) -> _Installed:
         """Build (or rebuild) a dataflow. Hydration can race with an
         active-active sibling writing the same sink (SinkConflict) or
@@ -460,7 +479,7 @@ class ReplicaWorker:
             # Render BEFORE subscribing index sources: a render failure
             # must not leak subscribers onto publishers (each publisher
             # step would copy its delta to the orphan forever).
-            df = self._make_dataflow(desc)
+            df = self._make_dataflow(desc, generic=generic)
             index_sources: dict = {}
             try:
                 # Index imports resolve against dataflows ALREADY
@@ -632,17 +651,18 @@ class ReplicaWorker:
             frontier = nxt
         return out
 
-    def _rebuild_cascade(self, name: str, new_desc=None) -> None:
-        """Rebuild `name` (optionally with a replacement description)
-        and, in dependency order, every installed dataflow that
-        index-imports it — their IndexSources must re-subscribe to the
-        NEW publisher view."""
+    def _rebuild_cascade(self, name: str, new_desc=None,
+                         generic: bool = False) -> None:
+        """Rebuild `name` (optionally with a replacement description, in
+        the generic layout when asked) and, in dependency order, every
+        installed dataflow that index-imports it — their IndexSources
+        must re-subscribe to the NEW publisher view."""
         deps = self._dependents_of(name)
         inst = self.dataflows.get(name)
         if inst is not None:
             inst.view.expire()
         desc = new_desc if new_desc is not None else inst.desc
-        self.dataflows[name] = self._build(desc)
+        self.dataflows[name] = self._build(desc, generic=generic)
         self._count_recovery(name, "rebuilds")
         for dn in deps:
             dinst = self.dataflows.get(dn)
@@ -651,6 +671,87 @@ class ReplicaWorker:
             dinst.view.expire()
             self.dataflows[dn] = self._build(dinst.desc)
             self._count_recovery(dn, "rebuilds")
+
+    # -- async compile and hot swap -----------------------------------------
+    def _async_eligible(self, desc: DataflowDescription) -> bool:
+        """A fresh install takes the generic-then-swap path only with
+        ``enable_async_compile`` on, a program bank configured and one
+        worker (SPMD replicas install synchronously, as the
+        reference's)."""
+        from ..compile.bank import get_bank
+        from ..utils.dyncfg import COMPUTE_CONFIGS, ENABLE_ASYNC_COMPILE
+
+        return (bool(ENABLE_ASYNC_COMPILE(COMPUTE_CONFIGS)) and self.workers == 1
+                and get_bank() is not None)
+
+    def _ensure_compile_worker(self):
+        if self._compile_worker is None:
+            from ..compile.worker import CompileWorker
+
+            self._compile_worker = CompileWorker()
+        return self._compile_worker
+
+    def _mark_swap(self, name: str, state: str, error: str = "", **info) -> None:
+        entry = self._pending_swap.get(name)
+        if entry is None:
+            entry = {"queued_at": _time.time(), "generic_step_s": 0.0,
+                     "generic_ticks": 0, "swapped_step_s": 0.0, "swapped_ticks": 0}
+        entry["state"] = state
+        if error:
+            entry["error"] = error
+        if state == "swapped":
+            entry["swapped_at"] = _time.time()
+        entry.update(info)
+        self._pending_swap[name] = entry
+        self._swap_dirty.add(name)
+
+    def _count_swap_step(self, name: str, seconds: float, ticks: int) -> None:
+        """A stepped async view's seconds and ticks, in the layout it
+        runs (generic until swapped)."""
+        entry = self._pending_swap[name]
+        layout = "swapped" if entry["state"] == "swapped" else "generic"
+        entry[f"{layout}_step_s"] += seconds
+        entry[f"{layout}_ticks"] += max(int(ticks), 0)
+        self._swap_dirty.add(name)
+
+    def _maybe_swap(self, conn) -> bool:
+        """Hot-swap poll from the worker loop (the single owner of the
+        dataflow map): for each finished warm-up, drain the view's spans
+        (no half-applied carry) and rebuild it, and its index importers,
+        from durable state in the specialized layout. A warm-up that
+        raised, or a rebuild that failed, leaves the generic layout
+        serving, and the state says ``swap-failed``."""
+        if self._compile_worker is None:
+            return False
+        did = False
+        for task in self._compile_worker.pop_ready():
+            name = task.desc.name
+            inst = self.dataflows.get(name)
+            entry = self._pending_swap.get(name)
+            if inst is None or entry is None or entry.get("state") != "pending":
+                continue
+            did = True
+            if task.error:
+                self._mark_swap(name, "swap-failed", error=task.error, warm_s=task.warm_s)
+                self._send_status(conn, f"warm-up of {name!r} failed; its generic "
+                                        f"layout keeps serving: {task.error}")
+                continue
+            t0 = _time.perf_counter()
+            try:
+                inst.view.sync_spans()
+                self._set_hydration(name, "swapping")
+                self._rebuild_cascade(name)
+                self._mark_swap(name, "swapped", warm_s=task.warm_s,
+                                rebuild_s=_time.perf_counter() - t0)
+            except Exception as e:
+                self._mark_swap(name, "swap-failed", error=repr(e), warm_s=task.warm_s)
+                self._send_status(conn, f"hot-swap of {name!r} failed: {e!r}")
+                try:
+                    self._rebuild_cascade(name, generic=True)
+                except Exception as e2:
+                    self.dataflows.pop(name, None)
+                    self._set_hydration(name, "stalled", error=repr(e2))
+        return did
 
     def _send_installed(self, conn, name: str, error) -> None:
         """Install ack: the DDL response path waits on these so a bad
@@ -705,6 +806,10 @@ class ReplicaWorker:
             self._recovery_dirty.discard(cmd["name"])
             self._hydration.pop(cmd["name"], None)
             self._hydration_dirty.discard(cmd["name"])
+            self._pending_swap.pop(cmd["name"], None)
+            self._swap_dirty.discard(cmd["name"])
+            if self._compile_worker is not None:
+                self._compile_worker.drop(cmd["name"])
             if inst is not None:
                 inst.view.expire()
                 if self._spmd is not None:
@@ -756,6 +861,15 @@ class ReplicaWorker:
             COMPUTE_CONFIGS.update(cmd["params"])
             if self._spmd is not None:
                 self._spmd.config(cmd["params"])
+            if "program_bank_path" in cmd["params"]:
+                # Re-point this process's program bank.
+                from ..compile.bank import configure_bank
+                from ..utils.dyncfg import PROGRAM_BANK_PATH
+
+                path = cmd["params"]["program_bank_path"]
+                if path is None:  # reset-to-default delta
+                    path = PROGRAM_BANK_PATH.default
+                configure_bank(path or None)
             if "trace_level" in cmd["params"]:
                 # The trace_level dyncfg drives THIS process's span
                 # recorder too (log_filter propagation).
@@ -794,6 +908,14 @@ class ReplicaWorker:
                 # its arrangement (subscribers hold direct view
                 # references).
                 self._rebuild_cascade(desc.name, new_desc=desc)
+            elif self._async_eligible(desc):
+                # Async install: serve NOW in the generic layout, warm
+                # the specialized one on the compile worker, swap at a
+                # span boundary (_maybe_swap).
+                self.dataflows[desc.name] = self._build(desc, generic=True)
+                self._count_recovery(desc.name, "installs")
+                self._mark_swap(desc.name, "pending")
+                self._ensure_compile_worker().submit(desc, self.device)
             else:
                 self.dataflows[desc.name] = self._build(desc)
                 self._count_recovery(desc.name, "installs")
@@ -1217,8 +1339,16 @@ class ReplicaWorker:
             from ..storage.persist.compactor import STATS as _CSTATS
 
             compactions = _CSTATS.take_dirty()
+        # Hot-swap transitions (and the async views' step counters)
+        # ride the same way, only when changed: the EXPLAIN ANALYSIS
+        # pending_swap / mz_program_bank surface.
+        swaps = {}
+        if self._swap_dirty:
+            dirty, self._swap_dirty = self._swap_dirty, set()
+            swaps = {name: dict(self._pending_swap[name])
+                     for name in dirty if name in self._pending_swap}
         if (changed or donation or sharding or recovery or spans
-                or compiles or metrics or freshness or compactions):
+                or compiles or metrics or freshness or swaps or compactions):
             ctp.send_msg(
                 conn,
                 ctp.frontiers(
@@ -1227,7 +1357,7 @@ class ReplicaWorker:
                     recovery=recovery, spans=spans, compiles=compiles,
                     metrics=metrics,
                     arrangement_bytes=abytes, freshness=freshness,
-                    compactions=compactions,
+                    swaps=swaps, compactions=compactions,
                 ),
             )
             return True

@@ -5,7 +5,8 @@
 ``consolidate_i64``). It is compiled with ``g++`` at FIRST USE, not at
 import, into the git-ignored ``materialize_tpu_torch/_build/`` (named by
 a hash of the source and flags, as the CUDA kernel is), and loaded with
-ctypes.
+ctypes; with a program bank configured (``compile/bank.py``) the library
+is looked up there first and stored there after a build.
 
 Unlike the reference, a failed build raises: there is no silent numpy
 fallback on the serving path. The numpy versions below (``*_plain``) are
@@ -32,18 +33,27 @@ _lib = None
 _LOCK = threading.Lock()
 
 
-def _compile() -> tuple:
-    """Compile (or reuse) the shared library; returns its path, whether
-    it was built now and the build's fingerprint. Raises
-    ``RuntimeError`` when g++ fails or is missing."""
+def build_key() -> tuple:
+    """The library's compile-ledger and program-bank key: ("g++", the
+    source and flags fingerprint, the host's machine)."""
+    import platform
+
     from ..utils.compile_ledger import source_fingerprint
 
-    src = SOURCE.read_bytes()
-    digest = source_fingerprint(src, CXX_FLAGS)
+    return "g++", source_fingerprint(SOURCE.read_bytes(), CXX_FLAGS), platform.machine()
+
+
+def _compile(digest: str) -> tuple:
+    """Compile (or reuse) the shared library; returns its path and
+    whether it was built now, and keeps the build's seconds beside it.
+    Raises ``RuntimeError`` when g++ fails or is missing."""
+    from ..compile.bank import write_build_seconds
+
     so_path = BUILD_DIR / f"libmtnative-{digest}.so"
     if so_path.exists():
-        return so_path, False, digest
+        return so_path, False
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
     # Per-process tmp name: concurrent first builds (test workers) must
     # not interleave writes into one file.
     tmp = so_path.with_suffix(f".so.tmp{os.getpid()}")
@@ -59,8 +69,9 @@ def _compile() -> tuple:
             f"building {SOURCE.name} with g++ failed ({proc.returncode}):\n"
             f"{proc.stdout}{proc.stderr}"
         )
+    write_build_seconds(so_path, time.perf_counter() - t0)
     os.replace(tmp, so_path)
-    return so_path, True, digest
+    return so_path, True
 
 
 def lib():
@@ -70,8 +81,13 @@ def lib():
         return _lib
     with _LOCK:
         if _lib is None:
+            from ..compile.bank import fetch_library
+
             t0 = time.perf_counter()
-            path, built, digest = _compile()
+            kind, digest, target = build_key()
+            path, cache, attrs = fetch_library(kind, SOURCE.name, digest, target,
+                                               "mtn_crc32c", "g++",
+                                               lambda: _compile(digest))
             so = ctypes.CDLL(str(path))
             so.mtn_crc32c.restype = ctypes.c_uint32
             so.mtn_crc32c.argtypes = [ctypes.c_char_p, ctypes.c_size_t]
@@ -95,9 +111,8 @@ def lib():
             _lib = so
             from ..utils.compile_ledger import LEDGER
 
-            LEDGER.record("g++", SOURCE.name, digest, " ".join(CXX_FLAGS),
-                          time.perf_counter() - t0,
-                          cache="miss" if built else "hit")
+            LEDGER.record(kind, SOURCE.name, digest, target, time.perf_counter() - t0,
+                          cache=cache, **attrs)
     return _lib
 
 

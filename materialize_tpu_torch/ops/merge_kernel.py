@@ -6,7 +6,9 @@ inversion and lanes gather that followed it).
 The CUDA source has a plain C interface, is compiled with ``nvcc`` for
 ``sm_90a`` into ``materialize_tpu_torch/_build/`` at first use (keyed by
 a hash of the source and flags, so an edit rebuilds), and is loaded
-with ``ctypes``. Nothing here runs when the module is imported.
+with ``ctypes``; with a program bank configured (``compile/bank.py``)
+the library is looked up there first and stored there after a build.
+Nothing here runs when the module is imported.
 
 ``search_right`` and ``merge_path`` launch on CUDA tensors only; their
 plain torch versions are ``ops/merge.py:search_right_torch`` and
@@ -58,15 +60,14 @@ def _nvcc() -> str:
     return found
 
 
-def _compile():
+def _compile(digest: str):
     """Compile ``SOURCE`` with nvcc into a shared library under
-    ``BUILD_DIR`` (named by a hash of the source and flags; an existing
-    one is reused). Returns (path, compiler log, seconds, whether it was
-    built now, the build's fingerprint)."""
-    from ..utils.compile_ledger import source_fingerprint
+    ``BUILD_DIR`` (named by the build's fingerprint; an existing one is
+    reused, and the seconds of the build that made it are kept beside
+    it). Returns (path, compiler log, seconds, whether it was built
+    now)."""
+    from ..compile.bank import write_build_seconds
 
-    src = SOURCE.read_bytes()
-    digest = source_fingerprint(src, NVCC_FLAGS)
     lib_path = BUILD_DIR / f"lib{SOURCE.stem}-{digest}.so"
     t0 = time.perf_counter()
     log = ""
@@ -81,21 +82,48 @@ def _compile():
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        write_build_seconds(lib_path, time.perf_counter() - t0)
         os.replace(tmp, lib_path)
-    return lib_path, log, time.perf_counter() - t0, built, digest
+    return lib_path, log, time.perf_counter() - t0, built
+
+
+def build_key() -> tuple:
+    """The library's compile-ledger and program-bank key: ("nvcc", the
+    source and flags fingerprint, the target)."""
+    from ..utils.compile_ledger import source_fingerprint
+
+    target = next(f.split("code=", 1)[1] for f in NVCC_FLAGS if "code=" in f)
+    return "nvcc", source_fingerprint(SOURCE.read_bytes(), NVCC_FLAGS), target
 
 
 def build():
-    """Compile (if needed) and load the kernel library; returns its C
-    entry point ``merge_path`` with its argument types. Records the
-    build's seconds, the seconds to build (if needed) and load the
-    library, and the compiler's ``-Xptxas -v`` report in
-    ``BUILD_INFO``, and the build or load in the compile ledger."""
+    """Load the kernel library, from the program bank where one is
+    configured and holds it (``compile/bank.py``), else from
+    ``BUILD_DIR`` after compiling it if needed; returns its C entry
+    point ``merge_path`` with its argument types. Records the build's
+    seconds, the seconds to fetch and load the library, and the
+    compiler's ``-Xptxas -v`` report in ``BUILD_INFO``, and the build or
+    load in the compile ledger."""
     global _FN
     with _LOCK:
         if _FN is None:
+            from ..compile.bank import fetch_library
+
             t0 = time.perf_counter()
-            path, log, seconds, built, digest = _compile()
+            kind, digest, target = build_key()
+            made: dict = {"log": "", "seconds": 0.0}
+
+            def compile_():
+                path, made["log"], made["seconds"], built = _compile(digest)
+                return path, built
+
+            try:
+                nvcc = _nvcc()
+            except RuntimeError:
+                nvcc = "nvcc"  # a bank hit needs no compiler; a build raises
+            path, cache, attrs = fetch_library(kind, SOURCE.name, digest, target,
+                                               "merge_path", nvcc, compile_)
+            log, seconds = made["log"], made["seconds"]
             fn = ctypes.CDLL(str(path)).merge_path
             fn.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -110,8 +138,8 @@ def build():
                               load_seconds=load_seconds)
             from ..utils.compile_ledger import LEDGER
 
-            LEDGER.record("nvcc", SOURCE.name, digest, " ".join(NVCC_FLAGS),
-                          load_seconds, cache="miss" if built else "hit")
+            LEDGER.record(kind, SOURCE.name, digest, target, load_seconds, cache=cache,
+                          **attrs)
         return _FN
 
 

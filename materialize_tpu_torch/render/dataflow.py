@@ -113,7 +113,7 @@ class _RenderContext:
     the join sites' output tiers, which overflow growth doubles."""
 
     def __init__(self, state_cap: int, device, join_cap: int = 1024, mesh=None,
-                 slot_cap: int = 256, spmd_safe=None):
+                 slot_cap: int = 256, spmd_safe=None, force_merge_ingest: bool = False):
         self.state_cap = state_cap
         self.device = device
         self.slots: list = []
@@ -130,11 +130,14 @@ class _RenderContext:
         # Append slots of operator-state spines (0: merge ingest). Under
         # SPMD a ring needs a shard-local cursor (``spmd_safe``): each
         # rank's cursor lives in its own process, so a sharded render
-        # passes True.
+        # passes True. ``force_merge_ingest``: the generic layout an
+        # async install serves first (``compile/worker.py``), merge
+        # ingest whatever the decision.
         self.ingest_slots = (
             INGEST_RING_SLOTS
-            if state_ingest_mode(state_cap, spmd=self.num_shards > 1,
-                                 spmd_safe=spmd_safe) == "append_slot"
+            if not force_merge_ingest
+            and state_ingest_mode(state_cap, spmd=self.num_shards > 1,
+                                  spmd_safe=spmd_safe) == "append_slot"
             else 0
         )
         self.join_caps: list = []
@@ -955,7 +958,8 @@ class Dataflow:
 
     def __init__(self, expr: mir.RelationExpr, name: str = "df",
                  state_cap: int = 256, out_levels: int = 2,
-                 out_slots: int | None = None, device=None):
+                 out_slots: int | None = None, device=None,
+                 force_merge_ingest: bool = False):
         self.device = resolve_device(device)
         self.expr = expr
         self.name = name
@@ -963,6 +967,11 @@ class Dataflow:
         self.state_cap = quantize_cap(state_cap)
         # Output deltas are shrunk to this tier before the index insert.
         self.out_delta_cap = 4096
+        # The generic layout of an async install: merge ingest for the
+        # state spines and the output index.
+        self.force_merge_ingest = force_merge_ingest
+        if force_merge_ingest:
+            out_slots = 0
         if out_slots is None:
             out_slots = (
                 INGEST_RING_SLOTS
@@ -1019,7 +1028,8 @@ class Dataflow:
     _output_cap = 256
 
     def _new_context(self) -> _RenderContext:
-        return _RenderContext(self.state_cap, self.device)
+        return _RenderContext(self.state_cap, self.device,
+                              force_merge_ingest=self.force_merge_ingest)
 
     # -- schedule -----------------------------------------------------------
     @staticmethod
@@ -1386,7 +1396,7 @@ class Dataflow:
         for inputs in inputs_list:
             self._check_inputs(inputs)
             out, self.states, self.output, self.err_output, fl = self._step_core(
-                self.states, self.output, self.err_output, inputs
+                self.states, self.output, self.err_output, inputs  # donated: ok(step operands)
             )
             deltas.append(out)
             sfl = self._or(sfl, fl)
@@ -1841,6 +1851,26 @@ class ShardedDataflow(Dataflow):
     @_collective
     def check_flags(self) -> bool:
         return super().check_flags()
+
+    @_collective
+    def record_collectives(self) -> list:
+        """One step of empty inputs recorded on every rank
+        (``analysis/step_lint.py``), then undone: the dataflow's states,
+        time and census are as before. Returns every rank's record of
+        its collectives, in rank order (``analysis/shard_prop.py``)."""
+        from ..analysis.shard_prop import empty_inputs
+        from ..analysis.step_lint import _COLLECTIVES, StepRecord, record_step
+
+        self.span_barrier()
+        self.check_flags()
+        ck, census, first = self._checkpoint(), self._census, self._ctx.first_time
+        try:
+            _out, rec = record_step(self, empty_inputs(self.expr, self.device))
+        finally:
+            self._restore(ck)
+            self._census, self._ctx.first_time = census, first
+        mine = StepRecord(ops=[op for op in rec.ops if op.name in _COLLECTIVES])
+        return self.mesh.gather_objects(mine)
 
     @_collective
     def flags_snapshot(self):

@@ -12,9 +12,11 @@ serves pgwire + HTTP. One command brings up a working deployment:
 Every replica steps its dataflows on ``--device`` (default ``"cuda"``),
 and so do the coordinator's introspection reads. A replica that cannot
 have its device exits non-zero, and the environment then raises instead
-of serving without it. The reference's program bank (``compile/bank.py``)
-has no counterpart in eager torch (ROADMAP Queue 2 item 6): no bank is
-configured and no compile records are reported.
+of serving without it. Every process of the deployment shares one
+program bank (``compile/bank.py``) under ``<data-dir>/blob/program_bank``:
+this one configures it, and spawned replicas inherit it through
+``MZ_PROGRAM_BANK``, so a ``--recover`` boot loads its native libraries
+from the bank instead of building them (``recovery_report()["compiles"]``).
 """
 
 from __future__ import annotations
@@ -47,13 +49,24 @@ def _free_port() -> int:
 REPLICA_BOOT_TIMEOUT = 120.0
 
 
+def bank_path(data_dir: str) -> str:
+    """The deployment's program-bank directory: under the blob root, so
+    ``--recover`` finds the libraries where the durable state is."""
+    return os.path.join(data_dir, "blob", "program_bank")
+
+
 def spawn_replica(
     data_dir: str, port: int, rid: str, workers: int = 1,
     device: str = "cuda",
 ) -> subprocess.Popen:
     """One clusterd subprocess (orchestrator-process analog), a fresh
     interpreter started with ``python -m`` (never a fork of a process
-    that may hold a CUDA context)."""
+    that may hold a CUDA context). It shares the deployment's program
+    bank through ``MZ_PROGRAM_BANK``."""
+    from ..compile.bank import BANK_ENV_VAR
+
+    env = dict(os.environ)
+    env.setdefault(BANK_ENV_VAR, bank_path(data_dir))
     return subprocess.Popen(
         [
             sys.executable, "-m", "materialize_tpu_torch.coord.replica",
@@ -64,7 +77,7 @@ def spawn_replica(
             "--workers", str(workers),
             "--device", str(device),
         ],
-        env=dict(os.environ),
+        env=env,
     )
 
 
@@ -90,6 +103,11 @@ class Environment:
         os.makedirs(data_dir, exist_ok=True)
         self.data_dir = data_dir
         self.device = str(device)
+        # This process (coordinator and in-process replicas) and the
+        # spawned replicas (MZ_PROGRAM_BANK) share one bank.
+        from ..compile.bank import configure_bank
+
+        configure_bank(bank_path(data_dir))
         self.procs: list[subprocess.Popen] = []
         self._in_process = in_process_replicas
         self._default_workers = workers
@@ -429,11 +447,27 @@ class Environment:
     def recovery_report(self) -> dict:
         """What this boot recovered: the coordinator's catalog replay
         counts and the controller's replica/dataflow recovery view
-        (the programmatic face of `mz_recovery`). It has no
-        ``compiles`` block: no program bank serves compiles in eager
-        torch."""
+        (the programmatic face of `mz_recovery`), and its ``compiles``
+        block: how much of the boot's native library builds the program
+        bank absorbed. A recovery over a warm bank shows
+        ``bank_misses == 0`` and ``fresh_compiles == 0``, with the build
+        seconds it skipped in ``compile_seconds_recovered``."""
+        from ..compile.bank import get_bank
+        from ..utils.compile_ledger import LEDGER
+
         report = {"coordinator": dict(self.coord.recovery)}
         report.update(self.coord.controller.recovery_snapshot())
+        s = LEDGER.summary()
+        compiles = {
+            "bank_hits": s["bank_hits"],
+            "bank_misses": s["bank_misses"],
+            "compile_seconds_recovered": s["bank_seconds_recovered"],
+            "fresh_compiles": s["misses"],
+        }
+        bank = get_bank()
+        if bank is not None:
+            compiles["bank"] = bank.snapshot()
+        report["compiles"] = compiles
         return report
 
     def await_recovery(self, timeout: float = 120.0) -> dict:
@@ -477,6 +511,11 @@ class Environment:
             w = rec.get("worker")
             if w is not None:
                 w.stop()
+        # The deployment owns its bank directory: a later Environment
+        # (or a bankless caller in this process) must not write into it.
+        from ..compile.bank import configure_bank
+
+        configure_bank(None)
         # Stop the process-global background compactor: its queue
         # holds Machines rooted in THIS deployment's blob/consensus; a
         # later Environment starts a fresh one.

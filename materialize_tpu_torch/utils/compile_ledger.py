@@ -2,19 +2,20 @@
 port's copy of ``materialize_tpu/utils/compile_ledger.py``).
 
 The reference records every XLA compile of its jitted programs. Eager
-torch compiles no program per dataflow: its kernels are prebuilt, and
-the port has no per-dataflow program to record until it captures CUDA
-graphs (ROADMAP Queue 2 item 6). What the port does compile is its
+torch compiles no program per dataflow: what the port compiles is its
 native libraries, each built at first use in a process:
 
 - ``csrc/merge_path.cu`` by ``nvcc`` (``ops/merge_kernel.py:build``);
 - ``native/mtnative.cpp`` by ``g++`` (``native/__init__.py:lib``).
 
 Each build or load records ``(kind, library name, source fingerprint,
-flags, seconds, cache)`` into a bounded per-process ring, where
-``cache`` is ``miss`` when the library was built in this call and
-``hit`` when an earlier build under ``_build/`` (same source and flags)
-was loaded.
+target, seconds, cache)`` into a bounded per-process ring, where
+``cache`` is ``miss`` when the library was built in this call, ``hit``
+when an earlier build under ``_build/`` (same source and flags) was
+loaded, and ``bank_hit`` when the program bank (``compile/bank.py``)
+served it; a lookup that missed the bank carries ``bank="miss"``.
+``bank_hit`` records are not compiles: ``summary()`` counts them apart
+(``bank_hits``, ``bank_seconds_recovered``), as the reference's does.
 
 Replica processes piggyback their records on Frontiers responses; the
 controller ingests them, deduplicating by pid so in-process replicas
@@ -39,9 +40,10 @@ class CompileRecord:
     kind: str  # nvcc | g++
     name: str  # the library built or loaded
     fingerprint: str  # digest of the library's source and flags
-    tier: str  # the build's flags (the reference's tier vector)
+    tier: str  # the build's target (the reference's tier vector)
     seconds: float
-    # "miss" (built by this call) | "hit" (an earlier build loaded)
+    # "miss" (built by this call) | "hit" (an earlier build loaded) |
+    # "bank_hit" (served from the program bank)
     cache: str
     when: float = 0.0  # wall-clock stamp
     pid: int = 0
@@ -101,6 +103,15 @@ class CompileLedger:
                         300,
                     ),
                 ),
+                REGISTRY.get_or_create(
+                    "counter", "mz_compile_bank_hits_total",
+                    "native libraries served from the program bank",
+                ),
+                REGISTRY.get_or_create(
+                    "counter", "mz_compile_bank_misses_total",
+                    "native library loads whose key the program bank "
+                    "did not hold",
+                ),
             )
         return self._metrics
 
@@ -131,10 +142,15 @@ class CompileLedger:
             self._buf.append(rec)
             if self._ship is not None:
                 self._ship.append(rec)
-        total, misses, hits, hist = self._metric_handles()
-        total.inc()
-        (misses if cache == "miss" else hits).inc()
-        hist.observe(seconds)
+        total, misses, hits, hist, bank_hits, bank_misses = self._metric_handles()
+        if cache == "bank_hit":
+            bank_hits.inc()
+        else:
+            total.inc()
+            (misses if cache == "miss" else hits).inc()
+            hist.observe(seconds)
+            if attrs.get("bank") == "miss":
+                bank_misses.inc()
         return rec
 
     # -- cross-process shipping (Frontiers piggyback) ------------------------
@@ -171,10 +187,14 @@ class CompileLedger:
             return list(self._buf) + list(self._ingested)
 
     def summary(self, names: set | None = None) -> dict:
-        """Totals, optionally scoped to library ``names``."""
+        """Totals, optionally scoped to library ``names``. ``bank_hit``
+        records are not compiles: they count apart, with the build
+        seconds they skipped."""
         recs = self.records()
         if names is not None:
             recs = [r for r in recs if r.name in names]
+        banked = [r for r in recs if r.cache == "bank_hit"]
+        recs = [r for r in recs if r.cache != "bank_hit"]
         out = {
             "compiles": len(recs),
             "misses": sum(1 for r in recs if r.cache == "miss"),
@@ -182,6 +202,11 @@ class CompileLedger:
             "seconds": round(sum(r.seconds for r in recs), 3),
             "hit_seconds": round(
                 sum(r.seconds for r in recs if r.cache == "hit"), 3
+            ),
+            "bank_hits": len(banked),
+            "bank_misses": sum(1 for r in recs if r.attrs.get("bank") == "miss"),
+            "bank_seconds_recovered": round(
+                sum(float(r.attrs.get("recovered_seconds", 0.0)) for r in banked), 3
             ),
             "by_kind": {},
         }

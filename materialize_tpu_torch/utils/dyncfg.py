@@ -107,11 +107,7 @@ class ConfigSet:
 # The compute-layer flag set (compute-types/src/dyncfgs.rs analog).
 COMPUTE_CONFIGS = ConfigSet()
 
-# Where the readers of the port's unported flags wait.
-PROGRAM_BANK = (
-    "ROADMAP Queue 2 item 6: the program bank has no counterpart in "
-    "eager torch"
-)
+# Why the port's unported flags have no reader.
 NO_COUNTERPART = (
     "ROADMAP Queue 3: a choice inside the TPU programs with no "
     "counterpart in the port"
@@ -309,31 +305,28 @@ SPAN_DONATION = Config(
     "state always reflects the EFFECTIVE value, which is off",
 ).register(COMPUTE_CONFIGS)
 
-# -- the persistent AOT program bank ------------------------------
+# -- the program bank over the native libraries --------------------
 
 PROGRAM_BANK_PATH = Config(
     "program_bank_path", "",
-    "directory of the persistent cross-process AOT program bank "
-    "(compile/bank.py): every ledger_jit site looks serialized "
-    "executables up by (kind, fingerprint, tier) before compiling "
-    "and writes misses back. Empty = bank off (dispatch is "
-    "byte-identical to the pre-bank hot path). environmentd sets "
-    "this to <data-dir>/blob/program_bank; SET propagates it to "
-    "replicas like every dyncfg",
-    unported=PROGRAM_BANK,
+    "directory of the program bank (compile/bank.py): both native "
+    "library build sites (merge_path.cu by nvcc, mtnative.cpp by g++) "
+    "look the library up by (kind, fingerprint, target) before "
+    "building and store what they built. Empty = bank off. "
+    "environmentd sets <data-dir>/blob/program_bank; SET propagates it "
+    "to replicas like every dyncfg",
 ).register(COMPUTE_CONFIGS)
 
 ENABLE_ASYNC_COMPILE = Config(
     "enable_async_compile", False,
-    "async DDL compile + hot-swap (requires a program bank): CREATE "
-    "INDEX / CREATE MATERIALIZED VIEW installs its dataflow in "
-    "generic merge mode immediately (correct results, O(run0) "
-    "ingest) while a background worker pre-compiles the specialized "
-    "program into the bank; the replica hot-swaps at a span boundary "
-    "(sync_spans sequencing — no half-applied carry). Surfaced in "
-    "EXPLAIN ANALYSIS compiles: pending_swap, the hydration board, "
-    "and mz_program_bank",
-    unported=PROGRAM_BANK,
+    "async DDL install + hot-swap (requires a program bank): CREATE "
+    "INDEX / CREATE MATERIALIZED VIEW installs its dataflow in merge "
+    "ingest immediately (correct results, O(run0) ingest) while a "
+    "background worker renders the specialized layout, loads both "
+    "native libraries through the bank and steps it once on empty "
+    "batches; the replica hot-swaps at a span boundary (sync_spans "
+    "sequencing — no half-applied carry). Surfaced in EXPLAIN ANALYSIS "
+    "compiles: pending_swap, the hydration board, and mz_program_bank",
 ).register(COMPUTE_CONFIGS)
 
 # -- buffer-provenance / donation safety ---------------------------

@@ -16,6 +16,7 @@ import time as _time
 
 import numpy as np
 
+from ..analysis.shard_prop import _has_slot_cursors, census_of
 from ..expr import relation as mir
 from ..render.dataflow import ShardedDataflow
 from ..repr.batch import Batch
@@ -110,6 +111,12 @@ def _drive_spans(torch, sdf, warm: list, spans: list) -> dict:
     }
 
 
+def _counted(sdf) -> dict:
+    """The ingest mode and the census the last step counted."""
+    return {"ingest_mode": "append_slot" if _has_slot_cursors(sdf) else "merge",
+            "census": census_of(sdf._census)}
+
+
 def run_mc_index(mesh, spans: int = 4, ticks: int = 16, warm: bool = True) -> dict:
     """``mc_index`` as the reference's multichip bench runs it: one warm
     span, then ``spans`` timed spans of ``ticks`` ticks."""
@@ -122,13 +129,21 @@ def run_mc_index(mesh, spans: int = 4, ticks: int = 16, warm: bool = True) -> di
     run = _drive_spans(torch, sdf, _spans_of(inputs[:n_warm], ticks),
                        _spans_of(inputs[n_warm:], ticks))
     steps = spans * ticks
+    # The collectives the last step issued, then, where there are ranks
+    # to compare, the prover's report over one recorded step of every
+    # rank (analysis/shard_prop.py).
+    logged = _counted(sdf)
+    t_r = _time.perf_counter()
+    report = sdf.sharding_report() if mesh.world_size > 1 else logged
     return {
         "workers": mesh.world_size, "backend": mesh.backend, "rank": mesh.rank,
         "ticks": len(host), "updates": MC_ROWS * steps,
         "updates_per_s": MC_ROWS * steps / (sum(run["span_ms"]) / 1e3),
         "collective_ms_per_step": run["collective_s"] * 1e3 / steps,
         "collectives_per_step": run["collective_calls"] / steps,
-        "report": sdf.sharding_report(),
+        "report": report,
+        "report_s": _time.perf_counter() - t_r,
+        "logged_census": logged["census"],
         "grown": [str(k) for k in sdf._grown],
         "peek": sdf.peek(),
         **run,
@@ -177,7 +192,7 @@ def q1_sharded(mesh, sf: float, churn_ticks: int, n_orders_per_tick: int = 1024,
         "run_s": _time.perf_counter() - t_h,
         "churn_updates_per_s": rows / (run["span_ms"][0] / 1e3),
         "collective_ms_per_churn_step": run["collective_s"] * 1e3 / churn_ticks,
-        "report": sdf.sharding_report(),
+        "report": _counted(sdf),
         "grown": [str(k) for k in sdf._grown],
         "slot_cap": sdf._ctx.slot_cap,
         "steps": steps,

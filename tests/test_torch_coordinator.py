@@ -20,8 +20,8 @@ reference.
   so does a SET of a registered flag the port does not read, to any value
   but its default. The pieces ported since answer: ``mz_span_epochs``,
   ``mz_compile_log`` (the native library's build and load), EXPLAIN
-  ANALYSIS, ``mz_donation``, ``mz_sharding`` and the span, plan and
-  analysis flags; a replica of two workers whose mesh cannot be placed
+  ANALYSIS, ``mz_donation``, ``mz_sharding``, ``mz_program_bank``, the
+  span, plan and analysis flags and the program bank's; a replica of two workers whose mesh cannot be placed
   (NCCL on the CPU) fails its boot.
 """
 
@@ -154,10 +154,10 @@ def test_unported_pieces_raise_naming_their_item(tmp_path):
         c = cl.coordinator()
         c.execute("CREATE TABLE st (v bigint NOT NULL)")
         plan_error = mod("port", "sql.hir").PlanError
-        cases = {
-            # Introspection relations over state the port does not have.
-            "SELECT * FROM mz_program_bank": (NotImplementedError, "Queue 2 item 6"),
-        }
+        # Every introspection relation is ported: the program bank's too
+        # (item 16), which answers with no bank configured.
+        assert c.execute("SELECT * FROM mz_program_bank").rows == []
+        cases = {}
         # Kafka sources and sinks are ported (item 16): their options are
         # validated before the durable record, as the reference's are
         # (a poison record would fail every later boot).
@@ -185,8 +185,6 @@ def test_unported_pieces_raise_naming_their_item(tmp_path):
         unported = {
             "fused_merge": ("'lax'", "Queue 3"),
             "cached_run_lanes": ("false", "Queue 3"),
-            "program_bank_path": ("'/x'", "Queue 2 item 6"),
-            "enable_async_compile": ("true", "Queue 2 item 6"),
         }
         dyncfg = mod("port", "utils.dyncfg")
         configs = dyncfg.COMPUTE_CONFIGS._configs
@@ -218,13 +216,20 @@ def test_unported_pieces_raise_naming_their_item(tmp_path):
             "SELECT spmd, workers FROM mz_sharding WHERE dataflow = 'stv'").rows == [(0, 1)]
         # The span, plan and analysis flags have their readers: any value
         # is taken.
+        bank_dir = tmp_path / "bank"
         for sql in ("SET span_window_spans = 4", "SET span_donation = 'on'",
                     "SET delta_join_min_inputs = 2", "SET arrangement_ingest_mode = 'merge'",
                     "SET optimizer_typecheck = true", "SET buffer_sanitizer = true",
-                    "SET race_detector = true"):
+                    "SET race_detector = true", f"SET program_bank_path = '{bank_dir}'",
+                    "SET enable_async_compile = true"):
             c.execute(sql)
         assert dyncfg.SPAN_WINDOW_SPANS(dyncfg.COMPUTE_CONFIGS) == 4
         assert dyncfg.DELTA_JOIN_MIN_INPUTS(dyncfg.COMPUTE_CONFIGS) == 2
+        # The program bank's path has its reader (item 16): this process
+        # points its bank there.
+        assert mod("port", "compile.bank").get_bank().root == str(bank_dir)
+        c.execute("SET program_bank_path = ''")
+        assert mod("port", "compile.bank").get_bank() is None
         for name in unported:
             default = configs[name].default
             literal = f"'{default}'" if isinstance(default, str) else str(default).lower()
@@ -236,7 +241,9 @@ def test_unported_pieces_raise_naming_their_item(tmp_path):
         mod("port", "utils.dyncfg").COMPUTE_CONFIGS.update({
             n: None for n in ("span_window_spans", "span_donation",
                               "delta_join_min_inputs", "arrangement_ingest_mode",
-                              "optimizer_typecheck", "buffer_sanitizer", "race_detector")})
+                              "optimizer_typecheck", "buffer_sanitizer", "race_detector",
+                              "program_bank_path", "enable_async_compile")})
+        mod("port", "compile.bank").configure_bank(None)
     replica = mod("port", "coord.replica")
     protocol = mod("port", "coord.protocol")
     loc = protocol.PersistLocation(str(tmp_path / "b2"), str(tmp_path / "c2.db"))

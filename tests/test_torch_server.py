@@ -386,11 +386,14 @@ def test_port_environmentd_with_a_subprocess_replica(envs, tmp_path):
             "results"][-1]["rows"] if row[0] == "depmv"], msg="lag records from the replica")
         assert lag[0][1] == "r0" and lag[0][2] >= 1
         # The replica process's native library load, shipped on its
-        # Frontiers into the compile ledger.
+        # Frontiers into the compile ledger: an earlier build, loaded from
+        # _build/ or from the deployment's program bank (whichever of
+        # environmentd and its replica loads first stores it there).
         compiles = _until(lambda: [row for row in _sql(http, (
             "SELECT process, kind, dataflow, cache FROM mz_compile_log"))[1][
             "results"][-1]["rows"] if row[0] == "r0"], msg="the replica's compile records")
-        assert ["r0", "g++", "mtnative.cpp", "hit"] in compiles, compiles
+        assert [r[1:3] for r in compiles] == [["g++", "mtnative.cpp"]], compiles
+        assert compiles[0][3] in ("hit", "bank_hit"), compiles
         ready = _until(lambda: (lambda x: x if x[0] == 200 else None)(
             _http(http, "/api/readyz")), msg="readyz")
         assert json.loads(ready[2])["ready"] is True
@@ -405,7 +408,10 @@ def test_port_environmentd_with_a_subprocess_replica(envs, tmp_path):
         report = json.loads(next(ln for ln in lines if ln.startswith("recovery: "))[10:])
         assert report["coordinator"]["catalog_replayed"] == 5.0
         assert report["coordinator"]["replay_failures"] == 0.0
-        assert "compiles" not in report
+        # The libraries come back from the deployment's program bank:
+        # nothing is built.
+        c = report["compiles"]
+        assert c["bank_hits"] >= 1 and c["bank_misses"] == 0 and c["fresh_compiles"] == 0, c
         assert sorted(_sql(http, "SELECT * FROM depmv")[1]["results"][-1]["rows"]) == [
             [1, 1], [2, 2], [3, 1]]
         r, next_data = _sse_subscribe(http, f"SUBSCRIBE depmv AS OF {frontier - 1}")
